@@ -1,0 +1,16 @@
+"""The port's codec: SQOA encode/decode pipelines on the card."""
+
+from .decode import decode
+from .decode_v2 import decode_stream, decode_stream_batched
+from .encode import encode, normalize_pixels_packed
+from .encode_v2 import encode_stream, encode_stream_batched
+
+__all__ = [
+    "decode",
+    "decode_stream",
+    "decode_stream_batched",
+    "encode",
+    "encode_stream",
+    "encode_stream_batched",
+    "normalize_pixels_packed",
+]

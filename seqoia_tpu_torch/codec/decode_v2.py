@@ -1,0 +1,138 @@
+"""SQOA (non-compat) stream decode on the card.
+
+Port of the fused branch of ``seqoia_tpu/codec/decode_v2.py``
+(``decode_stream_batched``, ``decode_stream``): K1 turns the bytes into the
+compacted op stream, K2 places it and emits the pixels through one of the
+decode epilogues below. The shapes K2 cannot emit directly (a color
+source decoded to 1/2 channels, a mono source to 3/4) go K1 -> K6 ->
+``_emit_pixels``; the JAX package sends mono sources with forced 3/4
+channels through its unfused front instead, which gives the same pixels
+(K1 is a drop-in for that front's compacted output).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops import engine, frontend
+from ..ops._plain import to_i32
+
+_INIT_PACKED = -16777216  # (0, 0, 0, 255): the decoder's initial pixel
+
+
+def _dec4(filled, t, scal):
+    return to_i32(torch.where(t < scal[:, :1], filled[0], 0))
+
+
+def _dec3(filled, t, scal):
+    words = _dec4(filled, t, scal)
+    bsz, n = words.shape
+    rgb = words.view(torch.uint8).reshape(bsz, n, 4)[:, :, :3]
+    return rgb.reshape(bsz, n * 3).view(torch.int32)
+
+
+def _mono1(filled, t, scal):
+    return torch.where(t < scal[:, :1], filled[0] & 255, 0).to(torch.uint8)
+
+
+def _mono2(filled, t, scal):
+    f = filled[0]
+    v = (f & 255) | (((f >> 24) & 255) << 8)
+    return torch.where(t < scal[:, :1], v, 0).to(torch.int32).to(torch.uint16)
+
+
+def _dec_epilogue(out_ch: int) -> engine.Epilogue:
+    """Color emission in K2: out_ch=4 writes the packed words (their
+    little-endian bytes are the RGBA stream), out_ch=3 the int32 words of
+    the interleaved RGB stream (the alpha byte dropped). Both zero the
+    pixels past n_pixels (the scalar)."""
+    if out_ch == 4:
+        return engine.Epilogue(engine.EPI_DEC4, torch.int32, _dec4)
+    return engine.Epilogue(engine.EPI_DEC3, torch.int32, _dec3, (3, 4))
+
+
+def _dec_epilogue_mono(out_ch: int) -> engine.Epilogue:
+    """Mono emission in K2 (gray in packed byte 0, alpha in byte 3):
+    out_ch=1 uint8 gray, out_ch=2 uint16 gray | alpha << 8."""
+    if out_ch == 1:
+        return engine.Epilogue(engine.EPI_MONO1, torch.uint8, _mono1)
+    return engine.Epilogue(engine.EPI_MONO2, torch.uint16, _mono2)
+
+
+def _emit_pixels(filled, n_pixels, colch: int, out_ch: int, n_max: int):
+    """Filled packed pixels (B, n_max) int32 -> flat interleaved uint8
+    (B, n_max * out_ch), zero past n_pixels. Mono payloads carry gray in
+    byte 0 (K1's mono layout), replicated for out_ch 3/4."""
+    f = filled.long()
+    r, g, b, a = (f & 255), (f >> 8) & 255, (f >> 16) & 255, (f >> 24) & 255
+    if colch == 3:
+        cols = [r, g, b] if out_ch >= 3 else [g]
+    else:
+        cols = [r, r, r] if out_ch >= 3 else [r]
+    if out_ch in (2, 4):
+        cols.append(a)
+    out = torch.stack(cols[:out_ch], dim=2)
+    t = torch.arange(n_max, device=f.device)[None, :, None]
+    out = torch.where(t < n_pixels.long()[:, None, None], out, 0)
+    return out.to(torch.uint8).reshape(f.shape[0], n_max * out_ch)
+
+
+def _maybe_words(u8_flat, emit: str):
+    """Flat uint8 pixels -> int32 words when emit="words"."""
+    if emit != "words":
+        return u8_flat
+    return u8_flat.view(torch.int32)
+
+
+def decode_stream_batched(data, chunks_len, n_pixels, *, colch: int,
+                          out_ch: int, n_max: int, emit: str = "u8",
+                          src_alpha: bool = True):
+    """Decode a batch of SQOA (non-compat) streams.
+
+    data: (B, M) uint8; chunks_len (stream length less the end marker) and
+    n_pixels: (B,) int32; n_max: pixel slots per row (>= n_pixels, a
+    multiple of 4). Returns (pixels, has_ref (B,) bool): pixels are flat
+    interleaved uint8 (B, n_max * out_ch), or with emit="words" an array
+    whose little-endian bytes are that stream (int32 (B, n_max * out_ch //
+    4) for color, uint8/uint16 (B, n_max) for mono sources at 1/2
+    channels). Rows with has_ref set need the host decoder."""
+    if emit not in ("u8", "words"):
+        raise ValueError(f"emit {emit!r}")
+    if colch not in (1, 3) or out_ch not in (1, 2, 3, 4):
+        raise ValueError("colch must be 1 or 3 and out_ch 1 to 4")
+    bsz = data.shape[0]
+    mode = "mono" if colch == 1 else ("alpha" if src_alpha else "noalpha")
+    keys, pays, totals, ref = frontend.decode_front_compact(
+        data, chunks_len, n_max, mode=mode)
+    npx = n_pixels.to(device=data.device, dtype=torch.int32)[:, None]
+    init = (_INIT_PACKED,)
+    if colch == 1 and out_ch in (1, 2):
+        out = engine.place_emit(keys, [pays], totals, npx, n_max, init,
+                                _dec_epilogue_mono(out_ch))
+        if emit == "words" or out_ch == 1:
+            return out, ref != 0
+        return out.view(torch.uint8).reshape(bsz, n_max * 2), ref != 0
+    if colch == 3 and out_ch in (3, 4):
+        words = engine.place_emit(keys, [pays], totals, npx, n_max, init,
+                                  _dec_epilogue(out_ch))
+        if emit == "words":
+            return words, ref != 0
+        return words.view(torch.uint8).reshape(bsz, n_max * out_ch), ref != 0
+    filled = engine.place_fill(keys, [pays], totals, n_max, init)[0]
+    out = _emit_pixels(filled, npx[:, 0], colch, out_ch, n_max)
+    return _maybe_words(out, emit), ref != 0
+
+
+def decode_stream(data, chunks_len: int, n_pixels: int, *, colch: int,
+                  out_ch: int, n_max: int, src_alpha: bool = True):
+    """Single-stream decode: (M,) uint8 -> ((n_max * out_ch,) flat uint8,
+    has_ref bool tensor)."""
+    dev = data.device
+    out, has_ref = decode_stream_batched(
+        data[None, :],
+        torch.tensor([chunks_len], dtype=torch.int32, device=dev),
+        torch.tensor([n_pixels], dtype=torch.int32, device=dev),
+        colch=colch, out_ch=out_ch, n_max=n_max, src_alpha=src_alpha,
+    )
+    return out[0], has_ref[0]
+

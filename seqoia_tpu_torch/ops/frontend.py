@@ -1,0 +1,173 @@
+"""K1: SQOA decode front-end, bytes -> compacted op stream.
+
+Port of ``seqoia_tpu/ops/pallas_frontend.py:decode_front_compact``. The
+kernel is ``csrc/frontend.cu`` (reduce-then-scan across blocks; see its
+header for the design and what bounds it on the H100); ``decode_front_plain``
+is the same function in plain PyTorch, in the form of the JAX package's
+XLA path (``decode_v2._tokenize`` / ``_npix_table`` / ``_reconstruct``),
+with the fused front's mode semantics:
+
+* ``"alpha"``: an op absorbs one following alpha-range byte (the
+  reference's alpha peek, seqoia.h:777-783) into its token length;
+* ``"noalpha"`` (header channels == 3): alpha-range and RGBA tokens flag
+  the stream foreign; RGBA parses as one byte;
+* ``"mono"``: LUMA is 1 byte, RGB 2, RGBA 3, no alpha peek; gray rides
+  byte 0 of the packed payload and alpha byte 3.
+
+Any unmatched byte is a run of ``(b & 63) + 1`` pixels. Outputs: keys (the
+op's first pixel) and payloads (packed RGBA after the op), each (B, M)
+int32 and valid below ``totals`` = the number of ops whose key < n_max;
+``has_ref`` (B,) int32 flags REF/foreign streams for the host fallback.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import spec
+from . import _build
+from ._plain import compact_rows, hillis_steele, shift_left, to_i32
+
+MODES = {"alpha": 0, "noalpha": 1, "mono": 2}
+
+_HDR1 = spec.HEADER_SIZE + 1
+_IDENT6 = sum(e << (3 * e) for e in range(6))
+_BASE6 = sum((e - 1) << (3 * e) for e in range(1, 6))
+
+
+def _compose6(left, right):
+    (l,), (r,) = left, right
+    out = torch.zeros_like(l)
+    for e in range(6):
+        fe = (l >> (3 * e)) & 7
+        out = out | (((r >> (3 * fe)) & 7) << (3 * e))
+    return (out,)
+
+
+def _swar_add(a, b):
+    return ((a & 0x7F7F7F7F) + (b & 0x7F7F7F7F)) ^ ((a ^ b) & 0x80808080)
+
+
+def _chan_combine(left, right):
+    (lv, lf), (rv, rf) = left, right
+    s = _swar_add(lv, rv)
+    m = torch.where((rf & 1) == 1, 0x00FFFFFF, 0) | torch.where(
+        (rf & 2) == 2, 0xFF000000, 0)
+    return (rv & m) | (s & (m ^ 0xFFFFFFFF)), (lf | rf) & 3
+
+
+def decode_front_plain(data, chunks_len, n_max: int, mode: str = "alpha"):
+    """Plain PyTorch K1 (see module docstring). Entries past totals are 0."""
+    mono, noalpha = mode == "mono", mode == "noalpha"
+    b = data.long()
+    m = b.shape[-1]
+    pos = torch.arange(m, device=b.device)
+    b1, b2, b3, b4 = (shift_left(b, k) for k in (1, 2, 3, 4))
+    is_luma = (b & spec.MASK_2) == spec.OP_LUMA
+    is_rgb = b == spec.OP_RGB
+    is_rgba = b == spec.OP_RGBA
+
+    # --- token automaton: 6-state skip counter, one map per byte ----------
+    att = torch.zeros_like(b)
+    if mono:
+        lens = 1 + is_rgb.long() + 2 * is_rgba.long()
+    elif noalpha:
+        lens = 1 + is_luma.long() + 3 * is_rgb.long()
+    else:
+        lens = 1 + is_luma.long() + 3 * is_rgb.long() + 4 * is_rgba.long()
+        isalpha = (b >= spec.OP_ALPHA) & (b < spec.OP_LUMA)
+        ext = torch.zeros_like(b)
+        for k in (1, 2, 4, 5):
+            hit = (lens == k) & shift_left(isalpha.long(), k).bool()
+            ext = ext + hit.long()
+            att = att + torch.where(hit, (shift_left(b, k) & 31) - 16, 0)
+        lens = lens + ext
+    eff = torch.where(pos >= _HDR1, lens, 1)
+    (incl,) = hillis_steele(((eff - 1) + _BASE6,), _compose6)
+    state = torch.cat([torch.zeros_like(incl[..., :1]), incl[..., :-1] & 7],
+                      dim=-1)
+    clen = chunks_len.long()[:, None]
+    token = (state == 0) & (pos >= _HDR1) & (pos < clen)
+
+    if noalpha:
+        foreign = (b < spec.OP_LUMA) | is_rgba
+    else:
+        foreign = b < spec.OP_ALPHA
+    has_ref = (token & foreign).any(dim=-1)
+
+    # --- pixel counts and offsets ------------------------------------------
+    npix = (b & 0x3F) + 1
+    npix = torch.where(is_luma | is_rgb | is_rgba, 1, npix)
+    npix = torch.where(b == spec.OP_BIGRUN, spec.SQOA_MAXRUN, npix)
+    npix = torch.where(b < spec.OP_ALPHA, 1, npix)
+    npix = torch.where(token, npix, 0)
+    keys = torch.cumsum(npix, dim=-1) - npix
+
+    # --- channel elements and the segmented SWAR sum -----------------------
+    vg = (b & 0x3F) - 32
+    anchor = token & (is_rgb | is_rgba)
+    anchor_a = token & is_rgba if not noalpha else torch.zeros_like(token)
+    luma_op = token & is_luma
+    zero = torch.zeros_like(b)
+    if mono:
+        r_el = torch.where(anchor, b1, torch.where(luma_op, vg, 0))
+        g_el = b_el = zero
+        a_el = torch.where(anchor_a, b2, 0)
+    else:
+        r_el = torch.where(anchor, b1, torch.where(
+            luma_op, vg - 8 + ((b1 >> 4) & 15), 0))
+        g_el = torch.where(anchor, b2, torch.where(luma_op, vg, 0))
+        b_el = torch.where(anchor, b3, torch.where(
+            luma_op, vg - 8 + (b1 & 15), 0))
+        a_el = torch.where(anchor_a, b4, 0) + torch.where(token, att, 0)
+    val = ((r_el & 255) | ((g_el & 255) << 8) | ((b_el & 255) << 16)
+           | ((a_el & 255) << 24))
+    flg = anchor.long() | (anchor_a.long() << 1)
+    sv, sf = hillis_steele((val, flg), _chan_combine)
+    a_v = (sv >> 24) & 255
+    a_v = torch.where((sf & 2) == 2, a_v, (a_v + 255) & 255)
+    packed = (sv & 0x00FFFFFF) | (a_v << 24)
+
+    keep = token & (keys < n_max)
+    keys_c, pays_c = compact_rows(keep, keys, packed)
+    totals = keep.sum(dim=-1).to(torch.int32)
+    return keys_c, pays_c, totals, has_ref.to(torch.int32)
+
+
+def decode_front_compact(data, chunks_len, n_max: int, mode: str = "alpha"):
+    """K1. data: (B, M) uint8; chunks_len: (B,) int32 (stream length less
+    the 8-byte end marker). Returns (keys, payloads, totals, has_ref).
+
+    A CUDA tensor runs the kernel; a CPU tensor runs the plain version."""
+    if mode not in MODES:
+        raise ValueError(f"mode {mode!r}")
+    if data.dim() != 2 or data.dtype != torch.uint8:
+        raise ValueError("data must be a (B, M) uint8 tensor")
+    if chunks_len.shape != (data.shape[0],):
+        raise ValueError("chunks_len must be (B,)")
+    if not data.is_cuda:
+        if data.device.type != "cpu":
+            raise ValueError(f"unsupported device {data.device}")
+        return decode_front_plain(data, chunks_len, n_max, mode)
+    bsz, m = data.shape
+    dev = data.device
+    data = data.contiguous()
+    clen = chunks_len.to(device=dev, dtype=torch.int32).contiguous()
+    nblk = -(-m // 4096)
+    scratch = torch.empty(10 * bsz * nblk, dtype=torch.int32, device=dev)
+    keys = torch.empty((bsz, m), dtype=torch.int32, device=dev)
+    pays = torch.empty((bsz, m), dtype=torch.int32, device=dev)
+    totals = torch.zeros(bsz, dtype=torch.int32, device=dev)
+    has_ref = torch.zeros(bsz, dtype=torch.int32, device=dev)
+    lib = _build.load("frontend")
+    P = _build.ptr
+    decode_front_compact.launches += 1
+    rc = lib.k1_decode_front(
+        P(data), P(clen), bsz, m, int(n_max), MODES[mode], P(scratch),
+        P(keys), P(pays), P(totals), P(has_ref), _build.stream_ptr(dev),
+    )
+    _build.check(rc, "k1_decode_front")
+    return keys, pays, totals, has_ref
+
+
+decode_front_compact.launches = 0
