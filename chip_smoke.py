@@ -1,8 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (seqoia_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # full size, as the port's smoke check
-    python3 chip_smoke.py --small    # tiny images: a quick build-and-check
+    python3 chip_smoke.py
 
 1. Builds every kernel of the main path from ``seqoia_tpu_torch/csrc``
    (one nvcc per source, all at once).
@@ -16,7 +15,8 @@
    encode_stream_batched) and one 2048x2048 gray+alpha image (decoded as
    stored and with 4 forced channels). Every stream and every pixel is
    held byte-exact against the port's native C codec. Fails if a kernel
-   of the path was not launched.
+   of the path was not launched, or if the main path's encode caps are not
+   the ones K2's encode epilogue was checked and timed at.
 4. Prints the card's name and power limit, each phase's Mpx/s, each
    kernel's time beside its bound, a JSON ``kernels`` line and, last,
    ``{"ok": true, "device": {...}}``.
@@ -28,7 +28,6 @@ no result. Images are synthetic and made from a fixed seed. Details go to
 
 from __future__ import annotations
 
-import argparse
 import json
 import os
 import subprocess
@@ -39,6 +38,7 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM peak memory rate (NVIDIA data sheet)
 OUT_DIR = "chiprun_out"
+REPS = 10  # timed launches per kernel and shape
 
 KERNELS = {
     "K1": ("decode_front_compact", "seqoia_tpu_torch/csrc/frontend.cu",
@@ -52,12 +52,11 @@ KERNELS = {
 }
 
 
-def _images(small: bool, seed: int = 0):
+def _images(seed: int = 0):
     """(name, [flat uint8 pixels], width, height, channels) per workload."""
     from seqoia_tpu_torch.utils import corpus
 
     rng = np.random.default_rng(seed)
-    s = 16 if small else 1
 
     def with_alpha(img):
         a = np.full(img.shape[:2] + (1,), 255, np.int16)
@@ -65,14 +64,13 @@ def _images(small: bool, seed: int = 0):
         a[dips] -= rng.integers(8, 16, (int(dips.sum()), 1))
         return np.concatenate([img, a.astype(np.uint8)], axis=-1)
 
-    photo = with_alpha(corpus._photo(rng, 4096 // s, 4096 // s))
-    batch = [corpus._photo(rng, 1024 // s, 1024 // s)
-             for _ in range(4 if small else 32)]
-    gray = with_alpha(corpus._mono_doc(rng, 2048 // s, 2048 // s))
+    photo = with_alpha(corpus._photo(rng, 4096, 4096))
+    batch = [corpus._photo(rng, 1024, 1024) for _ in range(32)]
+    gray = with_alpha(corpus._mono_doc(rng, 2048, 2048))
     return [
-        ("photo_rgba", [photo.reshape(-1)], 4096 // s, 4096 // s, 4),
-        ("batch_rgb", [b.reshape(-1) for b in batch], 1024 // s, 1024 // s, 3),
-        ("gray_alpha", [gray.reshape(-1)], 2048 // s, 2048 // s, 2),
+        ("photo_rgba", [photo.reshape(-1)], 4096, 4096, 4),
+        ("batch_rgb", [b.reshape(-1) for b in batch], 1024, 1024, 3),
+        ("gray_alpha", [gray.reshape(-1)], 2048, 2048, 2),
     ]
 
 
@@ -80,7 +78,7 @@ def _pow2(x: int) -> int:
     return 1 << (max(int(x), 1) - 1).bit_length()
 
 
-def _timed(fn, reps: int):
+def _timed(fn, reps: int = REPS):
     """Mean ms of fn() on the card over reps launches (after one warm-up)."""
     import torch
 
@@ -123,6 +121,7 @@ class Stages:
         import seqoia_tpu_torch as st
         from seqoia_tpu_torch import native, spec
         from seqoia_tpu_torch.codec import normalize_pixels_packed
+        from seqoia_tpu_torch.codec.encode import first_cap, pixel_bucket
 
         self.name, self.w, self.h, self.ch = name, w, h, ch
         self.pixels = pixels
@@ -145,15 +144,18 @@ class Stages:
                                  device=dev)
         self.npx = torch.full((len(pixels),), self.n, dtype=torch.int32,
                               device=dev)
-        packed = np.stack([normalize_pixels_packed(p, self.desc)
-                           for p in pixels])
+        # the encode's power-of-two pixel bucket and the output cap its
+        # first call per (colch, has_alpha) uses: K2's encode shape
+        n_pad = pixel_bucket(self.n)
+        packed = np.zeros((len(pixels), n_pad), np.int32)
+        for i, p in enumerate(pixels):
+            packed[i, : self.n] = normalize_pixels_packed(p, self.desc)
         self.packed_host = packed
         self.packed = torch.from_numpy(packed).to(dev)
-        worst = self.n * (self.desc.norm_channels + 1) + 9
-        self.out_cap = spec.cap_bucket(worst)
+        self.out_cap = first_cap(self.desc, n_pad)
 
 
-def check_kernels(stages, dev, reps):
+def check_kernels(stages, dev):
     """Each kernel against its plain version at the main path's shapes.
     Returns {kernel id: [record per shape]}."""
     import torch
@@ -183,8 +185,8 @@ def check_kernels(stages, dev, reps):
         n_ops = int(tot.sum())
         rec["K1"].append(dict(
             shape=f"{s.name} {tuple(s.data.shape)} {s.mode}", err=err,
-            ms=_timed(k1, reps), plain_ms=p_ms,
-            bytes=s.data.numel() + 8 * n_ops + 16 * bsz))
+            ms=_timed(k1), plain_ms=p_ms,
+            bytes=sum(len(x) for x in s.streams) + 8 * n_ops + 16 * bsz))
         del pk, pp
         # --- K2 decode epilogue, K6 ----------------------------------------
         npx = s.npx[:, None]
@@ -202,7 +204,7 @@ def check_kernels(stages, dev, reps):
             torch.arange(s.n_max, device=dev)[None, :], npx.long()))
         rec["K2"].append(dict(
             shape=f"{s.name} decode out_ch={s.out_ch} n_out={s.n_max}",
-            err=_max_err(out, ref_out), ms=_timed(k2, reps), plain_ms=p_ms,
+            err=_max_err(out, ref_out), ms=_timed(k2), plain_ms=p_ms,
             bytes=8 * n_ops + out.numel() * out.element_size()))
         del out, ref_out
         if s.colch == 1:
@@ -214,7 +216,7 @@ def check_kernels(stages, dev, reps):
             rec["K6"].append(dict(
                 shape=f"{s.name} fill n_out={s.n_max}",
                 err=_max_err(fk[:, : s.n], fp[:, : s.n]),
-                ms=_timed(k6, reps), plain_ms=p_ms,
+                ms=_timed(k6), plain_ms=p_ms,
                 bytes=8 * n_ops + 4 * fk.numel()))
             del fk, fp
         del keys, pays
@@ -239,16 +241,13 @@ def check_kernels(stages, dev, reps):
         n_ent = int(et.sum())
         rec["K3"].append(dict(
             shape=f"{s.name} {tuple(s.packed.shape)} colch={s.colch}",
-            err=err, ms=_timed(k3, reps), plain_ms=p_ms,
+            err=err, ms=_timed(k3), plain_ms=p_ms,
             bytes=4 * s.packed.numel() + 12 * n_ent + 24 * bsz))
         del pk, pc, pm
-        # --- K2 encode epilogue -------------------------------------------
-        nv = s.npx
-        trail = ((((nv - 1) - elc) % 512 > 0) & (nv > 0)).to(torch.int32)
-        scal = torch.stack([ect, trail, torch.ones_like(ect)], dim=-1)
+        # --- K2 encode epilogue, at the main path's output cap -------------
+        scal, _ = encode_v2.emit_scalars(s.npx, ect, elc)
         eepi = encode_v2._emit_epilogue(s.colch)
-        cap = int(ect.max()) + 9
-        cap = -(-cap // 2048) * 2048
+        cap = s.out_cap
 
         def k2e():
             return engine.place_emit(ek, [ec, em], et, scal, cap,
@@ -260,7 +259,7 @@ def check_kernels(stages, dev, reps):
             torch.arange(cap, device=dev)[None, :], scal.long()))
         rec["K2"].append(dict(
             shape=f"{s.name} encode colch={s.colch} n_out={cap}",
-            err=_max_err(out, ref_out), ms=_timed(k2e, reps), plain_ms=p_ms,
+            err=_max_err(out, ref_out), ms=_timed(k2e), plain_ms=p_ms,
             bytes=12 * n_ent + out.numel()))
         del out, ref_out, ek, ec, em
         torch.cuda.empty_cache()
@@ -276,6 +275,7 @@ def main_path(stages, dev):
     from seqoia_tpu_torch import native
     from seqoia_tpu_torch.codec import decode_stream_batched
     from seqoia_tpu_torch.codec import encode_stream_batched
+    from seqoia_tpu_torch.codec.encode import first_cap
 
     rates = []
 
@@ -324,6 +324,10 @@ def main_path(stages, dev):
             want4, _ = native.decode(stream, 4)
             if not np.array_equal(got4, want4):
                 raise AssertionError(f"{s.name}: 4-channel decode differs")
+        cap = first_cap(s.desc, s.packed.shape[1])
+        if cap != s.out_cap:
+            raise AssertionError(f"{s.name}: encode cap {cap} is not the "
+                                 f"checked {s.out_cap}")
         enc = clock(f"{s.name} encode (seqoia_tpu_torch.encode)", s.n,
                     lambda: st.encode(pixels, s.desc, device=dev))
         if enc != stream:
@@ -332,13 +336,6 @@ def main_path(stages, dev):
 
 
 def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--small", action="store_true",
-                    help="tiny images: a quick build-and-check run")
-    ap.add_argument("--reps", type=int, default=10,
-                    help="timed launches per kernel")
-    args = ap.parse_args()
-
     import torch
 
     if not torch.cuda.is_available():
@@ -363,11 +360,11 @@ def main() -> int:
     print(f"built {sorted(logs)} in {build_s:.1f} s")
 
     t0 = time.perf_counter()
-    stages = [Stages(*img, dev) for img in _images(args.small)]
+    stages = [Stages(*img, dev) for img in _images()]
     print(f"made and encoded (native) the inputs in "
           f"{time.perf_counter() - t0:.1f} s")
 
-    rec = check_kernels(stages, dev, args.reps)
+    rec = check_kernels(stages, dev)
     for k, rows in rec.items():
         for r in rows:
             print(f"{k} {r['shape']}: err {r['err']} kernel {r['ms']:.3f} ms "

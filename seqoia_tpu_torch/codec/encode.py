@@ -37,6 +37,20 @@ def normalize_pixels_packed(pixels, desc: spec.SqoaDesc) -> np.ndarray:
 _RATE_EST: dict = {}
 
 
+def pixel_bucket(n: int) -> int:
+    """Power-of-two pixel bucket the encode runs at."""
+    return 1 << max(n - 1, 1).bit_length()
+
+
+def first_cap(desc: spec.SqoaDesc, n_pad: int) -> int:
+    """Output cap of the next encode of this (colch, has_alpha): the
+    worst case until a rate was observed, then the optimistic estimate."""
+    worst = n_pad * (desc.norm_channels + 1) + spec.PADDING_SIZE + 1
+    est = _RATE_EST.get((desc.col_channels, desc.has_alpha))
+    cap = worst if est is None else int(n_pad * est * 1.25) + 64
+    return min(spec.cap_bucket(cap), spec.cap_bucket(worst))
+
+
 def encode(pixels, desc: spec.SqoaDesc, device="cuda") -> bytes | None:
     """Encode to SQOA bytes, or None on invalid arguments (mirrors
     sqoa_encode's contract, seqoia.h:465-480). QOI-compatible output is not
@@ -49,14 +63,12 @@ def encode(pixels, desc: spec.SqoaDesc, device="cuda") -> bytes | None:
             "QOI-compat encode is not ported yet (ROADMAP.md Queue 1 item 7)")
     rgba_np = normalize_pixels_packed(pixels, desc)
     n = desc.n_pixels
-    n_pad = 1 << max(n - 1, 1).bit_length()
+    n_pad = pixel_bucket(n)
     if n_pad > n:
         rgba_np = np.concatenate([rgba_np, np.zeros(n_pad - n, np.int32)])
     key = (desc.col_channels, desc.has_alpha)
-    worst = n_pad * (desc.norm_channels + 1) + spec.PADDING_SIZE + 1
     est = _RATE_EST.get(key)
-    cap = worst if est is None else int(n_pad * est * 1.25) + 64
-    cap = min(spec.cap_bucket(cap), spec.cap_bucket(worst))
+    cap = first_cap(desc, n_pad)
     rgba = torch.from_numpy(rgba_np).to(dev)
     while True:
         out, total = encode_stream(rgba, n, colch=desc.col_channels,

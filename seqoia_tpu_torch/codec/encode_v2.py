@@ -87,6 +87,18 @@ def _emit_epilogue(colch: int) -> engine.Epilogue:
         kind, torch.uint8, lambda f, t, s: _emit_bytes(colch, f, t, s))
 
 
+def emit_scalars(n_valid, chunk_totals, last_c):
+    """K2's encode scalars (chunk_total, has_trail, emit_tail) per row and
+    the exact stream totals, from K3's chunk totals and last changes."""
+    nv = n_valid.to(device=chunk_totals.device, dtype=torch.int32)
+    trail_pending = ((nv - 1) - last_c) % spec.SQOA_MAXRUN
+    has_trail = ((trail_pending > 0) & (nv > 0)).to(torch.int32)
+    total = chunk_totals + 8 + has_trail
+    scal = torch.stack(
+        [chunk_totals, has_trail, torch.ones_like(chunk_totals)], dim=-1)
+    return scal, total
+
+
 def encode_stream_batched(packed, n_valid, *, colch: int, out_cap: int):
     """Encode a batch of packed (B, N) int32 pixel rows (r|g<<8|b<<16|a<<24,
     normalized per encode.normalize_pixels_packed), n_valid (B,) pixels
@@ -95,12 +107,7 @@ def encode_stream_batched(packed, n_valid, *, colch: int, out_cap: int):
     output was cut and the caller must retry with a larger cap)."""
     keys, pays, n_entries, chunk_totals, last_c = (
         encode_front.encode_front_compact(packed, n_valid, colch=colch))
-    nv = n_valid.to(device=packed.device, dtype=torch.int32)
-    trail_pending = ((nv - 1) - last_c) % spec.SQOA_MAXRUN
-    has_trail = ((trail_pending > 0) & (nv > 0)).to(torch.int32)
-    total = chunk_totals + 8 + has_trail
-    scal = torch.stack(
-        [chunk_totals, has_trail, torch.ones_like(chunk_totals)], dim=-1)
+    scal, total = emit_scalars(n_valid, chunk_totals, last_c)
     out = engine.place_emit(keys, pays, n_entries, scal, out_cap,
                             _emit_inits(), _emit_epilogue(colch))
     return out, total
