@@ -3,23 +3,33 @@
 
     python3 chip_smoke.py
 
-1. Builds every kernel of the main path from ``seqoia_tpu_torch/csrc``
-   (one nvcc per source, all at once).
-2. Holds each kernel (K1 decode front, K2 placement with its decode and
-   encode epilogues, K3 encode front, K6 placement fill) against its plain
-   PyTorch version on the card, on the inputs the main path gives it:
-   integer data, so the comparison is bit-exact (tolerance 0).
-3. Resets the kernels' launch counters and drives the main path through
-   the public entry points: one 4096x4096 RGBA photo-class image, a batch
-   of 32 1024x1024 RGB photos (decode_stream_batched /
-   encode_stream_batched) and one 2048x2048 gray+alpha image (decoded as
-   stored and with 4 forced channels). Every stream and every pixel is
-   held byte-exact against the port's native C codec. Fails if a kernel
-   of the path was not launched, or if the main path's encode caps are not
-   the ones K2's encode epilogue was checked and timed at.
-4. Prints the card's name and power limit, each phase's Mpx/s, each
-   kernel's time beside its bound, a JSON ``kernels`` line and, last,
-   ``{"ok": true, "device": {...}}``.
+1. Builds every kernel of the port from ``seqoia_tpu_torch/csrc`` (one
+   nvcc per source, all at once).
+2. Holds each kernel against its plain PyTorch version on the card, on the
+   inputs the main paths give it: integer data, so the comparison is
+   bit-exact (tolerance 0). SQOA: K1 decode front, K2 placement with its
+   decode and encode epilogues, K3 encode front, K6 placement fill. QOI
+   (.qoi): the arguments of the first launch of K5 (compaction), K6, K7
+   (slot last writer) and each K8 (scan) combine, recorded during one
+   decode_stream_compat_batched / encode_stream_batched(compat=True) call
+   per workload; K8 sum and fill and K7 at 128 slots (not on the path) at
+   the decode's op shape.
+3. Resets the kernels' launch counters and drives the SQOA path through the
+   public entry points: one 4096x4096 RGBA photo-class image, a batch of
+   32 1024x1024 RGB photos (decode_stream_batched / encode_stream_batched)
+   and one 2048x2048 gray+alpha image (decoded as stored and with 4 forced
+   channels); reads the counters; resets them again and drives the .qoi
+   path: the same RGBA photo (seqoia_tpu_torch.encode / decode with
+   qoi_compat=1), the same 32 photos as .qoi (encode_stream_batched with
+   compat=True, decode_stream_compat_batched; an unconverged row decodes on
+   the host) and the 61-link INDEX chain that the fixpoint cannot settle.
+   Every stream and every pixel is held byte-exact against the port's
+   native C codec. Fails if a kernel of a path was not launched on it, or
+   if an encode's cap is not the one its kernels were checked at.
+4. Prints the card's name and power limit, each phase's Mpx/s, the
+   fixpoint's converged rows and passes, each kernel's time beside its
+   bound, a JSON ``kernels`` line and, last, ``{"ok": true, "device":
+   {...}}``.
 
 Any failure exits non-zero; without a CUDA device it exits 2 and prints
 no result. Images are synthetic and made from a fixed seed. Details go to
@@ -49,7 +59,15 @@ KERNELS = {
            "seqoia_tpu/ops/pallas_encode.py:270"),
     "K6": ("place_fill", "seqoia_tpu_torch/csrc/engine.cu",
            "seqoia_tpu/ops/pallas_engine.py:504"),
+    "K5": ("compact", "seqoia_tpu_torch/csrc/compact.cu",
+           "seqoia_tpu/ops/pallas_engine.py:169"),
+    "K7": ("slot_last_writer", "seqoia_tpu_torch/csrc/slots.cu",
+           "seqoia_tpu/ops/pallas_slots.py:119"),
+    "K8": ("tile_scan", "seqoia_tpu_torch/csrc/scan.cu",
+           "seqoia_tpu/ops/pallas_scan.py:123"),
 }
+SQOA_KERNELS = ("K1", "K2", "K3", "K6")
+QOI_KERNELS = ("K5", "K6", "K7", "K8")
 
 
 def _images(seed: int = 0):
@@ -145,7 +163,7 @@ class Stages:
         self.npx = torch.full((len(pixels),), self.n, dtype=torch.int32,
                               device=dev)
         # the encode's power-of-two pixel bucket and the output cap its
-        # first call per (colch, has_alpha) uses: K2's encode shape
+        # first call per (colch, has_alpha, compat) uses: K2's encode shape
         n_pad = pixel_bucket(self.n)
         packed = np.zeros((len(pixels), n_pad), np.int32)
         for i, p in enumerate(pixels):
@@ -335,6 +353,309 @@ def main_path(stages, dev):
     return rates
 
 
+def _chain():
+    """The 61-link INDEX chain (tests/test_compat_fixpoint.py): color A
+    hashes to slot 0, where the fixpoint's wrong guesses land too, and each
+    repeat of A reads the previous INDEX-decoded A, so the fixpoint settles
+    one link per pass and cannot finish in 12."""
+    a = (25, 0, 0, 255)
+    px = [a]
+    for c in range(2, 64):
+        if c != 43:  # this filler would hash to slot 0
+            px += [(c, 40, 0, 255), a]
+    return np.array(px, np.uint8).reshape(-1), len(px)
+
+
+class QoiStages:
+    """One .qoi workload: its native streams, the padded byte buffer and the
+    packed pixels on the card, the encode's cap, and (after
+    check_qoi_kernels) the fixpoint's converged rows and passes."""
+
+    def __init__(self, name, pixels, w, h, ch, dev):
+        import torch
+
+        import seqoia_tpu_torch as st
+        from seqoia_tpu_torch import native, spec
+        from seqoia_tpu_torch.codec import normalize_pixels_packed
+        from seqoia_tpu_torch.codec.encode import first_cap, pixel_bucket
+
+        self.name, self.w, self.h, self.ch = name, w, h, ch
+        self.pixels = pixels
+        self.n = w * h
+        self.desc = st.SqoaDesc(w, h, ch, 0, 1)
+        self.out_ch = self.desc.norm_channels
+        self.streams = [native.encode(p, w, h, ch, 0, 1) for p in pixels]
+        self.n_max = _pow2(max(self.n, 4))
+        buf = np.zeros((len(pixels), _pow2(max(len(x) for x in self.streams))),
+                       np.uint8)
+        for i, x in enumerate(self.streams):
+            buf[i, : len(x)] = np.frombuffer(x, np.uint8)
+        self.buf_host = buf
+        self.clen = torch.tensor([len(x) - spec.PADDING_SIZE
+                                  for x in self.streams], dtype=torch.int32,
+                                 device=dev)
+        self.npx = torch.full((len(pixels),), self.n, dtype=torch.int32,
+                              device=dev)
+        n_pad = pixel_bucket(self.n)
+        packed = np.zeros((len(pixels), n_pad), np.int32)
+        for i, p in enumerate(pixels):
+            packed[i, : self.n] = normalize_pixels_packed(p, self.desc)
+        self.packed_host = packed
+        self.out_cap = first_cap(self.desc, n_pad)
+        self.converged, self.passes = None, None
+
+
+def _capture(run):
+    """Run ``run()`` with the K5, K6, K7 and K8 wrappers recording the
+    arguments of their first launch (K8: per combine). Returns ({kernel:
+    (args, kwargs)}, run's result)."""
+    from seqoia_tpu_torch.ops import compact, engine, scan, slots
+
+    seen = {}
+    saved = []
+    for mod, name, key in (
+            (compact, "compact", lambda a, k: "K5"),
+            (engine, "place_fill", lambda a, k: "K6"),
+            (slots, "slot_last_writer", lambda a, k: "K7"),
+            (scan, "tile_scan", lambda a, k: "K8 " + a[1])):
+        fn = getattr(mod, name)
+
+        def rec(*a, _fn=fn, _key=key, **k):
+            seen.setdefault(_key(a, k), (a, k))
+            return _fn(*a, **k)
+
+        # the wrapper counts its launches under its module name: while
+        # recording, that name is rec
+        rec.launches = 0
+        saved.append((mod, name, fn))
+        setattr(mod, name, rec)
+    try:
+        out = run()
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    return seen, out
+
+
+def _check_qoi_call(key, args, kw, where):
+    """Kernel vs plain version on one recorded launch. Returns (kernel id,
+    record)."""
+    import torch
+
+    from seqoia_tpu_torch.ops import compact, engine, scan, slots
+
+    kid = key.split()[0]
+    library = None
+    if kid == "K8":
+        arrays, combine = args
+        run = lambda: scan.tile_scan(arrays, combine)  # noqa: E731
+        got = run()
+        want, p_ms = _plain_ms(lambda: scan.tile_scan_plain(arrays, combine))
+        err = max(_max_err(g, w) for g, w in zip(got, want))
+        x = arrays[0]
+        nbytes = 8 * len(arrays) * x.numel()
+        if combine == "max":
+            library = _timed(lambda: torch.cummax(x, -1))
+        elif combine == "sum":
+            library = _timed(lambda: torch.cumsum(x, -1, dtype=torch.int32))
+        shape = f"{where} {combine} {tuple(x.shape)}"
+    elif kid == "K5":
+        valid, key_, pays = args
+        run = lambda: compact.compact(valid, key_, pays)  # noqa: E731
+        keys, cp, tot = run()
+        (pk, pp, ptot), p_ms = _plain_ms(
+            lambda: compact.compact_plain(valid != 0, key_, pays))
+        err = _max_err(tot, ptot)
+        for r in range(valid.shape[0]):
+            t = int(tot[r])
+            err = max([err, _max_err(keys[r, :t], pk[r, :t])]
+                      + [_max_err(a[r, :t], b[r, :t]) for a, b in zip(cp, pp)])
+        kept = int(tot.sum())
+        nbytes = valid.numel() + 8 * (1 + len(pays)) * kept + 4 * len(tot)
+        if valid.shape[0] == 1:
+            rows = [key_[0]] + [p[0] for p in pays]
+            library = _timed(lambda: torch.stack(rows)[:, valid[0]])
+        shape = (f"{where} {tuple(valid.shape)} payloads={len(pays)} "
+                 f"kept={kept}")
+    elif kid == "K7":
+        h, v, q = args
+        n_slots, init = kw.get("n_slots", 64), kw.get("init", 0)
+        n_live = kw["n_live"]
+        run = lambda: slots.slot_last_writer(h, v, q, n_slots, init,  # noqa
+                                             n_live)
+        got = run()
+        want, p_ms = _plain_ms(lambda: slots.slot_last_writer_plain(
+            h, v, q, n_slots, init, n_live))
+        err = _max_err(got, want)
+        idx = torch.arange(h.shape[1], device=h.device)[None, :]
+        live = idx < n_live.long()[:, None]
+        n_q = int(((q >= 0) & (q < n_slots) & live).sum())
+        nbytes = 12 * h.numel() + 4 * n_q
+        shape = f"{where} {tuple(h.shape)} slots={n_slots} queries={n_q}"
+    else:  # K6
+        keys, pays, tot, n_out, inits = args
+        fill_keys = kw.get("fill_keys", False)
+        run = lambda: engine.place_fill(keys, pays, tot, n_out,  # noqa
+                                        inits, fill_keys=fill_keys)
+        got = run()
+        streams = list(pays) + ([keys] if fill_keys else [])
+        want, p_ms = _plain_ms(lambda: engine._fill_plain(
+            keys, streams, tot, n_out, inits))
+        err = max(_max_err(g, w) for g, w in zip(got, want))
+        n_ent = int(tot.sum())
+        nbytes = 4 * (1 + len(pays)) * n_ent + 4 * len(streams) * got[0].numel()
+        shape = (f"{where} streams={len(streams)} n_out={n_out} "
+                 f"entries={n_ent}")
+    return kid, dict(shape=shape, err=err, ms=_timed(run), plain_ms=p_ms,
+                     bytes=nbytes, library_ms=library, main=True)
+
+
+def check_qoi_kernels(qstages, dev):
+    """K5, K6, K7 and K8 against their plain versions at the shapes the .qoi
+    path gives them (recorded from one batched decode and one batched
+    encode per workload), and, off the path, K8 sum and fill and K7 at 128
+    slots at the decode's op shape. Records each workload's converged rows
+    and fixpoint passes."""
+    import torch
+
+    from seqoia_tpu_torch.codec import (decode_stream_compat_batched,
+                                        encode_stream_batched)
+
+    rec = {k: [] for k in QOI_KERNELS}
+    for s in qstages:
+        if s.name == "index_chain":
+            continue
+        data = torch.from_numpy(s.buf_host).to(dev)
+        stats = {}
+        seen, (_, conv) = _capture(lambda: decode_stream_compat_batched(
+            data, s.clen, s.npx, colch=3, out_ch=s.out_ch, n_max=s.n_max,
+            stats=stats))
+        s.converged, s.passes = conv.tolist(), stats["passes"]
+        for key, (a, k) in seen.items():
+            kid, r = _check_qoi_call(key, a, k, f"{s.name} decode")
+            rec[kid].append(r)
+        # K8's other two combines, on the op stream of the first segmod,
+        # and K7 at 128 slots (the mono index), on the first resolution's
+        # slots spread over 128 by the value's low bit
+        ((seg,), _), _ = seen["K8 segmod"]
+        (h, v, q), kw = seen["K7"]
+        wide = [torch.where(x >= 0, x + 64 * (v & 1), -1) for x in (h, q)]
+        for key, args, k in (
+                ("K8", ((seg & 255,), "sum"), {}),
+                ("K8", ((seg, (seg >> 8) & 1), "fill"), {}),
+                ("K7", (wide[0], v, wide[1]), dict(kw, n_slots=128))):
+            kid, r = _check_qoi_call(key, args, k, f"{s.name} decode ops")
+            r["main"] = False
+            rec[kid].append(r)
+        del seen, data
+        torch.cuda.empty_cache()
+        packed = torch.from_numpy(s.packed_host).to(dev)
+        seen, _ = _capture(lambda: encode_stream_batched(
+            packed, s.npx, colch=3, out_cap=s.out_cap, compat=True))
+        for key, (a, k) in seen.items():
+            kid, r = _check_qoi_call(key, a, k, f"{s.name} encode")
+            rec[kid].append(r)
+        del seen, packed
+        torch.cuda.empty_cache()
+    return rec
+
+
+def qoi_path(qstages, dev):
+    """Encode and decode every .qoi workload through the public entry
+    points, byte-exact against the native codec. Returns ([(phase, Mpx/s)],
+    [(phase, converged rows, rows, passes)])."""
+    import torch
+
+    import seqoia_tpu_torch as st
+    from seqoia_tpu_torch import native
+    from seqoia_tpu_torch.codec import (decode_stream_compat_batched,
+                                        encode_stream_batched)
+    from seqoia_tpu_torch.codec.encode import first_cap
+
+    rates, fix = [], []
+
+    def clock(phase, n_px, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        rates.append((phase, n_px / (time.perf_counter() - t) / 1e6))
+        return out
+
+    for s in qstages:
+        if s.name == "batch_rgb_qoi":
+            bsz = len(s.streams)
+            out, total = clock(
+                "batch .qoi encode (encode_stream_batched, compat)", bsz * s.n,
+                lambda: encode_stream_batched(
+                    torch.from_numpy(s.packed_host).to(dev), s.npx, colch=3,
+                    out_cap=s.out_cap, compat=True))
+            out, total = out.cpu().numpy(), total.cpu().numpy()
+            for i, stream in enumerate(s.streams):
+                if out[i, : total[i]].tobytes() != stream[14:]:
+                    raise AssertionError(f"batch .qoi encode row {i} differs")
+            stats = {}
+            pix, conv = clock(
+                "batch .qoi decode (decode_stream_compat_batched)", bsz * s.n,
+                lambda: decode_stream_compat_batched(
+                    torch.from_numpy(s.buf_host).to(dev), s.clen, s.npx,
+                    colch=3, out_ch=3, n_max=s.n_max, stats=stats))
+            pix, conv = pix.cpu().numpy(), conv.tolist()
+            for i, stream in enumerate(s.streams):
+                # an unconverged row is decoded on the host, as decode does
+                got = (pix[i, : s.n * 3] if conv[i]
+                       else native.decode(stream, 0)[0])
+                if not np.array_equal(got, s.pixels[i]):
+                    raise AssertionError(f"batch .qoi decode row {i} differs")
+            fix.append((s.name, sum(conv), bsz, stats["passes"]))
+            continue
+        stream, pixels = s.streams[0], s.pixels[0]
+        if s.name == "index_chain":
+            stats = {}
+            _, conv = decode_stream_compat_batched(
+                torch.from_numpy(s.buf_host).to(dev), s.clen, s.npx, colch=3,
+                out_ch=4, n_max=s.n_max, stats=stats)
+            if conv.tolist() != [False]:
+                raise AssertionError("the INDEX chain converged on the card")
+            fix.append((s.name, 0, 1, stats["passes"]))
+        else:
+            fix.append((s.name, sum(s.converged), 1, s.passes))
+        cap = first_cap(s.desc, s.packed_host.shape[1])
+        if s.name != "index_chain" and cap != s.out_cap:
+            raise AssertionError(f"{s.name}: encode cap {cap} is not the "
+                                 f"checked {s.out_cap}")
+        enc = clock(f"{s.name} encode (seqoia_tpu_torch.encode)", s.n,
+                    lambda: st.encode(pixels, s.desc, device=dev))
+        if enc != stream:
+            raise AssertionError(f"{s.name}: encode differs")
+        got, desc = clock(f"{s.name} decode (seqoia_tpu_torch.decode)", s.n,
+                          lambda: st.decode(stream, device=dev))
+        if not np.array_equal(got, pixels) or desc.qoi_compat != 1:
+            raise AssertionError(f"{s.name}: decode differs")
+    return rates, fix
+
+
+def _qoi_images(images):
+    """The .qoi workloads: the SQOA path's RGBA photo and 32 RGB photos,
+    and the INDEX chain."""
+    by_name = {name: (px, w, h, ch) for name, px, w, h, ch in images}
+    chain, n = _chain()
+    return [
+        ("photo_rgba_qoi",) + by_name["photo_rgba"],
+        ("batch_rgb_qoi",) + by_name["batch_rgb"],
+        ("index_chain", [chain], n, 1, 4),
+    ]
+
+
+def _counted(counters, run):
+    """Launches of each kernel during run(), the counters set to 0 just
+    before it and read just after."""
+    for fn in counters.values():
+        fn.launches = 0
+    out = run()
+    return {k: fn.launches for k, fn in counters.items()}, out
+
+
 def main() -> int:
     import torch
 
@@ -343,13 +664,14 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
-        from seqoia_tpu_torch.ops import (_build, encode_front, engine,
-                                          frontend)
+        from seqoia_tpu_torch.ops import (_build, compact, encode_front,
+                                          engine, frontend, scan, slots)
     except ImportError as e:
         print(f"chip_smoke: the port is not here ({e})", file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
     os.makedirs(OUT_DIR, exist_ok=True)
+    t_start = time.perf_counter()
 
     t0 = time.perf_counter()
     logs = _build.build_all()
@@ -360,16 +682,22 @@ def main() -> int:
     print(f"built {sorted(logs)} in {build_s:.1f} s")
 
     t0 = time.perf_counter()
-    stages = [Stages(*img, dev) for img in _images()]
+    images = _images()
+    stages = [Stages(*img, dev) for img in images]
+    qstages = [QoiStages(*img, dev) for img in _qoi_images(images)]
     print(f"made and encoded (native) the inputs in "
           f"{time.perf_counter() - t0:.1f} s")
 
     rec = check_kernels(stages, dev)
+    for k, rows in check_qoi_kernels(qstages, dev).items():
+        rec[k] += rows
     for k, rows in rec.items():
         for r in rows:
+            lib = ("" if r.get("library_ms") is None
+                   else f" library {r['library_ms']:.3f} ms")
             print(f"{k} {r['shape']}: err {r['err']} kernel {r['ms']:.3f} ms "
                   f"plain {r['plain_ms']:.3f} ms bound "
-                  f"{r['bytes'] / HBM_BYTES_PER_S * 1e3:.4f} ms")
+                  f"{r['bytes'] / HBM_BYTES_PER_S * 1e3:.4f} ms{lib}")
     bad = [k for k, rows in rec.items() if any(r["err"] for r in rows)]
     if bad:
         raise AssertionError(f"kernels differ from their plain versions: {bad}")
@@ -377,42 +705,59 @@ def main() -> int:
     counters = {
         "K1": frontend.decode_front_compact, "K2": engine.place_emit,
         "K3": encode_front.encode_front_compact, "K6": engine.place_fill,
+        "K5": compact.compact, "K7": slots.slot_last_writer,
+        "K8": scan.tile_scan,
     }
-    for fn in counters.values():
-        fn.launches = 0
-    rates = main_path(stages, dev)
-    launches = {k: fn.launches for k, fn in counters.items()}
-    missing = [k for k, n in launches.items() if n == 0]
-    if missing:
-        raise AssertionError(f"main path launched no {missing}")
+    torch.cuda.reset_peak_memory_stats()
+    sqoa_launches, rates = _counted(counters, lambda: main_path(stages, dev))
+    qoi_launches, (qoi_rates, fix) = _counted(
+        counters, lambda: qoi_path(qstages, dev))
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    for path, launches, kernels in (("SQOA", sqoa_launches, SQOA_KERNELS),
+                                    (".qoi", qoi_launches, QOI_KERNELS)):
+        missing = [k for k in kernels if launches[k] == 0]
+        if missing:
+            raise AssertionError(f"the {path} path launched no {missing}")
+    launches = {k: sqoa_launches[k] + qoi_launches[k] for k in counters}
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    for phase, r in rates:
-        print(f"{phase}: {r:.1f} Mpx/s")
-    print(f"launches on the main path: {launches}")
+    for phase, r in rates + qoi_rates:
+        print(f"{phase}: {r:.4g} Mpx/s")
+    for name, conv, rows, passes in fix:
+        print(f"{name}: fixpoint converged {conv}/{rows} rows in {passes} "
+              f"passes")
+    print(f"launches on the SQOA path: {sqoa_launches}")
+    print(f"launches on the .qoi path: {qoi_launches}")
+    print(f"peak device memory of the main paths: {peak_gb:.2f} GiB")
     kernels = []
     for k, (fname, src, repl) in KERNELS.items():
-        first = rec[k][0]
+        main = [r for r in rec[k] if r.get("main", True)]
+        head = next((r for r in main if r.get("library_ms") is not None),
+                    main[0])
         kernels.append(dict(
             name=f"{k} {fname}", route="cuda", source=src, replaces=repl,
             launches=launches[k],
             max_abs_err=max(r["err"] for r in rec[k]),
-            ms=first["ms"], plain_ms=first["plain_ms"],
-            bound_ms=first["bytes"] / HBM_BYTES_PER_S * 1e3,
-            bound_by="bytes", library_ms=None, shape=first["shape"]))
+            ms=head["ms"], plain_ms=head["plain_ms"],
+            bound_ms=head["bytes"] / HBM_BYTES_PER_S * 1e3,
+            bound_by="bytes", library_ms=head.get("library_ms"),
+            shape=head["shape"]))
+    total_s = time.perf_counter() - t_start
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
-        json.dump(dict(card=smi, build_s=build_s, kernels=rec, rates=rates,
-                       launches=launches), f, indent=1)
+        json.dump(dict(card=smi, build_s=build_s, total_s=total_s,
+                       kernels=rec, rates=rates + qoi_rates, fixpoint=fix,
+                       launches=dict(sqoa=sqoa_launches, qoi=qoi_launches),
+                       peak_gib=peak_gb), f, indent=1)
+    print(f"chip_smoke ran {total_s:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())

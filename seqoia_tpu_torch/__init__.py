@@ -10,7 +10,9 @@ seqoia.h:336-374) and byte-exact streams. Two backends:
   through the kernels' plain PyTorch versions instead.
 * ``backend="native"`` — the C host codec.
 
-QOI-compatible (``.qoi``) streams are not ported yet.
+QOI-compatible (``.qoi``) streams encode and decode on the card too, except
+the decode of mono ``.qoi`` streams (a decoder-only quirk), which raises
+``NotImplementedError`` for now.
 """
 
 from __future__ import annotations

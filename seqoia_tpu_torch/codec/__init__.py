@@ -1,6 +1,8 @@
-"""The port's codec: SQOA encode/decode pipelines on the card."""
+"""The port's codec: SQOA and QOI-compat encode/decode pipelines on the
+card."""
 
 from .decode import decode
+from .decode_compat import decode_stream_compat_batched
 from .decode_v2 import decode_stream, decode_stream_batched
 from .encode import encode, normalize_pixels_packed
 from .encode_v2 import encode_stream, encode_stream_batched
@@ -9,6 +11,7 @@ __all__ = [
     "decode",
     "decode_stream",
     "decode_stream_batched",
+    "decode_stream_compat_batched",
     "encode",
     "encode_stream",
     "encode_stream_batched",

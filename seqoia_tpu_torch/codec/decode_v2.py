@@ -8,16 +8,38 @@ source decoded to 1/2 channels, a mono source to 3/4) go K1 -> K6 ->
 ``_emit_pixels``; the JAX package sends mono sources with forced 3/4
 channels through its unfused front instead, which gives the same pixels
 (K1 is a drop-in for that front's compacted output).
+
+The compat (``.qoi``) decode tokenizes with ``_tokenize`` below, the JAX
+package's unfused tokenizer in its compat color form (K8 composes the
+countdown maps).
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..ops import engine, frontend
+from .. import spec
+from ..ops import engine, frontend, scan_ops
 from ..ops._plain import to_i32
 
 _INIT_PACKED = -16777216  # (0, 0, 0, 255): the decoder's initial pixel
+
+
+def _token_lengths(b):
+    """QOI-compat color token length per byte position, assuming a token
+    starts there: INDEX, DIFF and RUN 1 byte, LUMA 2, RGB 4, RGBA 5."""
+    lens = 1 + ((b & spec.MASK_2) == spec.OP_LUMA).to(torch.int32)
+    lens = torch.where(b == spec.OP_RGB, 4, lens)
+    lens = torch.where(b == spec.OP_RGBA, 5, lens)
+    return torch.where(b < spec.QOI_INDEX_SIZE, 1, lens)
+
+
+def _tokenize(b, chunks_len):
+    """Token-start mask of (B, M) int32 QOI-compat color streams (tokens
+    start after the header; chunks_len (B, 1) ends them)."""
+    state = scan_ops.tokenizer_states(_token_lengths(b), spec.HEADER_SIZE)
+    idx = torch.arange(b.shape[-1], device=b.device)
+    return (state == 0) & (idx >= spec.HEADER_SIZE) & (idx < chunks_len)
 
 
 def _dec4(filled, t, scal):

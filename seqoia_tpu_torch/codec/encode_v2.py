@@ -1,13 +1,20 @@
-"""SQOA (non-compat) stream encode on the card.
+"""SQOA and QOI-compat stream encode on the card.
 
-Port of the fused branch of ``seqoia_tpu/codec/encode_v2.py``
-(``encode_stream_batched``, ``encode_stream``): K3 turns the packed pixels
-into the compacted emission stream (byte offset, pixel, meta word per
-emitting pixel), K2 spreads it over the output bytes and its encode
-epilogue computes every byte in closed form — the run flush chunks, the
-op bytes, the trailing BIGRUN and the end marker (reference:
+Port of ``seqoia_tpu/codec/encode_v2.py`` (``encode_stream_batched``,
+``encode_stream``). SQOA (non-compat) runs the fused branch: K3 turns the
+packed pixels into the compacted emission stream (byte offset, pixel, meta
+word per emitting pixel), K2 spreads it over the output bytes and its
+encode epilogue computes every byte in closed form — the run flush chunks,
+the op bytes, the trailing BIGRUN and the end marker (reference:
 seqoia.h:544-646). The meta word's layout (the JAX package's
 ``encode_v2._pack_meta``) is K3's: ``ops/encode_front.pack_meta``.
+
+QOI-compat (``.qoi``, color only) runs the compat branch: the change and
+run segmentation (K8's running max of change positions), the index-table
+hit of each change pixel (``_compat_found``, K7), the op classes and byte
+counts as torch ops, K5 compaction of the emitting pixels, K6 spread of
+(pixel, meta, offset) over the output bytes, and the byte emission as int32
+torch ops (``_compat_bytes``), as the JAX package computes it in XLA.
 """
 
 from __future__ import annotations
@@ -15,11 +22,14 @@ from __future__ import annotations
 import torch
 
 from .. import spec
-from ..ops import encode_front, engine
+from ..ops import compact, encode_front, engine, scan_ops, slots
 
 _INIT_PACKED = encode_front.INIT_PACKED
+_wrap8 = encode_front._wrap8
 _CL_LUMA, _CL_MONO_GA, _CL_NONE = (
     encode_front.CL_LUMA, encode_front.CL_MONO_GA, encode_front.CL_NONE)
+# the compat classes (3 bits of the meta word, beside K3's)
+_CL_INDEX, _CL_RGBA5, _CL_DIFF, _CL_RGB4 = 3, 4, 5, 6
 
 
 def _emit_inits():
@@ -87,11 +97,12 @@ def _emit_epilogue(colch: int) -> engine.Epilogue:
         kind, torch.uint8, lambda f, t, s: _emit_bytes(colch, f, t, s))
 
 
-def emit_scalars(n_valid, chunk_totals, last_c):
-    """K2's encode scalars (chunk_total, has_trail, emit_tail) per row and
-    the exact stream totals, from K3's chunk totals and last changes."""
+def emit_scalars(n_valid, chunk_totals, last_c, maxrun=spec.SQOA_MAXRUN):
+    """The encode scalars (chunk_total, has_trail, emit_tail) per row and
+    the exact stream totals, from the chunk totals and last changes
+    (maxrun: 512 for SQOA, 62 for QOI-compat)."""
     nv = n_valid.to(device=chunk_totals.device, dtype=torch.int32)
-    trail_pending = ((nv - 1) - last_c) % spec.SQOA_MAXRUN
+    trail_pending = ((nv - 1) - last_c) % maxrun
     has_trail = ((trail_pending > 0) & (nv > 0)).to(torch.int32)
     total = chunk_totals + 8 + has_trail
     scal = torch.stack(
@@ -99,12 +110,124 @@ def emit_scalars(n_valid, chunk_totals, last_c):
     return scal, total
 
 
-def encode_stream_batched(packed, n_valid, *, colch: int, out_cap: int):
+def _channels(px):
+    return px & 255, (px >> 8) & 255, (px >> 16) & 255, (px >> 24) & 255
+
+
+def _compat_found(packed, change, hashes, n_valid):
+    """Index-table hit per change pixel: the slot holds the color of the
+    latest earlier change pixel with the same hash, and the table starts
+    zeroed, so a first-seen (0, 0, 0, 0) hits too (insert on every miss,
+    seqoia.h:518,563-582). One K7 pass, the change pixels both writing and
+    querying their own hash."""
+    wr = torch.where(change, hashes, -1).to(torch.int32)
+    got = slots.slot_last_writer(wr, packed, wr, init=0, n_live=n_valid)
+    return change & (got == packed)
+
+
+def _compat_bytes(filled, t, scal):
+    """The QOI-compat stream byte at each position t (int32 torch ops)
+    from the filled (pixel, meta, offset) of its emitting pixel: the run
+    flush (one byte: a compat run is cut at 62), the op bytes, the
+    trailing run and the end marker (reference: seqoia.h:544-646)."""
+    cur_f, meta_f, off_f = filled
+    chunk_total, trail = scal[:, 0:1], scal[:, 1:2]
+    W = torch.where
+    k = t - off_f
+    pend = meta_f & 0x1FF
+    cls = (meta_f >> 9) & 7
+    ocr, ocg, ocb, oca = _channels(cur_f)
+    ovg = ((meta_f >> 12) & 63) - 32
+    ovg_r = ((meta_f >> 18) & 15) - 8
+    ovg_b = ((meta_f >> 22) & 15) - 8
+    flush = (pend > 0).to(torch.int32)
+    j = k - flush
+    diff = (spec.QOI_OP_DIFF | ((_wrap8(ovg + ovg_r) + 2) << 4)
+            | ((ovg + 2) << 2) | (_wrap8(ovg + ovg_b) + 2))
+    luma = W(j == 0, spec.OP_LUMA | (ovg + 32), ((ovg_r + 8) << 4) | (ovg_b + 8))
+    tag = spec.OP_RGB | (cls == _CL_RGBA5).to(torch.int32)  # 0xFE / 0xFF
+    absolute = W(j == 0, tag, W(j == 1, ocr, W(j == 2, ocg,
+                                             W(j == 3, ocb, oca))))
+    op = W(cls == _CL_INDEX, spec.color_hash(ocr, ocg, ocb, oca),
+           W(cls == _CL_DIFF, diff, W(cls == _CL_LUMA, luma, absolute)))
+    byte = W(k < flush, spec.OP_RUN | (pend - 1), op)
+    byte = W(cls == _CL_NONE, spec.OP_BIGRUN, byte)
+    total = chunk_total + 8 + trail
+    tail_pos = t - chunk_total
+    tail = W(tail_pos == W(trail != 0, 0, -1), spec.OP_BIGRUN,
+             (tail_pos == W(trail != 0, 8, 7)).to(torch.int32))
+    out = W((tail_pos >= 0) & (t < total), tail, byte)
+    return (W(t < total, out, 0) & 255).to(torch.uint8)
+
+
+def _encode_compat(packed, n_valid, out_cap: int):
+    """The compat branch of encode_stream_batched (see the module
+    docstring)."""
+    bsz, n = packed.shape
+    dev = packed.device
+    i32 = dict(dtype=torch.int32, device=dev)
+    nv = n_valid.to(**i32)
+    idx = torch.arange(n, **i32)[None, :]
+    valid = idx < nv[:, None]
+    prev = torch.cat([torch.full((bsz, 1), _INIT_PACKED, **i32),
+                      packed[:, :-1]], dim=1)
+    same = (packed == prev) & valid
+    change = ~same & valid
+
+    last_change = scan_ops.hillis_max(torch.where(change, idx, -1))
+    prev_change = torch.cat([torch.full((bsz, 1), -1, **i32),
+                             last_change[:, :-1]], dim=1)
+    pending = torch.where(change, (idx - 1 - prev_change) % spec.QOI_MAXRUN,
+                          0)
+    bigrun = same & ((idx - last_change) % spec.QOI_MAXRUN == 0)
+    del prev_change
+
+    cr, cg, cb, ca = _channels(packed)
+    pr, pg, pb, pa = _channels(prev)
+    vr, vg = _wrap8(cr - pr), _wrap8(cg - pg)
+    vb, va = _wrap8(cb - pb), _wrap8(ca - pa)
+    vg_r, vg_b = _wrap8(vr - vg), _wrap8(vb - vg)
+    luma_ok = ((vg_r >= -8) & (vg_r <= 7) & (vg >= -32) & (vg <= 31)
+               & (vg_b >= -8) & (vg_b <= 7) & (va >= -16) & (va <= 15))
+    diff_ok = ((vr >= -2) & (vr <= 1) & (vg >= -2) & (vg <= 1)
+               & (vb >= -2) & (vb <= 1))
+    found = _compat_found(packed, change, spec.color_hash(cr, cg, cb, ca), nv)
+    W = torch.where
+    cls = W(found, _CL_INDEX, W(va != 0, _CL_RGBA5, W(
+        diff_ok, _CL_DIFF, W(luma_ok, _CL_LUMA, _CL_RGB4)))).to(torch.int32)
+    op_len = W(found, 1, W(va != 0, 5, W(diff_ok, 1, W(luma_ok, 2, 4)))
+               ).to(torch.int32)
+    # a pending run (at most 61 pixels) flushes as one RUN byte
+    total_len = W(change, (pending > 0).to(torch.int32) + op_len,
+                  bigrun.to(torch.int32))
+    cls = W(change, cls, _CL_NONE)
+    offsets = scan_ops.blocked_cumsum(total_len)
+    chunk_total = offsets[:, -1].contiguous()
+    offsets = offsets - total_len
+    meta = encode_front.pack_meta(pending, cls, vg, vg_r, vg_b, va)
+    last_c = W(change, idx, -1).amax(dim=-1)
+    scal, total = emit_scalars(nv, chunk_total, last_c, spec.QOI_MAXRUN)
+
+    keys_c, pays_c, n_entries = compact.compact(total_len > 0, offsets,
+                                                [packed, meta])
+    filled = engine.place_fill(keys_c, pays_c, n_entries, out_cap,
+                               _emit_inits(), fill_keys=True)
+    t = torch.arange(out_cap, **i32)[None, :]
+    return _compat_bytes(filled, t, scal), total
+
+
+def encode_stream_batched(packed, n_valid, *, colch: int, out_cap: int,
+                          compat: bool = False):
     """Encode a batch of packed (B, N) int32 pixel rows (r|g<<8|b<<16|a<<24,
     normalized per encode.normalize_pixels_packed), n_valid (B,) pixels
-    each. Returns ((B, out_cap) uint8 chunk bytes + trailing BIGRUN + end
-    marker, (B,) int32 exact totals — a total above out_cap means the
-    output was cut and the caller must retry with a larger cap)."""
+    each, as SQOA or (``compat``, colch 3 only) QOI-compat streams.
+    Returns ((B, out_cap) uint8 chunk bytes + trailing run + end marker,
+    (B,) int32 exact totals — a total above out_cap means the output was
+    cut and the caller must retry with a larger cap)."""
+    if compat:
+        if colch != 3:
+            raise ValueError("QOI-compat encodes color sources only")
+        return _encode_compat(packed, n_valid, out_cap)
     keys, pays, n_entries, chunk_totals, last_c = (
         encode_front.encode_front_compact(packed, n_valid, colch=colch))
     scal, total = emit_scalars(n_valid, chunk_totals, last_c)
@@ -113,11 +236,12 @@ def encode_stream_batched(packed, n_valid, *, colch: int, out_cap: int):
     return out, total
 
 
-def encode_stream(packed, n_valid: int, *, colch: int, out_cap: int):
+def encode_stream(packed, n_valid: int, *, colch: int, out_cap: int,
+                  compat: bool = False):
     """Single-image encode: packed (N,) int32 -> ((out_cap,) uint8, total)."""
     out, total = encode_stream_batched(
         packed[None],
         torch.tensor([n_valid], dtype=torch.int32, device=packed.device),
-        colch=colch, out_cap=out_cap,
+        colch=colch, out_cap=out_cap, compat=compat,
     )
     return out[0], total[0]

@@ -32,6 +32,9 @@ _SIGNATURES = {
     "frontend": {"k1_decode_front": "ppiqiipppppp"},
     "engine": {"k2_place": "ipppppqiipiiiiippppp"},
     "encode_front": {"k3_encode_front": "ppppiqipppppppp"},
+    "compact": {"k5_compact": "ppppiipppppp"},
+    "slots": {"k7_slots": "ppppiiiippp"},
+    "scan": {"k8_scan": "ippiipppp"},
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "q": ctypes.c_longlong}
 KERNELS = tuple(_SIGNATURES)

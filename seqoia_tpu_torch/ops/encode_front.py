@@ -32,14 +32,14 @@ def _wrap8(x):
 
 
 def pack_meta(pending, cls, vg, vg_r, vg_b, va):
-    """Meta word (int64 holding the 32 bits): bits 0-8 pending, 9-11 class,
-    12-17 vg+32, 18-21 vg_r+8, 22-25 vg_b+8, 26-30 va+16, 31 alpha
-    changed (encode_v2._pack_meta)."""
+    """Meta word: bits 0-8 pending, 9-11 class, 12-17 vg+32, 18-21 vg_r+8,
+    22-25 vg_b+8, 26-30 va+16, 31 alpha changed (encode_v2._pack_meta);
+    in pending's dtype (int64 holds the 32 bits, int32 their pattern)."""
     return (
         pending | (cls << 9)
         | (((vg + 32) & 63) << 12) | (((vg_r + 8) & 15) << 18)
         | (((vg_b + 8) & 15) << 22) | (((va + 16) & 31) << 26)
-        | ((va != 0).long() << 31)
+        | ((va != 0).to(pending.dtype) << 31)
     )
 
 
