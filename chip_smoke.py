@@ -38,6 +38,7 @@ no result. Images are synthetic and made from a fixed seed. Details go to
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import subprocess
@@ -121,6 +122,19 @@ def _plain_ms(fn):
     return out, (time.perf_counter() - t) * 1e3
 
 
+def _clock(rates, phase, n_px, fn):
+    """fn() on the host clock, ended by a synchronize; appends (phase,
+    Mpx/s) to rates and returns fn's result."""
+    import torch
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    rates.append((phase, n_px / (time.perf_counter() - t) / 1e6))
+    return out
+
+
 def _max_err(a, b) -> int:
     """Max |a - b| over integer tensors; a shape mismatch fails."""
     if a.shape != b.shape:
@@ -131,9 +145,12 @@ def _max_err(a, b) -> int:
 
 
 class Stages:
-    """One workload's inputs on the card and its stage outputs."""
+    """One workload's inputs (SQOA, or .qoi with ``compat=1``): its native
+    streams, the padded byte buffer and the packed pixels on the card, and
+    the encode's cap; for .qoi, after check_qoi_kernels, the fixpoint's
+    converged rows and passes."""
 
-    def __init__(self, name, pixels, w, h, ch, dev):
+    def __init__(self, name, pixels, w, h, ch, dev, compat=0):
         import torch
 
         import seqoia_tpu_torch as st
@@ -143,14 +160,14 @@ class Stages:
 
         self.name, self.w, self.h, self.ch = name, w, h, ch
         self.pixels = pixels
-        self.desc = st.SqoaDesc(w, h, ch, 0, 0)
-        self.streams = [native.encode(p, w, h, ch) for p in pixels]
+        self.desc = st.SqoaDesc(w, h, ch, 0, compat)
+        self.streams = [native.encode(p, w, h, ch, 0, compat) for p in pixels]
         self.n = w * h
         self.colch = self.desc.col_channels
         self.mode = ("mono" if self.colch == 1 else
                      ("alpha" if self.desc.has_alpha else "noalpha"))
         self.out_ch = self.desc.norm_channels
-        self.n_max = _pow2(self.n)
+        self.n_max = _pow2(max(self.n, 4))
         m = _pow2(max(len(s) for s in self.streams))
         buf = np.zeros((len(pixels), m), np.uint8)
         for i, s in enumerate(self.streams):
@@ -163,7 +180,8 @@ class Stages:
         self.npx = torch.full((len(pixels),), self.n, dtype=torch.int32,
                               device=dev)
         # the encode's power-of-two pixel bucket and the output cap its
-        # first call per (colch, has_alpha, compat) uses: K2's encode shape
+        # first call per (colch, has_alpha, compat) uses: the shape of K2's
+        # encode epilogue, or of the .qoi encode's K6 spread
         n_pad = pixel_bucket(self.n)
         packed = np.zeros((len(pixels), n_pad), np.int32)
         for i, p in enumerate(pixels):
@@ -171,6 +189,7 @@ class Stages:
         self.packed_host = packed
         self.packed = torch.from_numpy(packed).to(dev)
         self.out_cap = first_cap(self.desc, n_pad)
+        self.converged, self.passes = None, None
 
 
 def check_kernels(stages, dev):
@@ -297,13 +316,7 @@ def main_path(stages, dev):
 
     rates = []
 
-    def clock(phase, n_px, fn):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        rates.append((phase, n_px / (time.perf_counter() - t) / 1e6))
-        return out
+    clock = functools.partial(_clock, rates)
 
     for s in stages:
         if s.name == "batch_rgb":
@@ -364,45 +377,6 @@ def _chain():
         if c != 43:  # this filler would hash to slot 0
             px += [(c, 40, 0, 255), a]
     return np.array(px, np.uint8).reshape(-1), len(px)
-
-
-class QoiStages:
-    """One .qoi workload: its native streams, the padded byte buffer and the
-    packed pixels on the card, the encode's cap, and (after
-    check_qoi_kernels) the fixpoint's converged rows and passes."""
-
-    def __init__(self, name, pixels, w, h, ch, dev):
-        import torch
-
-        import seqoia_tpu_torch as st
-        from seqoia_tpu_torch import native, spec
-        from seqoia_tpu_torch.codec import normalize_pixels_packed
-        from seqoia_tpu_torch.codec.encode import first_cap, pixel_bucket
-
-        self.name, self.w, self.h, self.ch = name, w, h, ch
-        self.pixels = pixels
-        self.n = w * h
-        self.desc = st.SqoaDesc(w, h, ch, 0, 1)
-        self.out_ch = self.desc.norm_channels
-        self.streams = [native.encode(p, w, h, ch, 0, 1) for p in pixels]
-        self.n_max = _pow2(max(self.n, 4))
-        buf = np.zeros((len(pixels), _pow2(max(len(x) for x in self.streams))),
-                       np.uint8)
-        for i, x in enumerate(self.streams):
-            buf[i, : len(x)] = np.frombuffer(x, np.uint8)
-        self.buf_host = buf
-        self.clen = torch.tensor([len(x) - spec.PADDING_SIZE
-                                  for x in self.streams], dtype=torch.int32,
-                                 device=dev)
-        self.npx = torch.full((len(pixels),), self.n, dtype=torch.int32,
-                              device=dev)
-        n_pad = pixel_bucket(self.n)
-        packed = np.zeros((len(pixels), n_pad), np.int32)
-        for i, p in enumerate(pixels):
-            packed[i, : self.n] = normalize_pixels_packed(p, self.desc)
-        self.packed_host = packed
-        self.out_cap = first_cap(self.desc, n_pad)
-        self.converged, self.passes = None, None
 
 
 def _capture(run):
@@ -525,10 +499,9 @@ def check_qoi_kernels(qstages, dev):
     for s in qstages:
         if s.name == "index_chain":
             continue
-        data = torch.from_numpy(s.buf_host).to(dev)
         stats = {}
         seen, (_, conv) = _capture(lambda: decode_stream_compat_batched(
-            data, s.clen, s.npx, colch=3, out_ch=s.out_ch, n_max=s.n_max,
+            s.data, s.clen, s.npx, colch=3, out_ch=s.out_ch, n_max=s.n_max,
             stats=stats))
         s.converged, s.passes = conv.tolist(), stats["passes"]
         for key, (a, k) in seen.items():
@@ -547,15 +520,14 @@ def check_qoi_kernels(qstages, dev):
             kid, r = _check_qoi_call(key, args, k, f"{s.name} decode ops")
             r["main"] = False
             rec[kid].append(r)
-        del seen, data
+        del seen
         torch.cuda.empty_cache()
-        packed = torch.from_numpy(s.packed_host).to(dev)
         seen, _ = _capture(lambda: encode_stream_batched(
-            packed, s.npx, colch=3, out_cap=s.out_cap, compat=True))
+            s.packed, s.npx, colch=3, out_cap=s.out_cap, compat=True))
         for key, (a, k) in seen.items():
             kid, r = _check_qoi_call(key, a, k, f"{s.name} encode")
             rec[kid].append(r)
-        del seen, packed
+        del seen
         torch.cuda.empty_cache()
     return rec
 
@@ -574,13 +546,7 @@ def qoi_path(qstages, dev):
 
     rates, fix = [], []
 
-    def clock(phase, n_px, fn):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        rates.append((phase, n_px / (time.perf_counter() - t) / 1e6))
-        return out
+    clock = functools.partial(_clock, rates)
 
     for s in qstages:
         if s.name == "batch_rgb_qoi":
@@ -613,8 +579,8 @@ def qoi_path(qstages, dev):
         if s.name == "index_chain":
             stats = {}
             _, conv = decode_stream_compat_batched(
-                torch.from_numpy(s.buf_host).to(dev), s.clen, s.npx, colch=3,
-                out_ch=4, n_max=s.n_max, stats=stats)
+                s.data, s.clen, s.npx, colch=3, out_ch=4, n_max=s.n_max,
+                stats=stats)
             if conv.tolist() != [False]:
                 raise AssertionError("the INDEX chain converged on the card")
             fix.append((s.name, 0, 1, stats["passes"]))
@@ -684,7 +650,7 @@ def main() -> int:
     t0 = time.perf_counter()
     images = _images()
     stages = [Stages(*img, dev) for img in images]
-    qstages = [QoiStages(*img, dev) for img in _qoi_images(images)]
+    qstages = [Stages(*img, dev, compat=1) for img in _qoi_images(images)]
     print(f"made and encoded (native) the inputs in "
           f"{time.perf_counter() - t0:.1f} s")
 
