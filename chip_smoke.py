@@ -12,8 +12,9 @@
    (.qoi): the arguments of the first launch of K5 (compaction), K6, K7
    (slot last writer) and each K8 (scan) combine, recorded during one
    decode_stream_compat_batched / encode_stream_batched(compat=True) call
-   per workload; K8 sum and fill and K7 at 128 slots (not on the path) at
-   the decode's op shape.
+   per photo workload, and of K9 (the sequential decoder) in the value
+   chain's decode; K8 sum and K7 at 128 slots (not on the path) at the
+   decode's op shape.
 3. Resets the kernels' launch counters and drives the SQOA path through the
    public entry points: one 4096x4096 RGBA photo-class image, a batch of
    32 1024x1024 RGB photos (decode_stream_batched / encode_stream_batched)
@@ -21,15 +22,21 @@
    channels); reads the counters; resets them again and drives the .qoi
    path: the same RGBA photo (seqoia_tpu_torch.encode / decode with
    qoi_compat=1), the same 32 photos as .qoi (encode_stream_batched with
-   compat=True, decode_stream_compat_batched; an unconverged row decodes on
-   the host) and the 61-link INDEX chain that the fixpoint cannot settle.
-   Every stream and every pixel is held byte-exact against the port's
-   native C codec. Fails if a kernel of a path was not launched on it, or
-   if an encode's cap is not the one its kernels were checked at.
-4. Prints the card's name and power limit, each phase's Mpx/s, the
-   fixpoint's converged rows and passes, each kernel's time beside its
-   bound, a JSON ``kernels`` line and, last, ``{"ok": true, "device":
-   {...}}``.
+   compat=True, decode_stream_compat_batched), the 61-link INDEX chain
+   that the fixpoint cannot settle in its 12 passes, and a 2000-link chain
+   of INDEX reads of DIFF-derived values, which its alpha-speculated
+   restart cannot settle either (one resolution per link), so K9 decodes
+   it. Every stream and every pixel the card returns is
+   held byte-exact against the port's native C codec. Fails if a kernel of
+   a path was not launched on it, if a .qoi stream went to the host
+   decoder, or if an encode's cap is not the one its kernels were checked
+   at.
+4. Prints the card's name and power limit, each phase's Mpx/s, each .qoi
+   workload's fixpoint (converged rows and passes, the rows settled after
+   it and the resolutions that took) beside the INDEX-chain depth that
+   ``native.compat_probe`` measures on its streams, each kernel's time
+   beside its bound, a JSON ``kernels`` line and, last, ``{"ok": true,
+   "device": {...}}``.
 
 Any failure exits non-zero; without a CUDA device it exits 2 and prints
 no result. Images are synthetic and made from a fixed seed. Details go to
@@ -39,6 +46,7 @@ no result. Images are synthetic and made from a fixed seed. Details go to
 from __future__ import annotations
 
 import functools
+import importlib
 import json
 import os
 import subprocess
@@ -66,9 +74,12 @@ KERNELS = {
            "seqoia_tpu/ops/pallas_slots.py:119"),
     "K8": ("tile_scan", "seqoia_tpu_torch/csrc/scan.cu",
            "seqoia_tpu/ops/pallas_scan.py:123"),
+    # no Pallas kernel: the lax.scan of the JAX sequential compat decoder
+    "K9": ("sequential_decode", "seqoia_tpu_torch/csrc/sequential.cu",
+           "seqoia_tpu/codec/decode_jax.py:93"),
 }
 SQOA_KERNELS = ("K1", "K2", "K3", "K6")
-QOI_KERNELS = ("K5", "K6", "K7", "K8")
+QOI_KERNELS = ("K5", "K6", "K7", "K8", "K9")
 
 
 def _images(seed: int = 0):
@@ -147,8 +158,8 @@ def _max_err(a, b) -> int:
 class Stages:
     """One workload's inputs (SQOA, or .qoi with ``compat=1``): its native
     streams, the padded byte buffer and the packed pixels on the card, and
-    the encode's cap; for .qoi, after check_qoi_kernels, the fixpoint's
-    converged rows and passes."""
+    the encode's cap; for .qoi, each stream's ``native.compat_probe`` and,
+    after check_qoi_kernels, the fixpoint's stats."""
 
     def __init__(self, name, pixels, w, h, ch, dev, compat=0):
         import torch
@@ -189,7 +200,9 @@ class Stages:
         self.packed_host = packed
         self.packed = torch.from_numpy(packed).to(dev)
         self.out_cap = first_cap(self.desc, n_pad)
-        self.converged, self.passes = None, None
+        self.probe = ([native.compat_probe(x) for x in self.streams]
+                      if compat else None)
+        self.fix = None
 
 
 def check_kernels(stages, dev):
@@ -379,11 +392,29 @@ def _chain():
     return np.array(px, np.uint8).reshape(-1), len(px)
 
 
+def _value_chain(links: int):
+    """``links`` INDEX reads, each of the value a DIFF op derived from the
+    INDEX read before it (tests/test_torch_compat.py): neither the
+    fixpoint's zero guesses nor the speculated alpha of its restart help,
+    so the card settles it in one resolution per link, the worst case."""
+    def slot(c):
+        return (c[0] * 3 + c[1] * 5 + c[2] * 7 + c[3] * 11) % 64
+
+    px = [(0, 40, 0, 255)]
+    for i in range(1, links + 1):
+        x = (i % 256, 40 + i // 256, 0, 255)
+        z = (0, 200 + 2 * (i // 256), i % 256, 255)
+        if slot(z) == slot(x):  # the filler would evict x from the index
+            z = (0, 201 + 2 * (i // 256), i % 256, 255)
+        px += [x, z, x]
+    return np.array(px, np.uint8).reshape(-1), len(px)
+
+
 def _capture(run):
-    """Run ``run()`` with the K5, K6, K7 and K8 wrappers recording the
+    """Run ``run()`` with the K5, K6, K7, K8 and K9 wrappers recording the
     arguments of their first launch (K8: per combine). Returns ({kernel:
     (args, kwargs)}, run's result)."""
-    from seqoia_tpu_torch.ops import compact, engine, scan, slots
+    from seqoia_tpu_torch.ops import compact, engine, scan, sequential, slots
 
     seen = {}
     saved = []
@@ -391,7 +422,8 @@ def _capture(run):
             (compact, "compact", lambda a, k: "K5"),
             (engine, "place_fill", lambda a, k: "K6"),
             (slots, "slot_last_writer", lambda a, k: "K7"),
-            (scan, "tile_scan", lambda a, k: "K8 " + a[1])):
+            (scan, "tile_scan", lambda a, k: "K8 " + a[1]),
+            (sequential, "sequential_decode", lambda a, k: "K9")):
         fn = getattr(mod, name)
 
         def rec(*a, _fn=fn, _key=key, **k):
@@ -416,7 +448,7 @@ def _check_qoi_call(key, args, kw, where):
     record)."""
     import torch
 
-    from seqoia_tpu_torch.ops import compact, engine, scan, slots
+    from seqoia_tpu_torch.ops import compact, engine, scan, sequential, slots
 
     kid = key.split()[0]
     library = None
@@ -466,6 +498,16 @@ def _check_qoi_call(key, args, kw, where):
         n_q = int(((q >= 0) & (q < n_slots) & live).sum())
         nbytes = 12 * h.numel() + 4 * n_q
         shape = f"{where} {tuple(h.shape)} slots={n_slots} queries={n_q}"
+    elif kid == "K9":
+        lo, hi, tot = args
+        run = lambda: sequential.sequential_decode(lo, hi, tot)  # noqa: E731
+        got = run()
+        want, p_ms = _plain_ms(lambda: sequential.sequential_decode_plain(
+            lo, hi, tot))
+        err = _max_err(got, want)
+        n_ops = int(tot.sum())
+        nbytes = 12 * n_ops + 4 * len(tot)
+        shape = f"{where} {tuple(lo.shape)} ops={n_ops}"
     else:  # K6
         keys, pays, tot, n_out, inits = args
         fill_keys = kw.get("fill_keys", False)
@@ -487,9 +529,9 @@ def _check_qoi_call(key, args, kw, where):
 def check_qoi_kernels(qstages, dev):
     """K5, K6, K7 and K8 against their plain versions at the shapes the .qoi
     path gives them (recorded from one batched decode and one batched
-    encode per workload), and, off the path, K8 sum and fill and K7 at 128
-    slots at the decode's op shape. Records each workload's converged rows
-    and fixpoint passes."""
+    encode per photo workload), K9 at the value chain's, and, off the path,
+    K8 sum and fill and K7 at 128 slots at the decode's op shape. Records
+    each photo workload's fixpoint stats."""
     import torch
 
     from seqoia_tpu_torch.codec import (decode_stream_compat_batched,
@@ -499,11 +541,21 @@ def check_qoi_kernels(qstages, dev):
     for s in qstages:
         if s.name == "index_chain":
             continue
+        if s.name == "value_chain":
+            seen, _ = _capture(lambda: decode_stream_compat_batched(
+                s.data, s.clen, s.npx, colch=3, out_ch=4, n_max=s.n_max))
+            kid, r = _check_qoi_call("K9", *seen["K9"], f"{s.name} decode")
+            rec[kid].append(r)
+            continue
         stats = {}
         seen, (_, conv) = _capture(lambda: decode_stream_compat_batched(
             s.data, s.clen, s.npx, colch=3, out_ch=s.out_ch, n_max=s.n_max,
             stats=stats))
-        s.converged, s.passes = conv.tolist(), stats["passes"]
+        s.fix = dict(stats, converged=sum(conv.tolist()))
+        if "K9" in seen:  # its plain version walks one op per step
+            raise AssertionError(
+                f"{s.name}: K9 decoded {stats['sequential_rows']} rows; its "
+                "plain check needs a small shape")
         for key, (a, k) in seen.items():
             kid, r = _check_qoi_call(key, a, k, f"{s.name} decode")
             rec[kid].append(r)
@@ -532,10 +584,23 @@ def check_qoi_kernels(qstages, dev):
     return rec
 
 
+def _fix_row(s, conv, rows, stats):
+    """One .qoi workload's fixpoint record: its stats beside the probe's
+    INDEX-chain depths (strict and predicted, the largest over its
+    streams) and INDEX ops."""
+    return dict(workload=s.name, converged=conv, rows=rows,
+                passes=stats["passes"], settled_rows=stats["settled_rows"],
+                settle_passes=stats["settle_passes"],
+                sequential_rows=stats["sequential_rows"],
+                strict_depth=max(p[4] for p in s.probe),
+                predicted_depth=max(p[0] for p in s.probe),
+                index_ops=sum(p[2] for p in s.probe))
+
+
 def qoi_path(qstages, dev):
     """Encode and decode every .qoi workload through the public entry
     points, byte-exact against the native codec. Returns ([(phase, Mpx/s)],
-    [(phase, converged rows, rows, passes)])."""
+    [fixpoint record per workload])."""
     import torch
 
     import seqoia_tpu_torch as st
@@ -566,30 +631,35 @@ def qoi_path(qstages, dev):
                 lambda: decode_stream_compat_batched(
                     torch.from_numpy(s.buf_host).to(dev), s.clen, s.npx,
                     colch=3, out_ch=3, n_max=s.n_max, stats=stats))
-            pix, conv = pix.cpu().numpy(), conv.tolist()
+            pix = pix.cpu().numpy()
             for i, stream in enumerate(s.streams):
-                # an unconverged row is decoded on the host, as decode does
-                got = (pix[i, : s.n * 3] if conv[i]
-                       else native.decode(stream, 0)[0])
-                if not np.array_equal(got, s.pixels[i]):
+                if not np.array_equal(pix[i, : s.n * 3], s.pixels[i]):
                     raise AssertionError(f"batch .qoi decode row {i} differs")
-            fix.append((s.name, sum(conv), bsz, stats["passes"]))
+            fix.append(_fix_row(s, sum(conv.tolist()), bsz, stats))
             continue
         stream, pixels = s.streams[0], s.pixels[0]
-        if s.name == "index_chain":
+        if s.name in ("index_chain", "value_chain"):
+            # the batched call's flags and stats, then the public decode
             stats = {}
-            _, conv = decode_stream_compat_batched(
-                s.data, s.clen, s.npx, colch=3, out_ch=4, n_max=s.n_max,
-                stats=stats)
-            if conv.tolist() != [False]:
-                raise AssertionError("the INDEX chain converged on the card")
-            fix.append((s.name, 0, 1, stats["passes"]))
+            px, conv = clock(
+                f"{s.name} decode (decode_stream_compat_batched)", s.n,
+                lambda: decode_stream_compat_batched(
+                    s.data, s.clen, s.npx, colch=3, out_ch=4, n_max=s.n_max,
+                    stats=stats))
+            if conv.tolist() != [False] or stats["settled_rows"] != 1:
+                raise AssertionError(f"{s.name}: the fixpoint settled it")
+            if stats["sequential_rows"] != (s.name == "value_chain"):
+                raise AssertionError(f"{s.name}: K9 decoded "
+                                     f"{stats['sequential_rows']} rows")
+            if not np.array_equal(px[0, : s.n * 4].cpu().numpy(), pixels):
+                raise AssertionError(f"{s.name}: batched decode differs")
+            fix.append(_fix_row(s, 0, 1, stats))
         else:
-            fix.append((s.name, sum(s.converged), 1, s.passes))
-        cap = first_cap(s.desc, s.packed_host.shape[1])
-        if s.name != "index_chain" and cap != s.out_cap:
-            raise AssertionError(f"{s.name}: encode cap {cap} is not the "
-                                 f"checked {s.out_cap}")
+            fix.append(_fix_row(s, s.fix["converged"], 1, s.fix))
+            cap = first_cap(s.desc, s.packed_host.shape[1])
+            if cap != s.out_cap:
+                raise AssertionError(f"{s.name}: encode cap {cap} is not the "
+                                     f"checked {s.out_cap}")
         enc = clock(f"{s.name} encode (seqoia_tpu_torch.encode)", s.n,
                     lambda: st.encode(pixels, s.desc, device=dev))
         if enc != stream:
@@ -603,13 +673,15 @@ def qoi_path(qstages, dev):
 
 def _qoi_images(images):
     """The .qoi workloads: the SQOA path's RGBA photo and 32 RGB photos,
-    and the INDEX chain."""
+    the INDEX chain and the value chain."""
     by_name = {name: (px, w, h, ch) for name, px, w, h, ch in images}
     chain, n = _chain()
+    deep, n_deep = _value_chain(2000)
     return [
         ("photo_rgba_qoi",) + by_name["photo_rgba"],
         ("batch_rgb_qoi",) + by_name["batch_rgb"],
         ("index_chain", [chain], n, 1, 4),
+        ("value_chain", [deep], n_deep, 1, 4),
     ]
 
 
@@ -631,7 +703,8 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
         from seqoia_tpu_torch.ops import (_build, compact, encode_front,
-                                          engine, frontend, scan, slots)
+                                          engine, frontend, scan, sequential,
+                                          slots)
     except ImportError as e:
         print(f"chip_smoke: the port is not here ({e})", file=sys.stderr)
         return 2
@@ -672,12 +745,21 @@ def main() -> int:
         "K1": frontend.decode_front_compact, "K2": engine.place_emit,
         "K3": encode_front.encode_front_compact, "K6": engine.place_fill,
         "K5": compact.compact, "K7": slots.slot_last_writer,
-        "K8": scan.tile_scan,
+        "K8": scan.tile_scan, "K9": sequential.sequential_decode,
     }
     torch.cuda.reset_peak_memory_stats()
     sqoa_launches, rates = _counted(counters, lambda: main_path(stages, dev))
-    qoi_launches, (qoi_rates, fix) = _counted(
-        counters, lambda: qoi_path(qstages, dev))
+    # the .qoi path must stay on the card: count the host decodes it makes
+    dec_mod = importlib.import_module("seqoia_tpu_torch.codec.decode")
+    host, host_calls = dec_mod._host, []
+    dec_mod._host = lambda *a: host_calls.append(1) or host(*a)
+    try:
+        qoi_launches, (qoi_rates, fix) = _counted(
+            counters, lambda: qoi_path(qstages, dev))
+    finally:
+        dec_mod._host = host
+    if host_calls:
+        raise AssertionError(f"{len(host_calls)} .qoi decodes went to the host")
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     for path, launches, kernels in (("SQOA", sqoa_launches, SQOA_KERNELS),
                                     (".qoi", qoi_launches, QOI_KERNELS)):
@@ -692,9 +774,13 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     for phase, r in rates + qoi_rates:
         print(f"{phase}: {r:.4g} Mpx/s")
-    for name, conv, rows, passes in fix:
-        print(f"{name}: fixpoint converged {conv}/{rows} rows in {passes} "
-              f"passes")
+    for f in fix:
+        print(f"{f['workload']}: fixpoint converged {f['converged']}/"
+              f"{f['rows']} rows in {f['passes']} passes; settled "
+              f"{f['settled_rows']} rows on the card in {f['settle_passes']} "
+              f"more, {f['sequential_rows']} of them by K9; probe: strict "
+              f"INDEX-chain depth {f['strict_depth']}, "
+              f"predicted {f['predicted_depth']}, {f['index_ops']} INDEX ops")
     print(f"launches on the SQOA path: {sqoa_launches}")
     print(f"launches on the .qoi path: {qoi_launches}")
     print(f"peak device memory of the main paths: {peak_gb:.2f} GiB")

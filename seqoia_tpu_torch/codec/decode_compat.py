@@ -4,19 +4,35 @@ over the color index table.
 Port of ``seqoia_tpu/codec/decode_compat.py``. The index table is
 sequential state (reference: seqoia.h:753-755,785-787): every decoded pixel
 writes table[hash(px)], and an INDEX op reads a slot whose content depends
-on all earlier values. Each op's value depends only on strictly earlier
-ops, so the fixpoint of "rebuild every value from the assumed INDEX values,
-then resolve every INDEX read against those values" is unique and equals
-the sequential decode. The loop starts from the zeroed table, stops when no
-row's assumptions change or after ``_MAX_ITERS`` resolutions, and flags the
-rows that did not settle; the caller decodes those on the host.
+on all earlier values. Each op's value depends only on strictly earlier ops, so
+the fixpoint of "rebuild every value from the assumed INDEX values, then
+resolve every INDEX read against those values" is unique and equals the
+sequential decode, and each pass settles at least the earliest INDEX read
+still wrong. The loop starts from the zeroed table and stops when no row's
+assumptions change or after ``_MAX_ITERS`` resolutions, and flags the rows
+that did not settle, as the JAX package does.
+
+The JAX package decodes those rows on the host; the port finishes them on
+the card. The zero guesses give the INDEX ops alpha 0, and the alpha every
+later op carries from them moves the hashes of all later pixels, so on
+opaque photo content the fixpoint settles about one INDEX read per pass
+(``native.compat_probe`` measures that chain). The port restarts those rows
+from guesses whose alpha is speculated (the alpha of the latest RGBA op,
+255 before any) and resolves them for at most ``_SETTLE_ITERS`` more
+passes: the same unique fixpoint, reached in a few passes when the
+speculation holds. A row still unsettled then (a long chain of INDEX reads
+of values derived from the read before) goes to K9, the sequential decoder
+(the color form of ``decode_jax.decode_stream_compat``'s scan), one thread
+per row, so no row costs more than a bounded number of passes and one
+sequential walk.
 
 Per pass: K8 (two segmented mod-256 sums) rebuilds the values, K7 resolves
 the INDEX reads. Before the loop K8 (the tokenizer's map composition) finds
-the op starts and K5 compacts the op bytes; after it K6 places the pixels.
-The per-op values and hashes between the kernels are torch ops on the
-card, as they are XLA ops in the JAX package. Mono compat (a decoder-only
-quirk the encoder cannot produce) is not ported yet.
+the op starts and K5 compacts the op bytes; the restart's alpha is a K8
+fill; after the loop K6 places the pixels. The per-op values and hashes
+between the kernels are torch ops on the card, as they are XLA ops in the
+JAX package. Mono compat (a decoder-only quirk the encoder cannot produce)
+is not ported yet.
 """
 
 from __future__ import annotations
@@ -24,12 +40,45 @@ from __future__ import annotations
 import torch
 
 from .. import spec
-from ..ops import compact, engine, scan_ops, slots
+from ..ops import compact, engine, scan, scan_ops, sequential, slots
 from .decode_v2 import _INIT_PACKED, _emit_pixels, _tokenize
 
 # resolutions before a row is flagged unconverged: INDEX-light content
 # settles in <= 3, palette-heavy chains advance about one link per pass
 _MAX_ITERS = 12
+# resolutions from the alpha-speculated restart before a row goes to K9
+# (opaque photos settle in a few)
+_SETTLE_ITERS = 16
+
+
+def _resolve(ops, valid, qslot, totals, iv):
+    """One fixpoint pass: the values from the assumed INDEX values ``iv``,
+    then every INDEX read resolved against them. Returns (new iv, (B,)
+    stable: no read changed)."""
+    px, is_index = _op_values(ops, iv, valid)
+    hashes = torch.where(valid, spec.color_hash(
+        px & 255, (px >> 8) & 255, (px >> 16) & 255, (px >> 24) & 255),
+        -1).to(torch.int32)
+    got = slots.slot_last_writer(hashes, px, qslot, init=0, n_live=totals)
+    new_iv = torch.where(is_index, got, 0)
+    return new_iv, (new_iv == iv).all(dim=-1)
+
+
+def _settle(ops, valid, qslot, totals, iv):
+    """Resolve rows the fixpoint left unsettled, restarted from ``iv`` with
+    the alpha of every INDEX guess speculated (the alpha of the latest RGBA
+    op, 255 before any), until they are stable or ``_SETTLE_ITERS`` passes
+    ran. Returns (iv, passes, (B,) stable)."""
+    b0, b4 = ops[0], ops[4]
+    alpha = scan.fill_forward(b4, (b0 == spec.OP_RGBA) & valid, 255)
+    iv = torch.where((b0 < spec.QOI_INDEX_SIZE) & valid,
+                     (iv & 0xFFFFFF) | (alpha << 24), 0)
+    passes = 0
+    while True:
+        iv, stable = _resolve(ops, valid, qslot, totals, iv)
+        passes += 1
+        if passes == _SETTLE_ITERS or bool(stable.all()):
+            return iv, passes, stable
 
 
 def _op_values(ops, iv, valid):
@@ -57,9 +106,9 @@ def _op_values(ops, iv, valid):
     r_reset = (absolute | is_index) & valid
     a_reset = (is_rgba | is_index) & valid
 
-    rg = scan_ops.segmented_modsum(
+    rg = scan.segmented_modsum(
         scan_ops.pack_pair(r_el, r_reset, g_el, r_reset))
-    ba = scan_ops.segmented_modsum(
+    ba = scan.segmented_modsum(
         scan_ops.pack_pair(b_el, r_reset, a_el, a_reset))
     a_v = (ba >> 16) & 255
     # alpha is 255 until the first RGBA or INDEX anchor (seqoia.h:716-719)
@@ -69,21 +118,11 @@ def _op_values(ops, iv, valid):
     return px, is_index
 
 
-def decode_stream_compat_batched(data, chunks_len, n_pixels, *, colch: int,
-                                 out_ch: int, n_max: int, stats=None):
-    """Decode a batch of QOI-compat color streams.
-
-    data: (B, M) uint8; chunks_len (stream length less the end marker) and
-    n_pixels: (B,); n_max: pixel slots per row (>= n_pixels, a multiple of
-    4). Returns (pixels (B, n_max * out_ch) flat uint8, converged (B,)
-    bool); rows not converged must be decoded on the host. A ``stats``
-    dict receives the number of resolutions run ("passes")."""
-    if colch != 3:
-        raise NotImplementedError(
-            "mono QOI-compat decode is not ported yet (ROADMAP.md Queue 1 "
-            "item 8)")
-    if out_ch not in (1, 2, 3, 4):
-        raise ValueError("out_ch must be 1 to 4")
+def _ops(data, chunks_len):
+    """Tokenize (B, M) uint8 color streams and compact their ops (K8, K5).
+    Returns (lo, hi, totals): op bytes 0-3 and byte 4 as (B, mo) int32,
+    mo the longest row's op count (the JAX package keeps all M slots; the
+    ones past every row's total change nothing), and the ops per row."""
     dev = data.device
     bsz, m = data.shape
     b = data.to(torch.int32)
@@ -96,42 +135,13 @@ def decode_stream_compat_batched(data, chunks_len, n_pixels, *, colch: int,
     lo = b | (ahead(1) << 8) | (ahead(2) << 16) | (ahead(3) << 24)
     idx = torch.arange(m, dtype=torch.int32, device=dev).expand(bsz, m)
     _, (lo_c, hi_c), totals = compact.compact(token, idx, [lo, ahead(4)])
-    del b, token, lo, idx
-    # op slots: the longest row's ops (the JAX package keeps all M slots;
-    # the ones past every row's total are invalid and change nothing)
     mo = max(int(totals.max()), 1)
-    lo_c, hi_c = lo_c[:, :mo], hi_c[:, :mo]
-    ops = (lo_c & 255, (lo_c >> 8) & 255, (lo_c >> 16) & 255,
-           (lo_c >> 24) & 255, hi_c & 255)
-    del lo_c, hi_c
-    valid = torch.arange(mo, device=dev)[None, :] < totals[:, None]
-    qslot = torch.where(ops[0] < spec.QOI_INDEX_SIZE, ops[0], -1)
-    qslot = torch.where(valid, qslot, -1).to(torch.int32)
+    return lo_c[:, :mo], hi_c[:, :mo], totals
 
-    def resolve(iv):
-        px, is_index = _op_values(ops, iv, valid)
-        hashes = torch.where(valid, spec.color_hash(
-            px & 255, (px >> 8) & 255, (px >> 16) & 255, (px >> 24) & 255),
-            -1).to(torch.int32)
-        got = slots.slot_last_writer(hashes, px, qslot, init=0,
-                                     n_live=totals)
-        new_iv = torch.where(is_index, got, 0)
-        return new_iv, (new_iv == iv).all(dim=-1)
 
-    # one resolution, then more until every row is stable or _MAX_ITERS
-    # resolutions ran (the JAX package's body + while_loop)
-    iv, stable = resolve(torch.zeros((bsz, mo), dtype=torch.int32,
-                                     device=dev))
-    passes = 1
-    while passes < _MAX_ITERS and not bool(stable.all()):
-        iv, stable = resolve(iv)
-        passes += 1
-    px, _ = _op_values(ops, iv, valid)
-    if stats is not None:
-        stats["passes"] = passes
-
-    # --- expansion: ops -> pixels (K6) --------------------------------------
-    b0 = ops[0]
+def _expand(b0, px, valid, n_pixels, colch, out_ch, n_max):
+    """Place each op's value over its pixels (K6) and emit out_ch bytes per
+    pixel."""
     npix = torch.where(b0 >= spec.OP_RUN, (b0 & 0x3F) + 1, 1)
     npix = torch.where((b0 == spec.OP_RGB) | (b0 == spec.OP_RGBA), 1, npix)
     npix = torch.where(valid, npix, 0)
@@ -139,5 +149,60 @@ def decode_stream_compat_batched(data, chunks_len, n_pixels, *, colch: int,
     n_ops = (valid & (pixoff < n_max)).sum(dim=-1).to(torch.int32)
     (filled,) = engine.place_fill(pixoff, [px], n_ops, n_max,
                                   (_INIT_PACKED,))
-    npx = n_pixels.to(device=dev, dtype=torch.int32)
-    return _emit_pixels(filled, npx, colch, out_ch, n_max), stable
+    npx = n_pixels.to(device=px.device, dtype=torch.int32)
+    return _emit_pixels(filled, npx, colch, out_ch, n_max)
+
+
+def decode_stream_compat_batched(data, chunks_len, n_pixels, *, colch: int,
+                                 out_ch: int, n_max: int, stats=None):
+    """Decode a batch of QOI-compat color streams.
+
+    data: (B, M) uint8; chunks_len (stream length less the end marker) and
+    n_pixels: (B,); n_max: pixel slots per row (>= n_pixels, a multiple of
+    4). Returns (pixels (B, n_max * out_ch) flat uint8, converged (B,)
+    bool). Every row's pixels are exact; ``converged`` says which rows the
+    fixpoint settled within ``_MAX_ITERS`` passes (the JAX package's flags,
+    which send the other rows to its host decoder), and the port finishes
+    the others on the card. A ``stats`` dict receives the fixpoint's
+    resolutions ("passes"), the rows restarted after it ("settled_rows"),
+    the resolutions the restart ran ("settle_passes") and the rows K9
+    decoded ("sequential_rows")."""
+    if colch != 3:
+        raise NotImplementedError(
+            "mono QOI-compat decode is not ported yet (ROADMAP.md Queue 1 "
+            "item 8)")
+    if out_ch not in (1, 2, 3, 4):
+        raise ValueError("out_ch must be 1 to 4")
+    dev = data.device
+    bsz = data.shape[0]
+    lo_c, hi_c, totals = _ops(data, chunks_len)
+    mo = lo_c.shape[1]
+    ops = (lo_c & 255, (lo_c >> 8) & 255, (lo_c >> 16) & 255,
+           (lo_c >> 24) & 255, hi_c & 255)
+    valid = torch.arange(mo, device=dev)[None, :] < totals[:, None]
+    qslot = torch.where(ops[0] < spec.QOI_INDEX_SIZE, ops[0], -1)
+    qslot = torch.where(valid, qslot, -1).to(torch.int32)
+
+    # one resolution, then more until every row is stable or _MAX_ITERS
+    # resolutions ran (the JAX package's body + while_loop)
+    iv, stable = _resolve(ops, valid, qslot, totals,
+                          torch.zeros((bsz, mo), dtype=torch.int32, device=dev))
+    passes = 1
+    while passes < _MAX_ITERS and not bool(stable.all()):
+        iv, stable = _resolve(ops, valid, qslot, totals, iv)
+        passes += 1
+    rows = (~stable).nonzero()[:, 0]
+    more, late = 0, rows[:0]
+    if len(rows):
+        iv[rows], more, settled = _settle(
+            tuple(o[rows] for o in ops), valid[rows], qslot[rows],
+            totals[rows], iv[rows])
+        late = rows[~settled]
+    px, _ = _op_values(ops, iv, valid)
+    if len(late):
+        px[late] = sequential.sequential_decode(lo_c[late], hi_c[late],
+                                                totals[late])
+    if stats is not None:
+        stats.update(passes=passes, settled_rows=len(rows),
+                     settle_passes=more, sequential_rows=len(late))
+    return _expand(ops[0], px, valid, n_pixels, colch, out_ch, n_max), stable

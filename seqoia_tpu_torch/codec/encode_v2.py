@@ -22,7 +22,7 @@ from __future__ import annotations
 import torch
 
 from .. import spec
-from ..ops import compact, encode_front, engine, scan_ops, slots
+from ..ops import compact, encode_front, engine, scan, scan_ops, slots
 
 _INIT_PACKED = encode_front.INIT_PACKED
 _wrap8 = encode_front._wrap8
@@ -174,7 +174,7 @@ def _encode_compat(packed, n_valid, out_cap: int):
     same = (packed == prev) & valid
     change = ~same & valid
 
-    last_change = scan_ops.hillis_max(torch.where(change, idx, -1))
+    last_change = scan.cummax(torch.where(change, idx, -1))
     prev_change = torch.cat([torch.full((bsz, 1), -1, **i32),
                              last_change[:, :-1]], dim=1)
     pending = torch.where(change, (idx - 1 - prev_change) % spec.QOI_MAXRUN,

@@ -2,8 +2,9 @@
 
 The port's own copy of the clean-room C runtime (``sqoa_native.c``). The
 port needs it for the OP_REF fallback (REF streams teleport the decoder's
-cursor, which the parallel front-end cannot follow) and as the parity
-oracle of ``chip_smoke.py``. The library is built with ``cc`` on first use
+cursor, which the parallel front-end cannot follow), as the parity oracle
+of ``chip_smoke.py``, and for ``compat_probe``, which measures how deep a
+``.qoi`` stream's INDEX reads chain. The library is built with ``cc`` on first use
 into the git-ignored ``seqoia_tpu_torch/_build/`` directory.
 """
 
@@ -48,6 +49,9 @@ def _load() -> ctypes.CDLL:
         lib.sqn_decode.argtypes = [u8p, ctypes.c_int64, ctypes.c_int, u8p, u32p]
         lib.sqn_peek_header.restype = ctypes.c_int
         lib.sqn_peek_header.argtypes = [u8p, ctypes.c_int64, u32p]
+        lib.sqn_compat_probe.restype = ctypes.c_int64
+        lib.sqn_compat_probe.argtypes = [
+            u8p, ctypes.c_int64, ctypes.POINTER(ctypes.c_int64)]
         _lib = lib
         return lib
 
@@ -106,3 +110,24 @@ def decode(data: bytes, channels: int = 0):
     if n < 0:
         return None, None
     return out, tuple(int(x) for x in desc)
+
+
+def compat_probe(data: bytes):
+    """INDEX-chain depth of a color ``.qoi`` stream, in one sequential pass
+    (``sqn_compat_probe``). Returns (max_depth, n_ops, n_index, n_px,
+    strict_max_depth), or None for a SQOA, mono or malformed stream.
+
+    strict_max_depth is the longest chain of INDEX reads, each of a value
+    that depends on the one before: about the passes the index fixpoint
+    (``codec/decode_compat.py``) needs from its zeroed guesses. max_depth
+    is a predictor that lets a read of a value already stored by a
+    shallower op count at that op's depth (reads of slot 0 stay strict)."""
+    lib = _load()
+    buf = np.frombuffer(data, dtype=np.uint8)
+    stats = np.zeros(4, dtype=np.int64)
+    d = lib.sqn_compat_probe(
+        _u8ptr(buf), len(data),
+        stats.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)))
+    if d < 0:
+        return None
+    return (int(d),) + tuple(int(x) for x in stats)

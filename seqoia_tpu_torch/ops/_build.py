@@ -35,6 +35,7 @@ _SIGNATURES = {
     "compact": {"k5_compact": "ppppiipppppp"},
     "slots": {"k7_slots": "ppppiiiippp"},
     "scan": {"k8_scan": "ippiipppp"},
+    "sequential": {"k9_sequential_decode": "pppiipp"},
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "q": ctypes.c_longlong}
 KERNELS = tuple(_SIGNATURES)

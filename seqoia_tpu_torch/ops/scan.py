@@ -65,6 +65,11 @@ COMBINES = {
 def tile_scan_plain(arrays, combine: str):
     """Plain PyTorch K8: the same inclusive scan by log-step doubling."""
     _, _, comb = COMBINES[combine]
+    if combine == "fill":
+        # the kernels start each row's carry at the identity (0, 0), which
+        # the fill combine does not keep on its left: the value is 0 before
+        # the first flag, not the row's first value
+        arrays = (torch.where(arrays[1] != 0, arrays[0], 0), arrays[1])
     outs = hillis_steele(tuple(a.long() for a in arrays), comb)
     return tuple(to_i32(o) for o in outs)
 
@@ -107,10 +112,12 @@ tile_scan.launches = 0
 
 
 def cummax(x):
+    """Inclusive running maximum."""
     return tile_scan((x,), "max")[0]
 
 
 def cumsum(x):
+    """Inclusive sum, wrapping like int32."""
     return tile_scan((x,), "sum")[0]
 
 
@@ -122,8 +129,12 @@ def fill_forward(values, valid, init: int):
 
 
 def segmented_modsum(packed):
+    """Inclusive segmented sum mod 256 over ``scan_ops.pack_pair`` words: a
+    set flag restarts its channel at its value."""
     return tile_scan((packed,), "segmod")[0]
 
 
 def compose_state_maps(maps):
+    """Inclusive composition scan of 5-state maps: out[i] = m_i o ... o
+    m_0."""
     return tile_scan((maps,), "maps")[0]

@@ -8,7 +8,9 @@ The interpret-mode subprocess runs ``decode_compat.
 decode_stream_compat_batched`` (K8 tokenizer and segmod, K5, K7, K6) and
 the compat branch of ``encode_v2.encode_stream_batched`` (K8 max, K7, K5,
 K6) on buffers of 32768 entries, the TPU's tile; the port takes the same
-buffers.
+buffers. The JAX fixpoint's pixels are held only on the rows it settles:
+it leaves the others to its host decoder, while the port settles them on
+the card, so those are held against the native decoder.
 """
 
 import importlib
@@ -29,6 +31,7 @@ from seqoia_tpu_torch.codec import (decode_stream_compat_batched,
                                     encode_stream_batched)
 from seqoia_tpu_torch.codec import decode_compat
 from seqoia_tpu_torch.codec.encode import normalize_pixels_packed
+from seqoia_tpu_torch.utils import corpus
 
 encode_mod = importlib.import_module("seqoia_tpu_torch.codec.encode")
 
@@ -103,6 +106,9 @@ def _inputs():
             [(gen_pixels(rng, 40 * 30, 3, "sparse_delta"), 40, 30, 3),
              (gen_pixels(rng, 64 * 50, 3, "palette"), 64, 50, 3),
              (gen_pixels(rng, 17 * 9, 3, "luma"), 17, 9, 3)], 3, 4096),
+        # a crop of the photo class chip_smoke.py drives at full size
+        "photo": _dec_case(
+            [(corpus._photo(rng, 96, 96).reshape(-1), 96, 96, 3)], 3, 16384),
     }
     # a .qoi cut to its first third (its end marker re-appended)
     whole = native.encode(gen_pixels(rng, 64 * 64, 4, "luma"), 64, 64, 4, 0, 1)
@@ -163,7 +169,7 @@ def test_tokenize_matches_jax():
         assert np.array_equal(got.numpy(), np.asarray(want)), name
 
 
-@pytest.mark.parametrize("name", ["shallow", "chain", "batch3"])
+@pytest.mark.parametrize("name", ["shallow", "chain", "batch3", "photo"])
 def test_fixpoint_matches_pallas(name, pallas_out):
     c = DEC[name]
     stats = {}
@@ -172,19 +178,26 @@ def test_fixpoint_matches_pallas(name, pallas_out):
         convert.tensor(c["npx"]), colch=3, out_ch=c["out_ch"],
         n_max=c["n_max"], stats=stats)
     assert conv.tolist() == pallas_out[name + "/conv"].tolist()
-    assert np.array_equal(px.numpy(), pallas_out[name + "/px"])
-    # the palette row of batch3 chains too deep as well; the others settle
+    # the palette row of batch3 and the photo chain too deep as well (the
+    # probe's strict depth is above 12); the others settle
     want_conv = {"shallow": [True], "chain": [False],
-                 "batch3": [True, False, True]}[name]
+                 "batch3": [True, False, True], "photo": [False]}[name]
     assert conv.tolist() == want_conv
     if all(want_conv):
         assert 1 < stats["passes"] < decode_compat._MAX_ITERS
     else:
         assert stats["passes"] == decode_compat._MAX_ITERS
+    assert stats["settled_rows"] == want_conv.count(False)
+    assert (stats["settle_passes"] > 0) == (False in want_conv)
+    assert stats["sequential_rows"] == 0
     for r, n in enumerate(c["npx"]):
+        stream = bytes(c["data"][r, : c["clen"][r] + 8])
+        want, _ = native.decode(stream)
+        assert np.array_equal(px[r, : n * c["out_ch"]].numpy(), want)
         if want_conv[r]:
-            want, _ = native.decode(bytes(c["data"][r, : c["clen"][r] + 8]))
-            assert np.array_equal(px[r, : n * c["out_ch"]].numpy(), want)
+            assert np.array_equal(px[r].numpy(), pallas_out[name + "/px"][r])
+        else:
+            assert st.native.compat_probe(stream)[4] > decode_compat._MAX_ITERS
 
 
 def test_compat_encode_matches_pallas(pallas_out):
@@ -269,14 +282,80 @@ def test_truncated_qoi_fills_to_the_end(pallas_out):
     assert diff[0] // 4 == 1536
 
 
-def test_unconverged_qoi_goes_to_the_host_decoder():
-    """A stream the fixpoint cannot settle goes to the host decoder and
-    still decodes exactly."""
+def test_unconverged_qoi_settles_on_the_card(monkeypatch):
+    """A stream the fixpoint does not settle in 12 passes still decodes
+    exactly through the card path: the public decode never calls the host
+    decoder for a .qoi stream."""
+    dec_mod = importlib.import_module("seqoia_tpu_torch.codec.decode")
+
+    def host(*a):
+        raise AssertionError("a .qoi stream went to the host decoder")
+
+    monkeypatch.setattr(dec_mod, "_host", host)
+    monkeypatch.setattr(st.native, "decode", host)
     chain, n = _chain_pixels()
     stream = native.encode(chain, n, 1, 4, 0, 1)
     ours, desc = st.decode(stream, 3, device="cpu")
     assert np.array_equal(ours, chain.reshape(-1, 4)[:, :3].reshape(-1))
     assert desc.qoi_compat == 1
+
+
+def _value_chain(links):
+    """Each INDEX op reads the value a DIFF op derived from the INDEX op
+    before it, so neither the zero guesses nor the speculated alpha help:
+    the fixpoint settles one link per pass."""
+    def slot(c):
+        return (c[0] * 3 + c[1] * 5 + c[2] * 7 + c[3] * 11) % 64
+
+    px = [(0, 40, 0, 255)]
+    for i in range(1, links + 1):
+        x, z = (i, 40, 0, 255), (0, 200, i, 255)
+        if slot(z) == slot(x):  # the filler would evict x from the index
+            z = (0, 201, i, 255)
+        px += [x, z, x]
+    return np.array(px, np.uint8).reshape(-1), len(px)
+
+
+@pytest.mark.parametrize("links", [20, 100])
+def test_a_value_chain_ends_in_the_sequential_decoder(links):
+    """A chain of dependent INDEX reads (the probe's strict depth) settles
+    one link per pass; the restart stops after _SETTLE_ITERS passes and
+    hands a row still unsettled to K9, so the row costs a bounded number of
+    passes. A chain short enough settles in the restart."""
+    pixels, n = _value_chain(links)
+    stream = native.encode(pixels, n, 1, 4, 0, 1)
+    assert st.native.compat_probe(stream)[4] == links
+    data, clen = _rows([stream])
+    stats = {}
+    px, conv = decode_stream_compat_batched(
+        torch.from_numpy(data), convert.tensor(clen), torch.tensor([n]),
+        colch=3, out_ch=4, n_max=512, stats=stats)
+    assert conv.tolist() == [False]
+    assert np.array_equal(px[0, : n * 4].numpy(), pixels)
+    assert stats["passes"] == decode_compat._MAX_ITERS
+    if links + 1 <= decode_compat._MAX_ITERS + decode_compat._SETTLE_ITERS:
+        # one resolution per link and one to see it stable
+        assert stats["settle_passes"] == links + 1 - decode_compat._MAX_ITERS
+        assert stats["sequential_rows"] == 0
+    else:
+        assert stats["settle_passes"] == decode_compat._SETTLE_ITERS
+        assert stats["sequential_rows"] == 1
+
+
+def test_compat_probe_matches_jax():
+    """The port's copy of the chain-depth probe against the JAX package's
+    on every kind and both color modes; SQOA and mono streams give None."""
+    rng = np.random.default_rng(900)
+    for i, kind in enumerate(KINDS):
+        for ch in (3, 4):
+            w, h = _SHAPES[i % 2]
+            pix = gen_pixels(rng, w * h, _stride(ch), kind)
+            qoi = native.encode(pix, w, h, ch, 0, 1)
+            assert st.native.compat_probe(qoi) == native.compat_probe(qoi)
+            assert st.native.compat_probe(
+                native.encode(pix, w, h, ch, 0, 0)) is None
+    mono = native.encode(gen_pixels(rng, 64, 1, "noise"), 8, 8, 1, 0, 0)
+    assert st.native.compat_probe(mono) is None
 
 
 def test_rate_estimate_is_kept_per_compat(monkeypatch):

@@ -5,8 +5,9 @@ A subprocess runs ``pallas_scan``'s wrappers in interpret mode (the flag
 must be set before seqoia_tpu loads) at (2, 65536), two of the TPU
 kernel's 32768-entry tiles per row, so its cross-tile carry is crossed. The
 port's ``ops/scan`` wrappers take the same inputs, made from a seed with
-numpy, on the CPU (their plain versions). ``scan_ops`` is held against the
-JAX ``scan_ops`` in this process (its XLA path on the CPU). Integer scans:
+numpy, on the CPU (their plain versions). The JAX ``scan_ops`` (its XLA
+path on the CPU, in this process) is held against its counterparts in the
+port: the K8 wrappers and the helpers ``scan_ops`` keeps. Integer scans:
 exact, tolerance 0.
 """
 
@@ -42,6 +43,9 @@ out = {
     "segmod": pallas_scan.segmented_modsum(inp["segmod"]),
     "maps": pallas_scan.compose_state_maps(inp["maps"]),
 }
+# the raw (value, flag) scan under fill_forward: 0 before the first flag
+out["fill_raw_v"], out["fill_raw_f"] = pallas_scan.tile_scan(
+    (inp["fill_v"], inp["fill_f"]), pallas_scan._comb_fill, (0, 0))
 np.savez(sys.argv[2], **{k: np.asarray(v) for k, v in out.items()})
 print("PALLAS-OK")
 """
@@ -104,6 +108,16 @@ def test_tile_scan_plain_matches_pallas(combine, pallas_out):
     assert torch.equal(got, want)
 
 
+def test_tile_scan_fill_raw_matches_pallas(pallas_out):
+    """The (value, flag) scan itself, not only fill_forward's masked view:
+    before a row's first flag the value is 0 (the kernels' identity), as in
+    the Pallas kernel, which chip_smoke.py holds K8 to on the card."""
+    v, f = scan.tile_scan((_t("fill_v"), _t("fill_f")), "fill")
+    assert torch.equal(v, convert.tensor(pallas_out["fill_raw_v"]))
+    assert torch.equal(f, convert.tensor(pallas_out["fill_raw_f"]))
+    assert int(INPUTS["fill_f"][0, 0]) == 0 and int(v[0, 0]) == 0
+
+
 def test_tile_scan_checks_its_arguments():
     x = torch.zeros((1, 8), dtype=torch.int32)
     with pytest.raises(ValueError, match="2 array"):
@@ -122,13 +136,13 @@ def test_scan_ops_match_jax():
     rng = np.random.default_rng(22)
     shape = (3, 777)
     x = rng.integers(-1000, 1000, shape, dtype=np.int32)
-    assert np.array_equal(scan_ops.hillis_max(convert.tensor(x)).numpy(),
+    assert np.array_equal(scan.cummax(convert.tensor(x)).numpy(),
                           np.asarray(jax_scan_ops.hillis_max(_jax(x))))
     c = rng.integers(0, 2**24, shape, dtype=np.int32)
     assert np.array_equal(scan_ops.blocked_cumsum(convert.tensor(c)).numpy(),
                           np.asarray(jax_scan_ops.blocked_cumsum(_jax(c))))
     valid = rng.random(shape) < 0.05
-    got = scan_ops.fill_forward(convert.tensor(x), torch.from_numpy(valid), -9)
+    got = scan.fill_forward(convert.tensor(x), torch.from_numpy(valid), -9)
     want = jax_scan_ops.fill_forward(_jax(x), _jax(valid), -9)
     assert np.array_equal(got.numpy(), np.asarray(want))
 
@@ -137,7 +151,7 @@ def test_scan_ops_match_jax():
     ours = scan_ops.pack_pair(*(torch.from_numpy(a) for a in (v0, f0, v1, f1)))
     theirs = jax_scan_ops.pack_pair(*(_jax(a) for a in (v0, f0, v1, f1)))
     assert np.array_equal(ours.numpy(), np.asarray(theirs))
-    assert np.array_equal(scan_ops.segmented_modsum(ours).numpy(),
+    assert np.array_equal(scan.segmented_modsum(ours).numpy(),
                           np.asarray(jax_scan_ops.segmented_modsum(theirs)))
 
     lens = rng.choice([1, 2, 4, 5], shape).astype(np.int32)
@@ -145,7 +159,7 @@ def test_scan_ops_match_jax():
     assert np.array_equal(
         maps.numpy(), np.asarray(jax_scan_ops.pack_state_map(_jax(lens) - 1)))
     assert np.array_equal(
-        scan_ops.compose_state_maps(maps).numpy(),
+        scan.compose_state_maps(maps).numpy(),
         np.asarray(jax_scan_ops.compose_state_maps(_jax(maps.numpy()))))
     assert np.array_equal(
         scan_ops.tokenizer_states(convert.tensor(lens), 15).numpy(),
