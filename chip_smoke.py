@@ -26,16 +26,25 @@
    that the fixpoint cannot settle in its 12 passes, and a 2000-link chain
    of INDEX reads of DIFF-derived values, which its alpha-speculated
    restart cannot settle either (one resolution per link), so K9 decodes
-   it. Every stream and every pixel the card returns is
+   it. Resets them again and drives the large-image path:
+   one 16384x8192 RGB photo-class image (134 Mpx, assembled from two seeded
+   4096x4096 tiles and their flips) through encode_large, decode_large and
+   both shard forms at 4 shards, one 8192x8192 gray image and the 2048x2048
+   gray+alpha image through encode_large and decode_large. Resets them
+   again and drives the icon path: 4096 RGBA and 4096 RGB 64x64 icons and
+   2048 gray 64x64 tiles through BatchDecoder, then one mixed call (icons
+   of two sizes, four 1024x1024 photos as SQOA and as .qoi, a stream with a
+   REF op, a bad header). Every stream and every pixel the card returns is
    held byte-exact against the port's native C codec. Fails if a kernel of
-   a path was not launched on it, if a .qoi stream went to the host
-   decoder, or if an encode's cap is not the one its kernels were checked
-   at.
+   a path was not launched on it, if a .qoi stream or an icon went to the
+   host decoder, if the shard forms differ from the unsharded ones, or if
+   an encode's cap is not the one its kernels were checked at.
 4. Prints the card's name and power limit, each phase's Mpx/s, each .qoi
    workload's fixpoint (converged rows and passes, the rows settled after
    it and the resolutions that took) beside the INDEX-chain depth that
-   ``native.compat_probe`` measures on its streams, each kernel's time
-   beside its bound, a JSON ``kernels`` line and, last, ``{"ok": true,
+   ``native.compat_probe`` measures on its streams, the BatchDecoder's
+   ``last_timings``, the steps of the 134 Mpx encode and decode one by
+   one, the peak device memory, each kernel's time beside its bound, a JSON ``kernels`` line and, last, ``{"ok": true,
    "device": {...}}``.
 
 Any failure exits non-zero; without a CUDA device it exits 2 and prints
@@ -62,10 +71,15 @@ REPS = 10  # timed launches per kernel and shape
 KERNELS = {
     "K1": ("decode_front_compact", "seqoia_tpu_torch/csrc/frontend.cu",
            "seqoia_tpu/ops/pallas_frontend.py:620"),
+    "K1seg": ("decode_front_compact (segment mode)",
+              "seqoia_tpu_torch/csrc/frontend.cu",
+              "seqoia_tpu/ops/pallas_frontend.py:620"),
     "K2": ("place_emit", "seqoia_tpu_torch/csrc/engine.cu",
            "seqoia_tpu/ops/pallas_engine.py:342"),
     "K3": ("encode_front_compact", "seqoia_tpu_torch/csrc/encode_front.cu",
            "seqoia_tpu/ops/pallas_encode.py:270"),
+    "K4": ("pack_words", "seqoia_tpu_torch/csrc/pack.cu",
+           "seqoia_tpu/ops/pallas_pack.py:90"),
     "K6": ("place_fill", "seqoia_tpu_torch/csrc/engine.cu",
            "seqoia_tpu/ops/pallas_engine.py:504"),
     "K5": ("compact", "seqoia_tpu_torch/csrc/compact.cu",
@@ -80,6 +94,8 @@ KERNELS = {
 }
 SQOA_KERNELS = ("K1", "K2", "K3", "K6")
 QOI_KERNELS = ("K5", "K6", "K7", "K8", "K9")
+LARGE_KERNELS = ("K1", "K2", "K3", "K4")
+ICON_KERNELS = ("K1seg", "K2")
 
 
 def _images(seed: int = 0):
@@ -102,6 +118,63 @@ def _images(seed: int = 0):
         ("batch_rgb", [b.reshape(-1) for b in batch], 1024, 1024, 3),
         ("gray_alpha", [gray.reshape(-1)], 2048, 2048, 2),
     ]
+
+
+def _large_images(images, seed: int = 1):
+    """(name, flat uint8 pixels, width, height, channels) of the large-image
+    path: a 16384x8192 RGB photo assembled from two seeded 4096x4096 tiles
+    (the RGBA photo's color planes and a new one) and their flips, an
+    8192x8192 gray scan, and the SQOA path's 2048x2048 gray+alpha image."""
+    from seqoia_tpu_torch.utils import corpus
+
+    rng = np.random.default_rng(seed)
+    by_name = {name: px for name, px, *_ in images}
+    t0 = by_name["photo_rgba"][0].reshape(4096, 4096, 4)[..., :3]
+    t1 = corpus._photo(rng, 4096, 4096)
+    big = np.empty((8192, 16384, 3), np.uint8)
+    tiles = [t0, t1, t0[::-1], t1[::-1], t1[:, ::-1], t0[:, ::-1],
+             t1[::-1, ::-1], t0[::-1, ::-1]]
+    for i, t in enumerate(tiles):
+        r, c = divmod(i, 4)
+        big[r * 4096: (r + 1) * 4096, c * 4096: (c + 1) * 4096] = t
+    gray = corpus._mono_doc(rng, 8192, 8192)
+    return [
+        ("large_rgb", big.reshape(-1), 16384, 8192, 3),
+        ("large_gray", gray.reshape(-1), 8192, 8192, 1),
+        ("gray_alpha_2048", by_name["gray_alpha"][0], 2048, 2048, 2),
+    ]
+
+
+def _icon_streams(images, qstages, seed: int = 2):
+    """The icon path's streams (native encodes): {class: [streams]} for 4096
+    RGBA icons, the same icons without alpha and 2048 gray tiles, all
+    64x64, and the mixed list: icons of two sizes, four 1024x1024 photos as
+    SQOA and as .qoi, a stream with a REF op and a bad header."""
+    from seqoia_tpu_torch import native
+    from seqoia_tpu_torch.utils import corpus
+
+    rng = np.random.default_rng(seed)
+    icons = [corpus._icon(rng, 64, 5, glow_w=0.6, glow_peak=0.5)
+             for _ in range(4096)]
+    classes = {
+        "icons_rgba": [native.encode(i.reshape(-1), 64, 64, 4, 0, 0)
+                       for i in icons],
+        "icons_rgb": [native.encode(i[..., :3].reshape(-1), 64, 64, 3, 0, 0)
+                      for i in icons],
+        "tiles_gray": [native.encode(
+            corpus._mono_doc(rng, 64, 64).reshape(-1), 64, 64, 1, 0, 0)
+            for _ in range(2048)],
+    }
+    photos = next(px for name, px, *_ in images if name == "batch_rgb")[:4]
+    qoi = next(s for s in qstages if s.name == "batch_rgb_qoi").streams[:4]
+    ref = bytearray(classes["icons_rgba"][0])
+    ref[15] = 0x05  # a REF op at the first op position
+    mixed = (classes["icons_rgba"][1:65]
+             + [native.encode(corpus._icon(rng, 32, 3).reshape(-1), 32, 32, 4,
+                              0, 0) for _ in range(64)]
+             + [native.encode(p, 1024, 1024, 3, 0, 0) for p in photos]
+             + list(qoi) + [bytes(ref), b"Sqoa" + bytes(40)])
+    return classes, mixed, bytes(ref)
 
 
 def _pow2(x: int) -> int:
@@ -671,6 +744,236 @@ def qoi_path(qstages, dev):
     return rates, fix
 
 
+def check_pack_kernel(large, dev):
+    """K4 against its plain version on the raw bytes of each large image
+    (strides 3, 1 and 2), padded as normalize_pixels_device pads them; the
+    library call beside stride 3 is F.pad of the (N, 3) bytes with 255."""
+    import torch
+    import torch.nn.functional as F
+
+    from seqoia_tpu_torch.ops import pack
+
+    rows = []
+    for name, pixels, w, h, ch in large:
+        stride = ch
+        n_pad = -(-w * h // pack.TILE) * pack.TILE
+        raw = torch.zeros(n_pad * stride, dtype=torch.uint8)
+        raw[: pixels.size] = torch.from_numpy(pixels)
+        words = raw.to(dev).view(torch.int32)[None]
+        got = pack.pack_words(words, stride)
+        want, p_ms = _plain_ms(lambda: pack.pack_words_plain(words, stride))
+        library = None
+        if stride == 3:
+            u8 = words.view(torch.uint8).view(n_pad, 3)
+            lib = lambda: F.pad(u8, (0, 1), value=255)  # noqa: E731
+            if not torch.equal(lib().view(torch.int32).view(1, n_pad), got):
+                raise AssertionError("K4: the library call differs")
+            library = _timed(lib)
+        rows.append(dict(
+            shape=f"{name} stride={stride} (1, {n_pad})",
+            err=_max_err(got, want),
+            ms=_timed(lambda: pack.pack_words(words, stride)), plain_ms=p_ms,
+            bytes=(stride + 4) * n_pad, library_ms=library))
+        del got, want, words
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _buckets(streams):
+    """The streams of one icon class by power-of-two stream bucket, as
+    BatchDecoder groups them; only the buckets that take its packed route
+    (two or more streams of at most 8192 bytes)."""
+    out = {}
+    for s in streams:
+        out.setdefault(_pow2(len(s)), []).append(s)
+    return {seg: b for seg, b in out.items() if seg <= 8192 and len(b) > 1}
+
+
+def check_segment_kernel(classes, dev):
+    """K1 in segment mode against its plain version, on the packed rows
+    BatchDecoder builds for the largest bucket of each icon class."""
+    import torch
+
+    from seqoia_tpu_torch.ops import frontend
+    from seqoia_tpu_torch.parallel import batch
+
+    rows = []
+    for (name, streams), mode in zip(classes.items(),
+                                     ("alpha", "noalpha", "mono")):
+        seg, bucket = max(_buckets(streams).items(), key=lambda kv: len(kv[1]))
+        buf, slens = batch.pack_segments(bucket, seg)
+        data, slens = buf.to(dev), slens.to(dev)
+        n_max = (32768 // seg) * 4096
+        kw = dict(mode=mode, seg=seg, seg_px=4096)
+
+        def run():
+            return frontend.decode_front_compact(data, slens, n_max, **kw)
+        keys, pays, tot, ref = run()
+        (pk, pp, ptot, pref), p_ms = _plain_ms(
+            lambda: frontend.decode_front_plain_seg(data, slens, n_max, mode,
+                                                    seg, 4096))
+        live = (torch.arange(data.shape[1], device=dev)[None, :]
+                < tot[:, None])
+        err = max(_max_err(tot, ptot), _max_err(ref, pref),
+                  _max_err(torch.where(live, keys, 0), pk),
+                  _max_err(torch.where(live, pays, 0), pp))
+        if int(ref.max()) != 0:
+            raise AssertionError(f"{name}: a row flagged foreign")
+        rows.append(dict(
+            shape=f"{name} {tuple(data.shape)} {mode} seg={seg} "
+                  f"images={len(bucket)}",
+            err=err, ms=_timed(run), plain_ms=p_ms,
+            bytes=sum(len(x) for x in bucket) + 4 * slens.numel()
+            + 8 * int(tot.sum()) + 8 * len(tot)))
+    return rows
+
+
+def large_path(large, dev):
+    """encode_large, decode_large and (for the RGB image) both shard forms at
+    4 shards, byte-exact against the native codec. Returns ([(phase,
+    Mpx/s)], the RGB image's stream)."""
+    import seqoia_tpu_torch as st
+    from seqoia_tpu_torch import native
+
+    rates, rgb_stream = [], None
+    clock = functools.partial(_clock, rates)
+    for name, pixels, w, h, ch in large:
+        n = w * h
+        desc = st.SqoaDesc(w, h, ch)
+        stream = native.encode(pixels, w, h, ch, 0, 0)
+        oracle, _ = native.decode(stream, 0)
+        if not np.array_equal(oracle, pixels):
+            raise AssertionError(f"{name}: the native codec does not round-trip")
+        del oracle
+        enc = clock(f"{name} encode_large", n,
+                    lambda: st.encode_large(pixels, desc, device=dev))
+        if enc != stream:
+            raise AssertionError(f"{name}: encode_large differs")
+        got, d = clock(f"{name} decode_large", n,
+                       lambda: st.decode_large(stream, device=dev))
+        if not np.array_equal(got, pixels) or d != desc:
+            raise AssertionError(f"{name}: decode_large differs")
+        if name != "large_rgb":
+            continue
+        rgb_stream = stream
+        enc4 = clock(f"{name} encode_large_shardmap (4 shards)", n,
+                     lambda: st.encode_large_shardmap(pixels, desc, n_shards=4,
+                                                      device=dev))
+        if enc4 != enc:
+            raise AssertionError(f"{name}: the sharded encode differs")
+        got4, _ = clock(f"{name} decode_large_shardmap (4 shards)", n,
+                        lambda: st.decode_large_shardmap(stream, n_shards=4,
+                                                         device=dev))
+        if not np.array_equal(got4, got):
+            raise AssertionError(f"{name}: the sharded decode differs")
+    return rates, rgb_stream
+
+
+def large_steps(image, stream, dev):
+    """The steps of encode_large and decode_large on the 134 Mpx image, run
+    one by one after the main path, each ended by a synchronize: where the
+    time of those calls goes. Returns {step: ms}."""
+    import torch
+
+    import seqoia_tpu_torch as st
+    from seqoia_tpu_torch.codec import decode_v2, encode_v2
+    from seqoia_tpu_torch.ops import pack
+    from seqoia_tpu_torch.parallel import tiled
+    from seqoia_tpu_torch.utils import transfer
+
+    _, pixels, w, h, ch = image
+    n, desc, steps = w * h, st.SqoaDesc(w, h, ch), {}
+
+    def step(what, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        steps[what] = (time.perf_counter() - t) * 1e3
+        return out
+
+    packed = step("encode: pad, pin, copy up, K4",
+                  lambda: pack.normalize_pixels_device(pixels, desc, dev))
+    cap = -(-(len(stream) - 15) // 32768) * 32768
+    out, total = step(
+        "encode: K3 + K2 at the exact cap",
+        lambda: encode_v2.encode_stream_flat(packed, n, colch=3, out_cap=cap))
+    body = step("encode: copy down",
+                lambda: transfer.fetch_flat(out, int(total)))
+    step("encode: header + bytes", lambda: tiled._file_bytes(desc, body))
+    del packed, out, body
+    m_pad = -(-len(stream) // 32768) * 32768
+
+    def stage():
+        buf = torch.zeros(m_pad, dtype=torch.uint8, pin_memory=True)
+        buf.numpy()[: len(stream)] = np.frombuffer(stream, np.uint8)
+        return buf.to(dev, non_blocking=True)[None]
+
+    def one(v):
+        return torch.tensor([v], dtype=torch.int32, device=dev)
+
+    data = step("decode: pad, pin, copy up", stage)
+    words, _ = step(
+        "decode: K1 + K2",
+        lambda: decode_v2.decode_stream_batched(
+            data, one(len(stream) - 8), one(n), colch=3, out_ch=3, n_max=n,
+            emit="words", src_alpha=False))
+    step("decode: copy down", lambda: transfer.fetch_flat(words[0]))
+    return steps
+
+
+def icon_path(classes, mixed, ref_stream, dev):
+    """The icon classes and the mixed list through BatchDecoder, every image
+    byte-exact against the native codec. Returns ([(phase, Mpx/s)],
+    [(phase, last_timings, last_stats)])."""
+    import seqoia_tpu_torch as st
+    from seqoia_tpu_torch import native
+
+    rates, timings = [], []
+    clock = functools.partial(_clock, rates)
+    dec = st.BatchDecoder(device=dev)
+
+    def check(name, streams, results):
+        for i, (s, r) in enumerate(zip(streams, results)):
+            want, _ = native.decode(s, 0)
+            if want is None:
+                if r.pixels is not None or not r.error:
+                    raise AssertionError(f"{name}: image {i} has no error slot")
+            elif r.pixels is None or not np.array_equal(r.pixels, want):
+                raise AssertionError(f"{name}: image {i} differs")
+
+    for name, streams in classes.items():
+        res = clock(f"{name} BatchDecoder ({len(streams)} x 64x64)",
+                    4096 * len(streams), lambda: dec(streams))
+        check(name, streams, res)
+        st_ = dec.last_stats
+        # every stream bucket of the class with two or more icons is packed
+        want_rows = sum(-(-len(b) // (32768 // seg))
+                        for seg, b in _buckets(streams).items())
+        if st_["packed_rows"] != want_rows or want_rows == 0:
+            raise AssertionError(f"{name}: {st_['packed_rows']} packed rows, "
+                                 f"not {want_rows}")
+        if st_["host_rows"] or st_["oom_redispatch"]:
+            raise AssertionError(f"{name}: rows left the card: {st_}")
+        timings.append((name, dec.last_timings, st_))
+    n_px = sum(
+        int.from_bytes(s[4:8], "big") * int.from_bytes(s[8:12], "big")
+        for s in mixed[:-1])
+    res = clock(f"mixed BatchDecoder ({len(mixed)} streams)", n_px,
+                lambda: dec(mixed))
+    check("mixed", mixed, res)
+    if res[-1].error != "invalid header":
+        raise AssertionError("mixed: the bad header has no error slot")
+    st_ = dec.last_stats
+    # the REF stream's packed row goes to the host, and nothing else
+    if not 1 <= st_["host_rows"] <= 32768 // _pow2(len(ref_stream)):
+        raise AssertionError(f"mixed: {st_['host_rows']} rows on the host")
+    if st_["packed_rows"] < 2:
+        raise AssertionError(f"mixed: the icons were not packed: {st_}")
+    timings.append(("mixed", dec.last_timings, st_))
+    return rates, timings
+
+
 def _qoi_images(images):
     """The .qoi workloads: the SQOA path's RGBA photo and 32 RGB photos,
     the INDEX chain and the value chain."""
@@ -686,12 +989,12 @@ def _qoi_images(images):
 
 
 def _counted(counters, run):
-    """Launches of each kernel during run(), the counters set to 0 just
-    before it and read just after."""
-    for fn in counters.values():
-        fn.launches = 0
+    """Launches of each kernel during run(), the counters ((function,
+    attribute) pairs) set to 0 just before it and read just after."""
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
     out = run()
-    return {k: fn.launches for k, fn in counters.items()}, out
+    return {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}, out
 
 
 def main() -> int:
@@ -703,8 +1006,8 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
         from seqoia_tpu_torch.ops import (_build, compact, encode_front,
-                                          engine, frontend, scan, sequential,
-                                          slots)
+                                          engine, frontend, pack, scan,
+                                          sequential, slots)
     except ImportError as e:
         print(f"chip_smoke: the port is not here ({e})", file=sys.stderr)
         return 2
@@ -724,12 +1027,16 @@ def main() -> int:
     images = _images()
     stages = [Stages(*img, dev) for img in images]
     qstages = [Stages(*img, dev, compat=1) for img in _qoi_images(images)]
+    large = _large_images(images)
+    classes, mixed, ref_stream = _icon_streams(images, qstages)
     print(f"made and encoded (native) the inputs in "
           f"{time.perf_counter() - t0:.1f} s")
 
     rec = check_kernels(stages, dev)
     for k, rows in check_qoi_kernels(qstages, dev).items():
         rec[k] += rows
+    rec["K4"] = check_pack_kernel(large, dev)
+    rec["K1seg"] = check_segment_kernel(classes, dev)
     for k, rows in rec.items():
         for r in rows:
             lib = ("" if r.get("library_ms") is None
@@ -741,12 +1048,13 @@ def main() -> int:
     if bad:
         raise AssertionError(f"kernels differ from their plain versions: {bad}")
 
-    counters = {
-        "K1": frontend.decode_front_compact, "K2": engine.place_emit,
-        "K3": encode_front.encode_front_compact, "K6": engine.place_fill,
-        "K5": compact.compact, "K7": slots.slot_last_writer,
-        "K8": scan.tile_scan, "K9": sequential.sequential_decode,
-    }
+    counters = {k: (fn, "launches") for k, fn in (
+        ("K1", frontend.decode_front_compact), ("K2", engine.place_emit),
+        ("K3", encode_front.encode_front_compact), ("K4", pack.pack_words),
+        ("K6", engine.place_fill), ("K5", compact.compact),
+        ("K7", slots.slot_last_writer), ("K8", scan.tile_scan),
+        ("K9", sequential.sequential_decode))}
+    counters["K1seg"] = (frontend.decode_front_compact, "seg_launches")
     torch.cuda.reset_peak_memory_stats()
     sqoa_launches, rates = _counted(counters, lambda: main_path(stages, dev))
     # the .qoi path must stay on the card: count the host decodes it makes
@@ -760,20 +1068,37 @@ def main() -> int:
         dec_mod._host = host
     if host_calls:
         raise AssertionError(f"{len(host_calls)} .qoi decodes went to the host")
+    large_launches, (large_rates, rgb_stream) = _counted(
+        counters, lambda: large_path(large, dev))
+    if large_launches["K4"] != 3:
+        raise AssertionError(f"K4 ran {large_launches['K4']} times, not once "
+                             "per stride")
+    icon_launches, (icon_rates, timings) = _counted(
+        counters, lambda: icon_path(classes, mixed, ref_stream, dev))
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
-    for path, launches, kernels in (("SQOA", sqoa_launches, SQOA_KERNELS),
-                                    (".qoi", qoi_launches, QOI_KERNELS)):
+    steps = large_steps(large[0], rgb_stream, dev)
+    paths = (("SQOA", sqoa_launches, SQOA_KERNELS),
+             (".qoi", qoi_launches, QOI_KERNELS),
+             ("large-image", large_launches, LARGE_KERNELS),
+             ("icon", icon_launches, ICON_KERNELS))
+    for path, launches, kernels in paths:
         missing = [k for k in kernels if launches[k] == 0]
         if missing:
             raise AssertionError(f"the {path} path launched no {missing}")
-    launches = {k: sqoa_launches[k] + qoi_launches[k] for k in counters}
+    launches = {k: sum(p[1][k] for p in paths) for k in counters}
+    rates = rates + qoi_rates + large_rates + icon_rates
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    for phase, r in rates + qoi_rates:
+    for phase, r in rates:
         print(f"{phase}: {r:.4g} Mpx/s")
+    for what, ms in steps.items():
+        print(f"large_rgb {what}: {ms:.1f} ms")
+    for phase, t, st_ in timings:
+        print(f"{phase} BatchDecoder seconds: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in t.items()) + f"; {st_}")
     for f in fix:
         print(f"{f['workload']}: fixpoint converged {f['converged']}/"
               f"{f['rows']} rows in {f['passes']} passes; settled "
@@ -783,6 +1108,8 @@ def main() -> int:
               f"predicted {f['predicted_depth']}, {f['index_ops']} INDEX ops")
     print(f"launches on the SQOA path: {sqoa_launches}")
     print(f"launches on the .qoi path: {qoi_launches}")
+    print(f"launches on the large-image path: {large_launches}")
+    print(f"launches on the icon path: {icon_launches}")
     print(f"peak device memory of the main paths: {peak_gb:.2f} GiB")
     kernels = []
     for k, (fname, src, repl) in KERNELS.items():
@@ -800,8 +1127,13 @@ def main() -> int:
     total_s = time.perf_counter() - t_start
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=smi, build_s=build_s, total_s=total_s,
-                       kernels=rec, rates=rates + qoi_rates, fixpoint=fix,
-                       launches=dict(sqoa=sqoa_launches, qoi=qoi_launches),
+                       kernels=rec, rates=rates, fixpoint=fix,
+                       launches=dict(sqoa=sqoa_launches, qoi=qoi_launches,
+                                     large=large_launches,
+                                     icon=icon_launches),
+                       large_rgb_steps_ms=steps,
+                       batch_decoder=[dict(phase=p, timings=t, stats=s_)
+                                      for p, t, s_ in timings],
                        peak_gib=peak_gb), f, indent=1)
     print(f"chip_smoke ran {total_s:.1f} s")
     print(smi)

@@ -13,6 +13,10 @@ seqoia.h:336-374) and byte-exact streams. Two backends:
 QOI-compatible (``.qoi``) streams encode and decode on the card too, except
 the decode of mono ``.qoi`` streams (a decoder-only quirk), which raises
 ``NotImplementedError`` for now.
+
+``encode_large`` / ``decode_large`` (one 100-400 Mpx image, with shard forms)
+and ``BatchDecoder`` / ``corpus_decode`` (many streams, icons packed many to
+a row) come from ``seqoia_tpu_torch.parallel`` and load on first use.
 """
 
 from __future__ import annotations
@@ -43,6 +47,20 @@ __all__ = [
     "CHAN_MONO", "CHAN_MONOA", "CHAN_RGB", "CHAN_RGBA", "CHAN_BGR",
     "CHAN_BGRA", "SRGB", "LINEAR",
 ]
+
+_PARALLEL = (
+    "BatchDecoder", "DecodeResult", "corpus_decode", "encode_large",
+    "encode_large_shardmap", "decode_large", "decode_large_shardmap",
+)
+__all__ += list(_PARALLEL)
+
+
+def __getattr__(name: str):
+    if name in _PARALLEL:
+        from . import parallel
+
+        return getattr(parallel, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def _check_backend(backend: str) -> None:

@@ -158,3 +158,52 @@ def decode_stream(data, chunks_len: int, n_pixels: int, *, colch: int,
     )
     return out[0], has_ref[0]
 
+
+
+def decode_stream_flat(data, chunks_len: int, n_pixels: int, *, colch: int,
+                       out_ch: int, n_max: int, src_alpha: bool = True):
+    """Single large-image SQOA decode (``decode_v2.decode_stream_flat`` of
+    the JAX package, whose rank-1 internals answer a TPU layout): on the
+    card it is ``decode_stream``, K1 then K2."""
+    return decode_stream(data, chunks_len, n_pixels, colch=colch,
+                         out_ch=out_ch, n_max=n_max, src_alpha=src_alpha)
+
+
+def decode_stream_packed(data, seg_lens, *, colch: int, out_ch: int,
+                         seg: int, seg_px: int, src_alpha: bool = True):
+    """Segment-packed decode of small same-size images (the icon class).
+
+    Each row of ``data`` (B, M) uint8 carries M/seg images: image j fills
+    bytes [j*seg, (j+1)*seg) with its whole stream, header included,
+    zero-padded, and must decode to EXACTLY seg_px pixels (a multiple of
+    4). seg_lens: (B, M/seg) int32, each image's stream length less the end
+    marker (0: an empty segment; its pixels repeat the image before).
+    K1 in segment mode gives one op stream per row with global keys, K2
+    places it over the row's n_out = (M/seg) * seg_px pixels. Returns
+    (words, has_ref (B,) bool, per packed ROW: one REF or foreign image
+    sends its row mates to the host decoder too). ``words`` is the
+    emit="words" layout of decode_stream_batched over the row's pixels:
+    int32 (B, n_out * out_ch // 4) for a color source at 3/4 channels,
+    uint8/uint16 (B, n_out) for a mono source at 1/2, else the int32 view
+    of the interleaved bytes; image j starts at byte j * seg_px * out_ch."""
+    if colch not in (1, 3) or out_ch not in (1, 2, 3, 4):
+        raise ValueError("colch must be 1 or 3 and out_ch 1 to 4")
+    bsz, m = data.shape
+    if seg_px <= 0 or seg_px % 4:
+        raise ValueError("seg_px must be a positive multiple of 4")
+    n_out = (m // seg) * seg_px
+    mode = "mono" if colch == 1 else ("alpha" if src_alpha else "noalpha")
+    keys, pays, totals, ref = frontend.decode_front_compact(
+        data, seg_lens, n_out, mode=mode, seg=seg, seg_px=seg_px)
+    npx = torch.full((bsz, 1), n_out, dtype=torch.int32, device=data.device)
+    init = (_INIT_PACKED,)
+    if colch == 1 and out_ch in (1, 2):
+        epi = _dec_epilogue_mono(out_ch)
+    elif colch == 3 and out_ch in (3, 4):
+        epi = _dec_epilogue(out_ch)
+    else:
+        filled = engine.place_fill(keys, [pays], totals, n_out, init)[0]
+        out = _emit_pixels(filled, npx[:, 0], colch, out_ch, n_out)
+        return out.view(torch.int32), ref != 0
+    return (engine.place_emit(keys, [pays], totals, npx, n_out, init, epi),
+            ref != 0)

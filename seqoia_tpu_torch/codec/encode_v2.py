@@ -97,16 +97,21 @@ def _emit_epilogue(colch: int) -> engine.Epilogue:
         kind, torch.uint8, lambda f, t, s: _emit_bytes(colch, f, t, s))
 
 
-def emit_scalars(n_valid, chunk_totals, last_c, maxrun=spec.SQOA_MAXRUN):
+def emit_scalars(n_valid, chunk_totals, last_c, maxrun=spec.SQOA_MAXRUN,
+                 emit_tail=None):
     """The encode scalars (chunk_total, has_trail, emit_tail) per row and
     the exact stream totals, from the chunk totals and last changes
-    (maxrun: 512 for SQOA, 62 for QOI-compat)."""
-    nv = n_valid.to(device=chunk_totals.device, dtype=torch.int32)
+    (maxrun: 512 for SQOA, 62 for QOI-compat). ``emit_tail`` (B,): 0 for a
+    row that does not end its image, which then gets neither the trailing
+    run nor the end marker (default: every row ends one)."""
+    i32 = dict(device=chunk_totals.device, dtype=torch.int32)
+    nv = n_valid.to(**i32)
+    tail = (torch.ones_like(chunk_totals) if emit_tail is None
+            else (emit_tail.to(**i32) != 0).to(torch.int32))
     trail_pending = ((nv - 1) - last_c) % maxrun
-    has_trail = ((trail_pending > 0) & (nv > 0)).to(torch.int32)
-    total = chunk_totals + 8 + has_trail
-    scal = torch.stack(
-        [chunk_totals, has_trail, torch.ones_like(chunk_totals)], dim=-1)
+    has_trail = ((trail_pending > 0) & (nv > 0)).to(torch.int32) * tail
+    total = chunk_totals + (8 + has_trail) * tail
+    scal = torch.stack([chunk_totals, has_trail, tail], dim=-1)
     return scal, total
 
 
@@ -217,20 +222,35 @@ def _encode_compat(packed, n_valid, out_cap: int):
 
 
 def encode_stream_batched(packed, n_valid, *, colch: int, out_cap: int,
-                          compat: bool = False):
+                          compat: bool = False, init_prev=None, run_in=None,
+                          emit_tail=None):
     """Encode a batch of packed (B, N) int32 pixel rows (r|g<<8|b<<16|a<<24,
     normalized per encode.normalize_pixels_packed), n_valid (B,) pixels
     each, as SQOA or (``compat``, colch 3 only) QOI-compat streams.
     Returns ((B, out_cap) uint8 chunk bytes + trailing run + end marker,
     (B,) int32 exact totals — a total above out_cap means the output was
-    cut and the caller must retry with a larger cap)."""
+    cut and the caller must retry with a larger cap).
+
+    The three carries, (B,) each and SQOA only, make a row a SHARD of a
+    larger image (``parallel/tiled.py``): ``init_prev`` the packed pixel
+    before the row (default: the codec's initial (0, 0, 0, 255),
+    seqoia.h:520-525), ``run_in`` the length mod 512 of the run in progress
+    at its start (it carries the BIGRUN phase and the pending flush across
+    the boundary, seqoia.h:544-561), ``emit_tail`` whether the row ends the
+    image (trailing BIGRUN and end marker, seqoia.h:640-646)."""
     if compat:
         if colch != 3:
             raise ValueError("QOI-compat encodes color sources only")
+        if not (init_prev is None and run_in is None and emit_tail is None):
+            raise ValueError("QOI-compat streams take no shard carries")
         return _encode_compat(packed, n_valid, out_cap)
+    # the run carried in enters K3 as a change anchor at -(run_in + 1)
+    lc0 = None if run_in is None else -(run_in.to(torch.int32) + 1)
     keys, pays, n_entries, chunk_totals, last_c = (
-        encode_front.encode_front_compact(packed, n_valid, colch=colch))
-    scal, total = emit_scalars(n_valid, chunk_totals, last_c)
+        encode_front.encode_front_compact(packed, n_valid, colch=colch,
+                                          init_prev=init_prev, lc0=lc0))
+    scal, total = emit_scalars(n_valid, chunk_totals, last_c,
+                               emit_tail=emit_tail)
     out = engine.place_emit(keys, pays, n_entries, scal, out_cap,
                             _emit_inits(), _emit_epilogue(colch))
     return out, total
@@ -244,4 +264,22 @@ def encode_stream(packed, n_valid: int, *, colch: int, out_cap: int,
         torch.tensor([n_valid], dtype=torch.int32, device=packed.device),
         colch=colch, out_cap=out_cap, compat=compat,
     )
+    return out[0], total[0]
+
+
+def encode_stream_flat(packed, n_valid: int, *, colch: int, out_cap: int,
+                       init_prev: int | None = None, run_in: int = 0,
+                       emit_tail: int = 1):
+    """Single large-image SQOA encode: packed (N,) int32 -> ((out_cap,)
+    uint8, total), with the shard carries of encode_stream_batched as
+    scalars. The JAX package keeps rank-1 internals here because a (1, N)
+    buffer pads 8x in the TPU's layout; a card has no such padding, so this
+    is the batched function at one row."""
+    def one(v):
+        return torch.tensor([v], dtype=torch.int32, device=packed.device)
+
+    out, total = encode_stream_batched(
+        packed[None], one(n_valid), colch=colch, out_cap=out_cap,
+        init_prev=None if init_prev is None else one(init_prev),
+        run_in=one(run_in), emit_tail=one(emit_tail))
     return out[0], total[0]

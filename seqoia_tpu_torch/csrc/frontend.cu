@@ -26,6 +26,22 @@
 // 5 bytes after an op). The walks are recomputed rather than stored, so
 // the only traffic is the byte stream (read three times, from L2 after the
 // first) and the compacted output.
+//
+// Segment mode (k > 1): a row of M bytes packs k small images, image j in
+// bytes [j*seg, (j+1)*seg) with its header, each decoding to exactly seg_px
+// pixels. The TPU kernel restarts its carried scans there with a reset map,
+// an injected anchor and a flagged in-tile prefix. Here the segments are
+// independent: every segment is a scan row of its own (the grid runs over
+// B*k rows of seg bytes, so no scan needs a reset), keys come out global
+// (j*seg_px + offset), ops whose offset reaches seg_px are dropped (a
+// suffix of their segment), and two small passes give the compaction its
+// rank across the segments of a packed row:
+//   k1_segcount  per block: the segment's ops below seg_px (from the block
+//                aggregates; only a block that straddles seg_px walks)
+//   scan         per packed row: exclusive sum of its segments' counts
+// A segment below 4096 bytes leaves its block underfilled.
+
+#include <climits>
 
 #include "common.cuh"
 
@@ -73,7 +89,9 @@ struct ChanOp {
     o.val = (r.val & m) | (s & ~m);
     o.flg = (l.flg | r.flg) & 3u;
     o.cnt = l.cnt + r.cnt;
-    o.npix = l.npix + r.npix;
+    // saturating: a hostile stream of BIGRUNs must not wrap the offsets
+    const long long np = (long long)l.npix + r.npix;
+    o.npix = np > INT_MAX ? INT_MAX : (int)np;
     return o;
   }
 };
@@ -193,27 +211,47 @@ __device__ int entry_state(const uint8_t* s, long long base, int mode,
   return (int)(Compose6()(blk_prefix, ex) & 7u);
 }
 
+// The grid is one-dimensional over (scan row, block of the row): block g
+// works on bytes [base, base + CHUNK) of scan row g / nblk. Fewer than 2^31
+// blocks, so the divisions are 32-bit.
+struct Blk {
+  unsigned g, urow;
+  long long row, base;
+};
+
+__device__ __forceinline__ Blk k1_block(int nblk) {
+  Blk b;
+  b.g = blockIdx.x;
+  b.urow = b.g / (unsigned)nblk;
+  b.row = b.urow;
+  b.base = (long long)(b.g - b.urow * (unsigned)nblk) * CHUNK;
+  return b;
+}
+
 __global__ void k1_maps(const uint8_t* data, long long M, int nblk, int mode,
                         uint32_t* blk_maps) {
   __shared__ uint8_t s[CHUNK + HALO];
   __shared__ uint32_t mbuf[NT];
-  const long long row = blockIdx.y, base = (long long)blockIdx.x * CHUNK;
+  const Blk blk = k1_block(nblk);
+  const unsigned g = blk.g;
+  const long long row = blk.row, base = blk.base;
   load_chunk(data + row * M, M, base, s);
   uint32_t tot;
   block_scan_excl(thread_map(s, base, mode), IDENT6, mbuf, &tot, Compose6());
-  if (threadIdx.x == 0) blk_maps[row * nblk + blockIdx.x] = tot;
+  if (threadIdx.x == 0) blk_maps[g] = tot;
 }
 
 __global__ void k1_chan(const uint8_t* data, long long M, int nblk, int mode,
-                        const int* clen, const uint32_t* blk_map_ex,
+                        const int* clen, const uint32_t* blk_map_ex, int k,
                         Chan* blk_chan, int* has_ref) {
   __shared__ uint8_t s[CHUNK + HALO];
   __shared__ uint32_t mbuf[NT];
   __shared__ Chan cbuf[NT];
-  const long long row = blockIdx.y, base = (long long)blockIdx.x * CHUNK;
+  const Blk blk = k1_block(nblk);
+  const unsigned g = blk.g;
+  const long long row = blk.row, base = blk.base;
   load_chunk(data + row * M, M, base, s);
-  const int st = entry_state(s, base, mode, blk_map_ex[row * nblk + blockIdx.x],
-                             mbuf);
+  const int st = entry_state(s, base, mode, blk_map_ex[g], mbuf);
   ChanOp op;
   Chan acc = chan_ident();
   bool fr = false;
@@ -224,21 +262,33 @@ __global__ void k1_chan(const uint8_t* data, long long M, int nblk, int mode,
   });
   Chan tot;
   block_scan_excl(acc, chan_ident(), cbuf, &tot, op);
-  if (threadIdx.x == 0) blk_chan[row * nblk + blockIdx.x] = tot;
-  if (fr) atomicOr(has_ref + row, 1);
+  if (threadIdx.x == 0) blk_chan[g] = tot;
+  if (fr) atomicOr(has_ref + blk.urow / (unsigned)k, 1);  // per packed row
 }
 
-__global__ void k1_emit(const uint8_t* data, long long M, int nblk, int mode,
-                        const int* clen, const uint32_t* blk_map_ex,
-                        const Chan* blk_chan_ex, int n_max, int* keys,
-                        int* pays, int* totals) {
+// Segment mode: seg_cnt[segment] += the block's ops whose offset in the
+// segment is below seg_px. Offsets grow with rank, so a block wholly below
+// seg_px counts its aggregate, one wholly past it counts nothing, and only a
+// block that straddles seg_px walks its bytes.
+__global__ void k1_segcount(const uint8_t* data, long long M, int nblk,
+                            int mode, const int* clen,
+                            const uint32_t* blk_map_ex, const Chan* blk_chan,
+                            const Chan* blk_chan_ex, int seg_px,
+                            int* seg_cnt) {
   __shared__ uint8_t s[CHUNK + HALO];
   __shared__ uint32_t mbuf[NT];
   __shared__ Chan cbuf[NT];
-  const long long row = blockIdx.y, base = (long long)blockIdx.x * CHUNK;
+  const Blk blk = k1_block(nblk);
+  const unsigned g = blk.g;
+  const long long row = blk.row, base = blk.base;
+  const Chan pre = blk_chan_ex[g], agg = blk_chan[g];
+  if (pre.npix >= seg_px || agg.cnt == 0) return;
+  if ((long long)pre.npix + agg.npix <= seg_px) {
+    if (threadIdx.x == 0) atomicAdd(seg_cnt + row, agg.cnt);
+    return;
+  }
   load_chunk(data + row * M, M, base, s);
-  const int st = entry_state(s, base, mode, blk_map_ex[row * nblk + blockIdx.x],
-                             mbuf);
+  const int st = entry_state(s, base, mode, blk_map_ex[g], mbuf);
   ChanOp op;
   Chan acc = chan_ident();
   walk(s, base, st, mode, clen[row], [&](int i, int att) {
@@ -247,50 +297,106 @@ __global__ void k1_emit(const uint8_t* data, long long M, int nblk, int mode,
   });
   Chan tot;
   const Chan ex = block_scan_excl(acc, chan_ident(), cbuf, &tot, op);
-  Chan run = op(blk_chan_ex[row * nblk + blockIdx.x], ex);
-  int* krow = keys + row * M;
-  int* prow = pays + row * M;
+  Chan run = op(pre, ex);
+  int here = 0;
+  walk(s, base, st, mode, clen[row], [&](int i, int att) {
+    bool unused;
+    here += run.npix < seg_px;
+    run = op(run, op_elem(s, i, att, mode, &unused));
+  });
+  if (here) atomicAdd(seg_cnt + row, here);
+}
+
+// limit: pixels per scan row (n_max, or seg_px in segment mode). Scan row
+// `row` is segment row % k of output row row / k: its keys start at
+// (row % k) * limit and its ops rank after seg_base[row] (null: 0).
+__global__ void k1_emit(const uint8_t* data, long long M, int nblk, int mode,
+                        const int* clen, const uint32_t* blk_map_ex,
+                        const Chan* blk_chan_ex, int limit, int k,
+                        const int* seg_base, int* keys, int* pays,
+                        int* totals) {
+  __shared__ uint8_t s[CHUNK + HALO];
+  __shared__ uint32_t mbuf[NT];
+  __shared__ Chan cbuf[NT];
+  const Blk blk = k1_block(nblk);
+  const unsigned g = blk.g;
+  const long long row = blk.row, base = blk.base;
+  load_chunk(data + row * M, M, base, s);
+  const int st = entry_state(s, base, mode, blk_map_ex[g], mbuf);
+  ChanOp op;
+  Chan acc = chan_ident();
+  walk(s, base, st, mode, clen[row], [&](int i, int att) {
+    bool unused;
+    acc = op(acc, op_elem(s, i, att, mode, &unused));
+  });
+  Chan tot;
+  const Chan ex = block_scan_excl(acc, chan_ident(), cbuf, &tot, op);
+  Chan run = op(blk_chan_ex[g], ex);
+  const unsigned orow = blk.urow / (unsigned)k;
+  const int kbase = (int)(blk.urow - orow * (unsigned)k) * limit;
+  const long long rbase =
+      (long long)orow * (M * k) + (seg_base ? seg_base[row] : 0);
+  int* krow = keys + rbase;
+  int* prow = pays + rbase;
   int here = 0;
   walk(s, base, st, mode, clen[row], [&](int i, int att) {
     bool f;
     const int key = run.npix;
     run = op(run, op_elem(s, i, att, mode, &f));
-    if (key < n_max) {  // offsets grow with rank: in-range ops are a prefix
+    if (key < limit) {  // offsets grow with rank: in-range ops are a prefix
       uint32_t a = (run.val >> 24) & 255u;
       if (!(run.flg & 2u)) a = (a + 255u) & 255u;  // alpha starts at 255
-      krow[run.cnt - 1] = key;
+      krow[run.cnt - 1] = kbase + key;
       prow[run.cnt - 1] = (int)((run.val & 0x00FFFFFFu) | (a << 24));
       ++here;
     }
   });
-  if (here) atomicAdd(totals + row, here);
+  if (here) atomicAdd(totals + orow, here);
 }
 
 }  // namespace
 
-// data (B, M) u8; clen (B,) i32 = stream length minus the end marker.
-// scratch: 10 * B * nblk u32 (nblk = ceil(M / 4096)). keys/pays (B, M) i32;
-// totals, has_ref (B,) i32, zeroed by the caller. Returns cudaGetLastError.
+// data (B, M) u8. k = 1: clen (B,) i32 = stream length minus the end marker.
+// k > 1 (segment mode): a row packs k images of seg = M / k bytes, clen is
+// (B, k), relative to the segment, every image decodes to seg_px pixels and
+// n_max = k * seg_px. scratch: 10 * B * k * nblk + 2 * B * k u32 (nblk =
+// ceil(seg / 4096)). keys/pays (B, M) i32; totals, has_ref (B,) i32, zeroed
+// by the caller. Returns cudaGetLastError.
 extern "C" int k1_decode_front(const uint8_t* data, const int* clen, int B,
-                               long long M, int n_max, int mode,
-                               uint32_t* scratch, int* keys, int* pays,
-                               int* totals, int* has_ref, void* stream) {
+                               long long M, int n_max, int mode, int k,
+                               int seg_px, uint32_t* scratch, int* keys,
+                               int* pays, int* totals, int* has_ref,
+                               void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const int nblk = (int)((M + CHUNK - 1) / CHUNK);
-  const long long nb = (long long)B * nblk;
+  const long long seg = M / k;
+  const long long R = (long long)B * k;  // scan rows
+  const int nblk = (int)((seg + CHUNK - 1) / CHUNK);
+  const long long nb = R * nblk;
+  if (nb > INT_MAX) return (int)cudaErrorInvalidValue;
   uint32_t* blk_maps = scratch;
   uint32_t* blk_map_ex = scratch + nb;
   Chan* blk_chan = reinterpret_cast<Chan*>(scratch + 2 * nb);
   Chan* blk_chan_ex = reinterpret_cast<Chan*>(scratch + 6 * nb);
-  const dim3 grid(nblk, B);
-  k1_maps<<<grid, NT, 0, st>>>(data, M, nblk, mode, blk_maps);
-  scan_blocks_kernel<uint32_t, Compose6><<<B, NT, 0, st>>>(
+  const unsigned grid = (unsigned)nb, rows = (unsigned)R;
+  k1_maps<<<grid, NT, 0, st>>>(data, seg, nblk, mode, blk_maps);
+  scan_blocks_kernel<uint32_t, Compose6><<<rows, NT, 0, st>>>(
       blk_maps, blk_map_ex, nullptr, nblk, IDENT6, Compose6());
-  k1_chan<<<grid, NT, 0, st>>>(data, M, nblk, mode, clen, blk_map_ex,
+  k1_chan<<<grid, NT, 0, st>>>(data, seg, nblk, mode, clen, blk_map_ex, k,
                                blk_chan, has_ref);
-  scan_blocks_kernel<Chan, ChanOp><<<B, NT, 0, st>>>(
+  scan_blocks_kernel<Chan, ChanOp><<<rows, NT, 0, st>>>(
       blk_chan, blk_chan_ex, nullptr, nblk, chan_ident(), ChanOp());
-  k1_emit<<<grid, NT, 0, st>>>(data, M, nblk, mode, clen, blk_map_ex,
-                               blk_chan_ex, n_max, keys, pays, totals);
+  int* seg_base = nullptr;
+  if (k > 1) {
+    int* seg_cnt = reinterpret_cast<int*>(scratch + 10 * nb);
+    seg_base = seg_cnt + R;
+    cudaMemsetAsync(seg_cnt, 0, R * sizeof(int), st);
+    k1_segcount<<<grid, NT, 0, st>>>(data, seg, nblk, mode, clen, blk_map_ex,
+                                     blk_chan, blk_chan_ex, seg_px, seg_cnt);
+    scan_blocks_kernel<int, SumOp><<<B, NT, 0, st>>>(seg_cnt, seg_base,
+                                                     nullptr, k, 0, SumOp());
+  }
+  k1_emit<<<grid, NT, 0, st>>>(data, seg, nblk, mode, clen, blk_map_ex,
+                               blk_chan_ex, k > 1 ? seg_px : n_max, k,
+                               seg_base, keys, pays, totals);
   return (int)cudaGetLastError();
 }

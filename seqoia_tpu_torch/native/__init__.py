@@ -52,6 +52,10 @@ def _load() -> ctypes.CDLL:
         lib.sqn_compat_probe.restype = ctypes.c_int64
         lib.sqn_compat_probe.argtypes = [
             u8p, ctypes.c_int64, ctypes.POINTER(ctypes.c_int64)]
+        lib.sqn_scan_chunks.restype = ctypes.c_int64
+        lib.sqn_scan_chunks.argtypes = [
+            u8p, ctypes.c_int64, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_int64)]
         _lib = lib
         return lib
 
@@ -131,3 +135,21 @@ def compat_probe(data: bytes):
     if d < 0:
         return None
     return (int(d),) + tuple(int(x) for x in stats)
+
+
+def scan_chunks(data: bytes, n_chunks: int):
+    """Op-aligned shard boundaries of a SQOA (non-compat) stream, from one
+    token hop without value decoding (``sqn_scan_chunks``). Returns an
+    (n_chunks, 4) int64 array of {byte position, first pixel, first color
+    anchor pixel (absolute, -1 if none), first alpha anchor pixel (absolute,
+    -1 if none)} per chunk, or None for a stream the hop rejects (compat,
+    REF ops, malformed)."""
+    lib = _load()
+    buf = np.frombuffer(data, dtype=np.uint8)
+    out = np.zeros((n_chunks, 4), dtype=np.int64)
+    rc = lib.sqn_scan_chunks(
+        _u8ptr(buf), len(data), n_chunks,
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)))
+    if rc != 0:
+        return None
+    return out

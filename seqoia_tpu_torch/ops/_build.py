@@ -29,9 +29,10 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 # csrc/<name>.cu -> its C entry points and their arguments: p = pointer
 # (or the stream), i = int, q = long long
 _SIGNATURES = {
-    "frontend": {"k1_decode_front": "ppiqiipppppp"},
+    "frontend": {"k1_decode_front": "ppiqiiiipppppp"},
     "engine": {"k2_place": "ipppppqiipiiiiippppp"},
     "encode_front": {"k3_encode_front": "ppppiqipppppppp"},
+    "pack": {"k4_pack_words": "ppqip"},
     "compact": {"k5_compact": "ppppiipppppp"},
     "slots": {"k7_slots": "ppppiiiippp"},
     "scan": {"k8_scan": "ippiipppp"},

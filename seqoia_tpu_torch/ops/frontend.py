@@ -18,6 +18,17 @@ Any unmatched byte is a run of ``(b & 63) + 1`` pixels. Outputs: keys (the
 op's first pixel) and payloads (packed RGBA after the op), each (B, M)
 int32 and valid below ``totals`` = the number of ops whose key < n_max;
 ``has_ref`` (B,) int32 flags REF/foreign streams for the host fallback.
+
+Segment mode (``seg``, ``seg_px``): a row packs M/seg small images, image j
+in bytes [j*seg, (j+1)*seg) with its header, zero-padded, each decoding to
+exactly ``seg_px`` pixels. ``chunks_len`` is then (B, M/seg), relative to
+the segment (0: an empty segment, which emits nothing); keys come out
+global (j*seg_px + the offset in the image), an op whose offset reaches
+``seg_px`` is dropped, the ops of a row's segments are compacted together,
+and ``totals`` and ``has_ref`` stay per packed row. ``seg`` is a power of
+two with ``32768 % seg == 0`` and ``seg % 128 == 0`` (the JAX package's
+contract); below the kernel's 4096-byte block a segment leaves its block
+underfilled.
 """
 
 from __future__ import annotations
@@ -134,27 +145,65 @@ def decode_front_plain(data, chunks_len, n_max: int, mode: str = "alpha"):
     return keys_c, pays_c, totals, has_ref.to(torch.int32)
 
 
-def decode_front_compact(data, chunks_len, n_max: int, mode: str = "alpha"):
+def decode_front_plain_seg(data, chunks_len, n_max: int, mode: str,
+                           seg: int, seg_px: int):
+    """Plain PyTorch K1 in segment mode: every segment through
+    ``decode_front_plain`` as a row of its own, the keys moved to their
+    image's pixels, then one compaction per packed row."""
+    bsz, m = data.shape
+    k = m // seg
+    keys, pays, tot, ref = decode_front_plain(
+        data.reshape(bsz * k, seg), chunks_len.reshape(bsz * k), seg_px, mode)
+    first = (torch.arange(bsz * k, device=data.device) % k) * seg_px
+    keys = keys + first[:, None].to(torch.int32)
+    live = torch.arange(seg, device=data.device)[None, :] < tot[:, None]
+    keys_c, pays_c = compact_rows(live.reshape(bsz, m), keys.reshape(bsz, m),
+                                  pays.reshape(bsz, m))
+    return (keys_c, pays_c, tot.reshape(bsz, k).sum(dim=1).to(torch.int32),
+            ref.reshape(bsz, k).amax(dim=1))
+
+
+def decode_front_compact(data, chunks_len, n_max: int, mode: str = "alpha",
+                         seg: int | None = None, seg_px: int | None = None):
     """K1. data: (B, M) uint8; chunks_len: (B,) int32 (stream length less
-    the 8-byte end marker). Returns (keys, payloads, totals, has_ref).
+    the 8-byte end marker), or (B, M/seg) in segment mode (module
+    docstring), where n_max must be (M/seg) * seg_px. Returns (keys,
+    payloads, totals, has_ref).
 
     A CUDA tensor runs the kernel; a CPU tensor runs the plain version."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r}")
     if data.dim() != 2 or data.dtype != torch.uint8:
         raise ValueError("data must be a (B, M) uint8 tensor")
-    if chunks_len.shape != (data.shape[0],):
-        raise ValueError("chunks_len must be (B,)")
+    bsz, m = data.shape
+    k = 1
+    if seg is not None:
+        if (seg_px is None or seg <= 0 or seg & (seg - 1) or 32768 % seg
+                or seg % 128 or m % seg):
+            raise ValueError(
+                "seg must be a power of two from 128 to 32768 that divides "
+                "M, with seg_px given")
+        k = m // seg
+        if n_max != k * seg_px:
+            raise ValueError("n_max must be (M / seg) * seg_px")
+    if chunks_len.shape != ((bsz,) if seg is None else (bsz, k)):
+        raise ValueError("chunks_len must be (B,), or (B, M / seg) with seg")
     if not data.is_cuda:
         if data.device.type != "cpu":
             raise ValueError(f"unsupported device {data.device}")
+        if seg is not None:
+            return decode_front_plain_seg(data, chunks_len, n_max, mode, seg,
+                                          seg_px)
         return decode_front_plain(data, chunks_len, n_max, mode)
-    bsz, m = data.shape
     dev = data.device
     data = data.contiguous()
     clen = chunks_len.to(device=dev, dtype=torch.int32).contiguous()
-    nblk = -(-m // 4096)
-    scratch = torch.empty(10 * bsz * nblk, dtype=torch.int32, device=dev)
+    rows = bsz * k
+    nblk = -(-(m // k) // 4096)
+    if rows * nblk >= 2**31:
+        raise ValueError("B * M passes the kernel's 2**31 - 1 blocks")
+    scratch = torch.empty(10 * rows * nblk + 2 * rows, dtype=torch.int32,
+                          device=dev)
     keys = torch.empty((bsz, m), dtype=torch.int32, device=dev)
     pays = torch.empty((bsz, m), dtype=torch.int32, device=dev)
     totals = torch.zeros(bsz, dtype=torch.int32, device=dev)
@@ -162,12 +211,15 @@ def decode_front_compact(data, chunks_len, n_max: int, mode: str = "alpha"):
     lib = _build.load("frontend")
     P = _build.ptr
     decode_front_compact.launches += 1
+    decode_front_compact.seg_launches += seg is not None
     rc = lib.k1_decode_front(
-        P(data), P(clen), bsz, m, int(n_max), MODES[mode], P(scratch),
-        P(keys), P(pays), P(totals), P(has_ref), _build.stream_ptr(dev),
+        P(data), P(clen), bsz, m, int(n_max), MODES[mode], k,
+        int(seg_px or 0), P(scratch), P(keys), P(pays), P(totals),
+        P(has_ref), _build.stream_ptr(dev),
     )
     _build.check(rc, "k1_decode_front")
     return keys, pays, totals, has_ref
 
 
 decode_front_compact.launches = 0
+decode_front_compact.seg_launches = 0  # those of them in segment mode

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 import seqoia_tpu_torch as st
-from seqoia_tpu_torch.ops import encode_front, engine, frontend
+from seqoia_tpu_torch.ops import encode_front, engine, frontend, pack
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -59,6 +59,25 @@ def test_entry_points_default_to_the_card():
     assert px.tolist() == [0] * 12
 
 
+def test_large_and_batch_entry_points_default_to_the_card():
+    _no_card()
+    pixels, desc = np.zeros(12, np.uint8), st.SqoaDesc(2, 2, 3)
+    stream = st.native.encode(pixels, 2, 2, 3, 0, 0)
+    for call in (
+            lambda **kw: st.encode_large(pixels, desc, **kw),
+            lambda **kw: st.encode_large_shardmap(pixels, desc, **kw),
+            lambda **kw: st.decode_large(stream, **kw),
+            lambda **kw: st.decode_large_shardmap(stream, **kw),
+            lambda **kw: st.BatchDecoder(**kw),
+            lambda **kw: st.corpus_decode([stream], **kw),
+            lambda **kw: pack.normalize_pixels_device(pixels, desc, **kw)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+        call(device="cpu")
+    assert st.encode_large(pixels, desc, device="cpu") == stream
+    assert st.BatchDecoder(device="cpu")([stream])[0].pixels.tolist() == [0] * 12
+
+
 def test_wrappers_take_cpu_or_cuda_tensors_only():
     data = torch.zeros((1, 64), dtype=torch.uint8, device="meta")
     clen = torch.zeros(1, dtype=torch.int32, device="meta")
@@ -69,6 +88,9 @@ def test_wrappers_take_cpu_or_cuda_tensors_only():
         engine.place_fill(keys, [keys], clen, 16, (0,))
     with pytest.raises(ValueError, match="int32"):
         encode_front.encode_front_compact(data, clen)
+    with pytest.raises(ValueError, match="device"):
+        pack.pack_words(torch.zeros((1, 12), dtype=torch.int32, device="meta"),
+                        3)
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):
