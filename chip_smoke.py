@@ -14,7 +14,12 @@
    decode_stream_compat_batched / encode_stream_batched(compat=True) call
    per photo workload, and of K9 (the sequential decoder) in the value
    chain's decode; K8 sum and K7 at 128 slots (not on the path) at the
-   decode's op shape.
+   decode's op shape. Large images and icons: K4 at the three strides, K1
+   in segment mode in its three modes, and K1, K2 and K3 at the first
+   launch of every distinct shape that encode_large, decode_large, the two
+   shard forms (K3's carries, rows as shards) and BatchDecoder give them,
+   checked on the arguments of that launch in one uncounted pass over
+   those calls; K1 on a stream whose pixel counts pass 2**31.
 3. Resets the kernels' launch counters and drives the SQOA path through the
    public entry points: one 4096x4096 RGBA photo-class image, a batch of
    32 1024x1024 RGB photos (decode_stream_batched / encode_stream_batched)
@@ -792,8 +797,6 @@ def _buckets(streams):
 def check_segment_kernel(classes, dev):
     """K1 in segment mode against its plain version, on the packed rows
     BatchDecoder builds for the largest bucket of each icon class."""
-    import torch
-
     from seqoia_tpu_torch.ops import frontend
     from seqoia_tpu_torch.parallel import batch
 
@@ -812,11 +815,9 @@ def check_segment_kernel(classes, dev):
         (pk, pp, ptot, pref), p_ms = _plain_ms(
             lambda: frontend.decode_front_plain_seg(data, slens, n_max, mode,
                                                     seg, 4096))
-        live = (torch.arange(data.shape[1], device=dev)[None, :]
-                < tot[:, None])
         err = max(_max_err(tot, ptot), _max_err(ref, pref),
-                  _max_err(torch.where(live, keys, 0), pk),
-                  _max_err(torch.where(live, pays, 0), pp))
+                  _max_err(_live(keys, tot), pk),
+                  _max_err(_live(pays, tot), pp))
         if int(ref.max()) != 0:
             raise AssertionError(f"{name}: a row flagged foreign")
         rows.append(dict(
@@ -826,6 +827,195 @@ def check_segment_kernel(classes, dev):
             bytes=sum(len(x) for x in bucket) + 4 * slens.numel()
             + 8 * int(tot.sum()) + 8 * len(tot)))
     return rows
+
+
+# K2's epilogue selectors (seqoia_tpu_torch/ops/engine.py), by name
+_EPILOGUES = ("fill", "decode 4ch", "decode 3ch", "decode mono 1ch",
+              "decode mono 2ch", "encode color", "encode mono")
+
+
+def _live(rows, totals):
+    """rows (B, M) with the entries at and past each row's total zeroed."""
+    import torch
+
+    idx = torch.arange(rows.shape[1], device=rows.device)[None, :]
+    return torch.where(idx < totals[:, None], rows, 0)
+
+
+def _checked(run, where, rec):
+    """Run ``run()`` with the K1, K2 and K3 wrappers replaced by ones that,
+    at the first launch of each distinct shape and mode, hold the kernel's
+    result against its plain version on the very arguments of that launch
+    and append a record to rec[kernel]. A 134 Mpx row does not fit the
+    plain versions in one piece: K1's walks the row in blocks (its own
+    carry), K2's is evaluated slot range by slot range (a slot depends on
+    no other); K3's takes the row whole. Launches made here count under the
+    replacement, not under the wrappers' own counters."""
+    import torch
+
+    from seqoia_tpu_torch.ops import encode_front, engine, frontend
+
+    seen, saved = set(), []
+    reps = 3
+
+    def fresh(*sig):
+        torch.cuda.empty_cache()
+        return sig not in seen and not seen.add(sig)
+
+    def k1(fn, data, clen, n_max, mode="alpha", seg=None, seg_px=None):
+        out = fn(data, clen, n_max, mode, seg, seg_px)
+        if not fresh("K1", tuple(data.shape), n_max, mode, seg):
+            return out
+        keys, pays, tot, ref = out
+        if seg is None:
+            plain = lambda: frontend.decode_front_plain(  # noqa: E731
+                data, clen, n_max, mode)
+        else:
+            plain = lambda: frontend.decode_front_plain_seg(  # noqa: E731
+                data, clen, n_max, mode, seg, seg_px)
+        (pk, pp, ptot, pref), p_ms = _plain_ms(plain)
+        err = max(_max_err(tot, ptot), _max_err(ref, pref),
+                  _max_err(_live(keys, tot), pk),
+                  _max_err(_live(pays, tot), pp))
+        del pk, pp
+        rec["K1" if seg is None else "K1seg"].append(dict(
+            shape=f"{where} {tuple(data.shape)} {mode}"
+                  + (f" seg={seg}" if seg else ""),
+            err=err, plain_ms=p_ms, main=False,
+            ms=_timed(lambda: fn(data, clen, n_max, mode, seg, seg_px), reps),
+            bytes=int(clen.sum()) + 4 * clen.numel() + 8 * int(tot.sum())
+            + 8 * len(tot)))
+        return out
+
+    def k2(fn, keys, pays, tot, scal, n_out, inits, epi):
+        out = fn(keys, pays, tot, scal, n_out, inits, epi)
+        if not fresh("K2", tuple(keys.shape), n_out, epi.kind):
+            return out
+        pays = list(pays)
+        enc = epi.kind in (engine.EPI_ENC3, engine.EPI_ENC1)
+        streams = pays + ([keys] if enc else [])
+        num, den = epi.units
+        step = max((1 << 25) // keys.shape[0], 4096) // 4096 * 4096
+        err, p_ms = 0, 0.0
+        for lo in range(0, n_out, step):
+            hi = min(lo + step, n_out)
+            want, ms = _plain_ms(lambda: epi.plain(
+                engine._fill_plain(keys, streams, tot, hi - lo, inits, lo),
+                torch.arange(lo, hi, device=keys.device)[None, :],
+                scal.long()))
+            p_ms += ms
+            err = max(err, _max_err(
+                out[:, lo * num // den: hi * num // den], want))
+            del want
+        rec["K2"].append(dict(
+            shape=f"{where} epilogue {_EPILOGUES[epi.kind]} "
+                  f"rows={keys.shape[0]} n_out={n_out}",
+            err=err, plain_ms=p_ms, main=False,
+            ms=_timed(lambda: fn(keys, pays, tot, scal, n_out, inits, epi),
+                      reps),
+            bytes=4 * (1 + len(pays)) * int(tot.sum())
+            + out.numel() * out.element_size()))
+        return out
+
+    def k3(fn, packed, n_valid, colch=3, init_prev=None, lc0=None):
+        out = fn(packed, n_valid, colch, init_prev, lc0)
+        carried = init_prev is not None or lc0 is not None
+        if not fresh("K3", tuple(packed.shape), colch, carried):
+            return out
+        bsz = packed.shape[0]
+        i32 = dict(dtype=torch.int32, device=packed.device)
+        ip = (torch.full((bsz,), encode_front.INIT_PACKED, **i32)
+              if init_prev is None else init_prev)
+        l0 = torch.full((bsz,), -1, **i32) if lc0 is None else lc0
+        ek, (ec, em), et, ect, elc = out
+        (pk, (pc, pm), pet, pct, plc), p_ms = _plain_ms(
+            lambda: encode_front.encode_front_plain(packed, n_valid, colch,
+                                                    ip, l0))
+        err = max(_max_err(et, pet), _max_err(ect, pct), _max_err(elc, plc),
+                  _max_err(_live(ek, et), pk), _max_err(_live(ec, et), pc),
+                  _max_err(_live(em, et), pm))
+        del pk, pc, pm
+        rec["K3"].append(dict(
+            shape=f"{where} {tuple(packed.shape)} colch={colch}"
+                  + (" carries" if carried else ""),
+            err=err, plain_ms=p_ms, main=False,
+            ms=_timed(lambda: fn(packed, n_valid, colch, init_prev, lc0),
+                      reps),
+            bytes=4 * packed.numel() + 12 * int(et.sum()) + 24 * bsz))
+        return out
+
+    for mod, name, check in ((frontend, "decode_front_compact", k1),
+                             (engine, "place_emit", k2),
+                             (encode_front, "encode_front_compact", k3)):
+        fn = getattr(mod, name)
+        rep = functools.partial(check, fn)
+        rep.launches = rep.seg_launches = 0
+        saved.append((mod, name, fn))
+        setattr(mod, name, rep)
+    try:
+        return run()
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def check_path_kernels(large, classes, mixed, dev):
+    """K1 (both modes of use), K2 and K3 against their plain versions on the
+    arguments the large-image and icon paths give them: every image of
+    ``large`` through encode_large and decode_large, the RGB one through
+    both shard forms as well (K3's carries, four rows), every icon class
+    and the mixed list through BatchDecoder. Returns {kernel: [records]}."""
+    import seqoia_tpu_torch as st
+    from seqoia_tpu_torch import native
+
+    rec = {k: [] for k in ("K1", "K1seg", "K2", "K3")}
+    for name, pixels, w, h, ch in large:
+        desc = st.SqoaDesc(w, h, ch)
+        stream = _checked(lambda: st.encode_large(pixels, desc, device=dev),
+                          f"{name} encode_large", rec)
+        if stream != native.encode(pixels, w, h, ch, 0, 0):
+            raise AssertionError(f"{name}: the checked encode_large differs")
+        _checked(lambda: st.decode_large(stream, device=dev),
+                 f"{name} decode_large", rec)
+        if name == "large_rgb":
+            _checked(lambda: st.encode_large_shardmap(pixels, desc, n_shards=4,
+                                                      device=dev),
+                     f"{name} encode_large_shardmap", rec)
+            _checked(lambda: st.decode_large_shardmap(stream, n_shards=4,
+                                                      device=dev),
+                     f"{name} decode_large_shardmap", rec)
+    dec = st.BatchDecoder(device=dev)
+    for name, streams in list(classes.items()) + [("mixed", mixed)]:
+        _checked(lambda: dec(streams), f"{name} BatchDecoder", rec)
+    return rec
+
+
+def check_saturation(dev):
+    """K1 on a stream whose pixel counts pass 2**31 (8 MiB of BIGRUN ops):
+    the kernel's pixel offsets saturate where its plain version's int64
+    offsets go on, and both keep exactly the ops below n_max."""
+    import torch
+
+    from seqoia_tpu_torch.ops import frontend
+
+    m, n_max = 1 << 23, 1 << 30
+    data = torch.full((1, m), 0xFD, dtype=torch.uint8, device=dev)
+    clen = torch.tensor([m - 8], dtype=torch.int32, device=dev)
+
+    def run():
+        return frontend.decode_front_compact(data, clen, n_max, "alpha")
+    keys, pays, tot, ref = run()
+    (pk, pp, ptot, pref), p_ms = _plain_ms(
+        lambda: frontend.decode_front_plain(data, clen, n_max, "alpha"))
+    if int(tot) != n_max // 512:
+        raise AssertionError(f"K1 kept {int(tot)} BIGRUN ops below {n_max} "
+                             f"pixels, not {n_max // 512}")
+    return dict(
+        shape=f"BIGRUN stream past 2**31 pixels {tuple(data.shape)} alpha",
+        err=max(_max_err(tot, ptot), _max_err(ref, pref),
+                _max_err(_live(keys, tot), pk), _max_err(_live(pays, tot), pp)),
+        ms=_timed(run), plain_ms=p_ms, main=False,
+        bytes=m + 8 * int(tot) + 16)
 
 
 def large_path(large, dev):
@@ -918,7 +1108,10 @@ def large_steps(image, stream, dev):
         lambda: decode_v2.decode_stream_batched(
             data, one(len(stream) - 8), one(n), colch=3, out_ch=3, n_max=n,
             emit="words", src_alpha=False))
-    step("decode: copy down", lambda: transfer.fetch_flat(words[0]))
+    px = step("decode: copy down", lambda: transfer.fetch_flat(words[0]))
+    # decode_large returns the pinned view; what a copy inside it would cost
+    step(f"decode: a pageable copy of the {px.nbytes} pinned bytes "
+         "(left to the caller)", px.copy)
     return steps
 
 
@@ -965,9 +1158,18 @@ def icon_path(classes, mixed, ref_stream, dev):
     if res[-1].error != "invalid header":
         raise AssertionError("mixed: the bad header has no error slot")
     st_ = dec.last_stats
-    # the REF stream's packed row goes to the host, and nothing else
-    if not 1 <= st_["host_rows"] <= 32768 // _pow2(len(ref_stream)):
-        raise AssertionError(f"mixed: {st_['host_rows']} rows on the host")
+    # the images of the REF stream's packed row go to the host (the row is
+    # flagged as a whole), and nothing else: the REF stream is the last of
+    # its class (the 64x64 RGBA icons of its stream bucket)
+    seg = _pow2(len(ref_stream))
+    n = 1 + sum(_pow2(len(s)) == seg for s in mixed[:64])
+    k = 32768 // seg
+    want_host = n - (n - 1) // k * k if n > 1 else 1
+    if st_["host_rows"] != want_host:
+        raise AssertionError(f"mixed: {st_['host_rows']} rows on the host, "
+                             f"not {want_host}")
+    if st_["oom_redispatch"]:
+        raise AssertionError(f"mixed: out of device memory: {st_}")
     if st_["packed_rows"] < 2:
         raise AssertionError(f"mixed: the icons were not packed: {st_}")
     timings.append(("mixed", dec.last_timings, st_))
@@ -1037,6 +1239,9 @@ def main() -> int:
         rec[k] += rows
     rec["K4"] = check_pack_kernel(large, dev)
     rec["K1seg"] = check_segment_kernel(classes, dev)
+    rec["K1"].append(check_saturation(dev))
+    for k, rows in check_path_kernels(large, classes, mixed, dev).items():
+        rec[k] += rows
     for k, rows in rec.items():
         for r in rows:
             lib = ("" if r.get("library_ms") is None

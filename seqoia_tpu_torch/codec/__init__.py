@@ -4,7 +4,7 @@ card."""
 from .decode import decode
 from .decode_compat import decode_stream_compat_batched
 from .decode_v2 import (decode_stream, decode_stream_batched,
-                        decode_stream_flat, decode_stream_packed)
+                        decode_stream_packed)
 from .encode import encode, normalize_pixels_packed
 from .encode_v2 import (encode_stream, encode_stream_batched,
                         encode_stream_flat)
@@ -14,7 +14,6 @@ __all__ = [
     "decode_stream",
     "decode_stream_batched",
     "decode_stream_compat_batched",
-    "decode_stream_flat",
     "decode_stream_packed",
     "encode",
     "encode_stream",

@@ -146,27 +146,22 @@ def decode_stream_batched(data, chunks_len, n_pixels, *, colch: int,
 
 
 def decode_stream(data, chunks_len: int, n_pixels: int, *, colch: int,
-                  out_ch: int, n_max: int, src_alpha: bool = True):
-    """Single-stream decode: (M,) uint8 -> ((n_max * out_ch,) flat uint8,
-    has_ref bool tensor)."""
+                  out_ch: int, n_max: int, emit: str = "u8",
+                  src_alpha: bool = True):
+    """Single-stream decode: (M,) uint8 -> (the row of
+    decode_stream_batched's pixels for ``emit``, has_ref bool tensor). The
+    JAX package has a second form of this with rank-1 internals for large
+    images (``decode_stream_flat``), which answers a TPU layout; here
+    ``parallel.tiled.decode_large`` calls this one."""
     dev = data.device
     out, has_ref = decode_stream_batched(
         data[None, :],
         torch.tensor([chunks_len], dtype=torch.int32, device=dev),
         torch.tensor([n_pixels], dtype=torch.int32, device=dev),
-        colch=colch, out_ch=out_ch, n_max=n_max, src_alpha=src_alpha,
+        colch=colch, out_ch=out_ch, n_max=n_max, emit=emit,
+        src_alpha=src_alpha,
     )
     return out[0], has_ref[0]
-
-
-
-def decode_stream_flat(data, chunks_len: int, n_pixels: int, *, colch: int,
-                       out_ch: int, n_max: int, src_alpha: bool = True):
-    """Single large-image SQOA decode (``decode_v2.decode_stream_flat`` of
-    the JAX package, whose rank-1 internals answer a TPU layout): on the
-    card it is ``decode_stream``, K1 then K2."""
-    return decode_stream(data, chunks_len, n_pixels, colch=colch,
-                         out_ch=out_ch, n_max=n_max, src_alpha=src_alpha)
 
 
 def decode_stream_packed(data, seg_lens, *, colch: int, out_ch: int,

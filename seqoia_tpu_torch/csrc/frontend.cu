@@ -89,9 +89,10 @@ struct ChanOp {
     o.val = (r.val & m) | (s & ~m);
     o.flg = (l.flg | r.flg) & 3u;
     o.cnt = l.cnt + r.cnt;
-    // saturating: a hostile stream of BIGRUNs must not wrap the offsets
-    const long long np = (long long)l.npix + r.npix;
-    o.npix = np > INT_MAX ? INT_MAX : (int)np;
+    // saturating (both are at most INT_MAX, so the unsigned sum is exact):
+    // 4 MiB of BIGRUN bytes count 2^31 pixels, and a wrapped offset would
+    // pass the key < n_max test that the plain version's int64 keys fail
+    o.npix = (int)min((unsigned)l.npix + (unsigned)r.npix, (unsigned)INT_MAX);
     return o;
   }
 };
@@ -211,45 +212,44 @@ __device__ int entry_state(const uint8_t* s, long long base, int mode,
   return (int)(Compose6()(blk_prefix, ex) & 7u);
 }
 
-// The grid is one-dimensional over (scan row, block of the row): block g
-// works on bytes [base, base + CHUNK) of scan row g / nblk. Fewer than 2^31
-// blocks, so the divisions are 32-bit.
+// Block (x, y, z) of the grid works on bytes [base, base + CHUNK) of scan
+// row z * gridDim.y + y, base = x * CHUNK: the rows fold over y and z (at
+// most 65535 each), so no thread divides. g indexes the block aggregates.
 struct Blk {
-  unsigned g, urow;
-  long long row, base;
+  unsigned row;
+  long long g, base;
 };
 
 __device__ __forceinline__ Blk k1_block(int nblk) {
   Blk b;
-  b.g = blockIdx.x;
-  b.urow = b.g / (unsigned)nblk;
-  b.row = b.urow;
-  b.base = (long long)(b.g - b.urow * (unsigned)nblk) * CHUNK;
+  b.row = blockIdx.z * gridDim.y + blockIdx.y;
+  b.g = (long long)b.row * nblk + blockIdx.x;
+  b.base = (long long)blockIdx.x * CHUNK;
   return b;
 }
 
-__global__ void k1_maps(const uint8_t* data, long long M, int nblk, int mode,
-                        uint32_t* blk_maps) {
+__global__ void k1_maps(const uint8_t* data, long long M, unsigned R,
+                        int nblk, int mode, uint32_t* blk_maps) {
   __shared__ uint8_t s[CHUNK + HALO];
   __shared__ uint32_t mbuf[NT];
   const Blk blk = k1_block(nblk);
-  const unsigned g = blk.g;
-  const long long row = blk.row, base = blk.base;
+  if (blk.row >= R) return;  // the fold's last z plane may be short
+  const long long g = blk.g, row = blk.row, base = blk.base;
   load_chunk(data + row * M, M, base, s);
   uint32_t tot;
   block_scan_excl(thread_map(s, base, mode), IDENT6, mbuf, &tot, Compose6());
   if (threadIdx.x == 0) blk_maps[g] = tot;
 }
 
-__global__ void k1_chan(const uint8_t* data, long long M, int nblk, int mode,
-                        const int* clen, const uint32_t* blk_map_ex, int k,
+__global__ void k1_chan(const uint8_t* data, long long M, unsigned R,
+                        int nblk, int mode, const int* clen, const uint32_t* blk_map_ex, int k,
                         Chan* blk_chan, int* has_ref) {
   __shared__ uint8_t s[CHUNK + HALO];
   __shared__ uint32_t mbuf[NT];
   __shared__ Chan cbuf[NT];
   const Blk blk = k1_block(nblk);
-  const unsigned g = blk.g;
-  const long long row = blk.row, base = blk.base;
+  if (blk.row >= R) return;  // the fold's last z plane may be short
+  const long long g = blk.g, row = blk.row, base = blk.base;
   load_chunk(data + row * M, M, base, s);
   const int st = entry_state(s, base, mode, blk_map_ex[g], mbuf);
   ChanOp op;
@@ -263,15 +263,15 @@ __global__ void k1_chan(const uint8_t* data, long long M, int nblk, int mode,
   Chan tot;
   block_scan_excl(acc, chan_ident(), cbuf, &tot, op);
   if (threadIdx.x == 0) blk_chan[g] = tot;
-  if (fr) atomicOr(has_ref + blk.urow / (unsigned)k, 1);  // per packed row
+  if (fr) atomicOr(has_ref + blk.row / (unsigned)k, 1);  // per packed row
 }
 
 // Segment mode: seg_cnt[segment] += the block's ops whose offset in the
 // segment is below seg_px. Offsets grow with rank, so a block wholly below
 // seg_px counts its aggregate, one wholly past it counts nothing, and only a
 // block that straddles seg_px walks its bytes.
-__global__ void k1_segcount(const uint8_t* data, long long M, int nblk,
-                            int mode, const int* clen,
+__global__ void k1_segcount(const uint8_t* data, long long M, unsigned R,
+                            int nblk, int mode, const int* clen,
                             const uint32_t* blk_map_ex, const Chan* blk_chan,
                             const Chan* blk_chan_ex, int seg_px,
                             int* seg_cnt) {
@@ -279,8 +279,8 @@ __global__ void k1_segcount(const uint8_t* data, long long M, int nblk,
   __shared__ uint32_t mbuf[NT];
   __shared__ Chan cbuf[NT];
   const Blk blk = k1_block(nblk);
-  const unsigned g = blk.g;
-  const long long row = blk.row, base = blk.base;
+  if (blk.row >= R) return;  // the fold's last z plane may be short
+  const long long g = blk.g, row = blk.row, base = blk.base;
   const Chan pre = blk_chan_ex[g], agg = blk_chan[g];
   if (pre.npix >= seg_px || agg.cnt == 0) return;
   if ((long long)pre.npix + agg.npix <= seg_px) {
@@ -310,8 +310,8 @@ __global__ void k1_segcount(const uint8_t* data, long long M, int nblk,
 // limit: pixels per scan row (n_max, or seg_px in segment mode). Scan row
 // `row` is segment row % k of output row row / k: its keys start at
 // (row % k) * limit and its ops rank after seg_base[row] (null: 0).
-__global__ void k1_emit(const uint8_t* data, long long M, int nblk, int mode,
-                        const int* clen, const uint32_t* blk_map_ex,
+__global__ void k1_emit(const uint8_t* data, long long M, unsigned R,
+                        int nblk, int mode, const int* clen, const uint32_t* blk_map_ex,
                         const Chan* blk_chan_ex, int limit, int k,
                         const int* seg_base, int* keys, int* pays,
                         int* totals) {
@@ -319,8 +319,8 @@ __global__ void k1_emit(const uint8_t* data, long long M, int nblk, int mode,
   __shared__ uint32_t mbuf[NT];
   __shared__ Chan cbuf[NT];
   const Blk blk = k1_block(nblk);
-  const unsigned g = blk.g;
-  const long long row = blk.row, base = blk.base;
+  if (blk.row >= R) return;  // the fold's last z plane may be short
+  const long long g = blk.g, row = blk.row, base = blk.base;
   load_chunk(data + row * M, M, base, s);
   const int st = entry_state(s, base, mode, blk_map_ex[g], mbuf);
   ChanOp op;
@@ -332,8 +332,8 @@ __global__ void k1_emit(const uint8_t* data, long long M, int nblk, int mode,
   Chan tot;
   const Chan ex = block_scan_excl(acc, chan_ident(), cbuf, &tot, op);
   Chan run = op(blk_chan_ex[g], ex);
-  const unsigned orow = blk.urow / (unsigned)k;
-  const int kbase = (int)(blk.urow - orow * (unsigned)k) * limit;
+  const unsigned orow = k == 1 ? blk.row : blk.row / (unsigned)k;
+  const int kbase = (int)(blk.row - orow * (unsigned)k) * limit;
   const long long rbase =
       (long long)orow * (M * k) + (seg_base ? seg_base[row] : 0);
   int* krow = keys + rbase;
@@ -372,17 +372,19 @@ extern "C" int k1_decode_front(const uint8_t* data, const int* clen, int B,
   const long long R = (long long)B * k;  // scan rows
   const int nblk = (int)((seg + CHUNK - 1) / CHUNK);
   const long long nb = R * nblk;
-  if (nb > INT_MAX) return (int)cudaErrorInvalidValue;
+  if (nb > INT_MAX) return (int)cudaErrorInvalidValue;  // scratch indices
+  if (nb == 0) return 0;
   uint32_t* blk_maps = scratch;
   uint32_t* blk_map_ex = scratch + nb;
   Chan* blk_chan = reinterpret_cast<Chan*>(scratch + 2 * nb);
   Chan* blk_chan_ex = reinterpret_cast<Chan*>(scratch + 6 * nb);
-  const unsigned grid = (unsigned)nb, rows = (unsigned)R;
-  k1_maps<<<grid, NT, 0, st>>>(data, seg, nblk, mode, blk_maps);
+  const unsigned rows = (unsigned)R, ry = rows < 65535u ? rows : 65535u;
+  const dim3 grid(nblk, ry, (rows + ry - 1) / ry);
+  k1_maps<<<grid, NT, 0, st>>>(data, seg, rows, nblk, mode, blk_maps);
   scan_blocks_kernel<uint32_t, Compose6><<<rows, NT, 0, st>>>(
       blk_maps, blk_map_ex, nullptr, nblk, IDENT6, Compose6());
-  k1_chan<<<grid, NT, 0, st>>>(data, seg, nblk, mode, clen, blk_map_ex, k,
-                               blk_chan, has_ref);
+  k1_chan<<<grid, NT, 0, st>>>(data, seg, rows, nblk, mode, clen, blk_map_ex,
+                               k, blk_chan, has_ref);
   scan_blocks_kernel<Chan, ChanOp><<<rows, NT, 0, st>>>(
       blk_chan, blk_chan_ex, nullptr, nblk, chan_ident(), ChanOp());
   int* seg_base = nullptr;
@@ -390,12 +392,13 @@ extern "C" int k1_decode_front(const uint8_t* data, const int* clen, int B,
     int* seg_cnt = reinterpret_cast<int*>(scratch + 10 * nb);
     seg_base = seg_cnt + R;
     cudaMemsetAsync(seg_cnt, 0, R * sizeof(int), st);
-    k1_segcount<<<grid, NT, 0, st>>>(data, seg, nblk, mode, clen, blk_map_ex,
-                                     blk_chan, blk_chan_ex, seg_px, seg_cnt);
+    k1_segcount<<<grid, NT, 0, st>>>(data, seg, rows, nblk, mode, clen,
+                                     blk_map_ex, blk_chan, blk_chan_ex, seg_px,
+                                     seg_cnt);
     scan_blocks_kernel<int, SumOp><<<B, NT, 0, st>>>(seg_cnt, seg_base,
                                                      nullptr, k, 0, SumOp());
   }
-  k1_emit<<<grid, NT, 0, st>>>(data, seg, nblk, mode, clen, blk_map_ex,
+  k1_emit<<<grid, NT, 0, st>>>(data, seg, rows, nblk, mode, clen, blk_map_ex,
                                blk_chan_ex, k > 1 ? seg_px : n_max, k,
                                seg_base, keys, pays, totals);
   return (int)cudaGetLastError();

@@ -58,14 +58,17 @@ def _check(keys, payloads, totals, n_out):
         raise ValueError(f"unsupported device {keys.device}")
 
 
-def _fill_plain(keys, streams, totals, n_out, inits):
-    """Filled int64 streams (B, n_out): stream value of each slot's entry."""
+def _fill_plain(keys, streams, totals, n_out, inits, start: int = 0):
+    """Filled int64 streams (B, n_out): stream value of each slot's entry,
+    for the slots start .. start + n_out - 1 (a slot depends on no other,
+    so a long output can be made range by range)."""
     bsz, mc = keys.shape
     dev = keys.device
     idx = torch.arange(mc, device=dev)
     masked = torch.where(idx[None, :] < totals.long()[:, None], keys.long(),
                          2**62)
-    t = torch.arange(n_out, device=dev).expand(bsz, n_out).contiguous()
+    t = torch.arange(start, start + n_out, device=dev).expand(
+        bsz, n_out).contiguous()
     gi = torch.searchsorted(masked, t, right=True) - 1
     has = gi >= 0
     gic = gi.clamp(min=0)

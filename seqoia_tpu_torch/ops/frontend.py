@@ -67,12 +67,57 @@ def _chan_combine(left, right):
     return (rv & m) | (s & (m ^ 0xFFFFFFFF)), (lf | rf) & 3
 
 
-def decode_front_plain(data, chunks_len, n_max: int, mode: str = "alpha"):
-    """Plain PyTorch K1 (see module docstring). Entries past totals are 0."""
+#: positions (rows x bytes) the plain version evaluates at once: it walks a
+#: long row in blocks and carries the scans' state, so its memory does not
+#: grow with the stream
+_PLAIN_BLOCK = 1 << 25
+#: bytes past a block that its last ops read (operands and the alpha peek)
+_PLAIN_HALO = 8
+
+
+def decode_front_plain(data, chunks_len, n_max: int, mode: str = "alpha",
+                       block: int | None = None):
+    """Plain PyTorch K1 (see module docstring). Entries past totals are 0.
+    ``block``: bytes of a row evaluated at once (default: ``_PLAIN_BLOCK``
+    positions over the rows); any value gives the same result."""
+    bsz, m = data.shape
+    dev = data.device
+    if block is None:
+        block = max(_PLAIN_BLOCK // max(bsz, 1), 4096)
+    keys_c = torch.zeros((bsz, m), dtype=torch.int32, device=dev)
+    pays_c = torch.zeros((bsz, m), dtype=torch.int32, device=dev)
+    totals = [0] * bsz
+    has_ref = torch.zeros(bsz, dtype=torch.bool, device=dev)
+    # carried across blocks, per row: the automaton's state, the pixel
+    # offset and the channel scan's running element
+    zero = torch.zeros((bsz, 1), dtype=torch.int64, device=dev)
+    carry = (zero, zero, (zero, zero))
+    clen = chunks_len.long()[:, None]
+    for lo in range(0, m, block):
+        n = min(block, m - lo)
+        b = data[:, lo: lo + n + _PLAIN_HALO].long()
+        keep, keys, packed, ref, carry = _front_block(
+            b, lo, n, clen, n_max, mode, carry)
+        has_ref |= ref
+        for r in range(bsz):
+            msk = keep[r]
+            cnt = int(msk.sum())
+            keys_c[r, totals[r]: totals[r] + cnt] = to_i32(keys[r][msk])
+            pays_c[r, totals[r]: totals[r] + cnt] = to_i32(packed[r][msk])
+            totals[r] += cnt
+    return (keys_c, pays_c,
+            torch.tensor(totals, dtype=torch.int32, device=dev),
+            has_ref.to(torch.int32))
+
+
+def _front_block(b, lo: int, n: int, clen, n_max: int, mode: str, carry):
+    """One block of decode_front_plain: b holds the row bytes [lo, lo + n)
+    and up to ``_PLAIN_HALO`` more (int64). Returns (kept-op mask, keys,
+    payloads, each (B, n); the rows' foreign flags; the carry after byte
+    lo + n - 1)."""
     mono, noalpha = mode == "mono", mode == "noalpha"
-    b = data.long()
-    m = b.shape[-1]
-    pos = torch.arange(m, device=b.device)
+    state0, px0, chan0 = carry
+    pos = lo + torch.arange(b.shape[-1], device=b.device)
     b1, b2, b3, b4 = (shift_left(b, k) for k in (1, 2, 3, 4))
     is_luma = (b & spec.MASK_2) == spec.OP_LUMA
     is_rgb = b == spec.OP_RGB
@@ -95,16 +140,15 @@ def decode_front_plain(data, chunks_len, n_max: int, mode: str = "alpha"):
         lens = lens + ext
     eff = torch.where(pos >= _HDR1, lens, 1)
     (incl,) = hillis_steele(((eff - 1) + _BASE6,), _compose6)
-    state = torch.cat([torch.zeros_like(incl[..., :1]), incl[..., :-1] & 7],
-                      dim=-1)
-    clen = chunks_len.long()[:, None]
+    after = (incl >> (3 * state0)) & 7  # state after each byte
+    state = torch.cat([state0, after[..., :-1]], dim=-1)
     token = (state == 0) & (pos >= _HDR1) & (pos < clen)
 
     if noalpha:
         foreign = (b < spec.OP_LUMA) | is_rgba
     else:
         foreign = b < spec.OP_ALPHA
-    has_ref = (token & foreign).any(dim=-1)
+    has_ref = (token & foreign)[:, :n].any(dim=-1)
 
     # --- pixel counts and offsets ------------------------------------------
     npix = (b & 0x3F) + 1
@@ -112,7 +156,8 @@ def decode_front_plain(data, chunks_len, n_max: int, mode: str = "alpha"):
     npix = torch.where(b == spec.OP_BIGRUN, spec.SQOA_MAXRUN, npix)
     npix = torch.where(b < spec.OP_ALPHA, 1, npix)
     npix = torch.where(token, npix, 0)
-    keys = torch.cumsum(npix, dim=-1) - npix
+    ends = px0 + torch.cumsum(npix, dim=-1)
+    keys = ends - npix
 
     # --- channel elements and the segmented SWAR sum -----------------------
     vg = (b & 0x3F) - 32
@@ -134,15 +179,15 @@ def decode_front_plain(data, chunks_len, n_max: int, mode: str = "alpha"):
     val = ((r_el & 255) | ((g_el & 255) << 8) | ((b_el & 255) << 16)
            | ((a_el & 255) << 24))
     flg = anchor.long() | (anchor_a.long() << 1)
-    sv, sf = hillis_steele((val, flg), _chan_combine)
+    sv, sf = _chan_combine(chan0, hillis_steele((val, flg), _chan_combine))
     a_v = (sv >> 24) & 255
     a_v = torch.where((sf & 2) == 2, a_v, (a_v + 255) & 255)
     packed = (sv & 0x00FFFFFF) | (a_v << 24)
 
     keep = token & (keys < n_max)
-    keys_c, pays_c = compact_rows(keep, keys, packed)
-    totals = keep.sum(dim=-1).to(torch.int32)
-    return keys_c, pays_c, totals, has_ref.to(torch.int32)
+    last = slice(n - 1, n)
+    carry = (after[:, last], ends[:, last], (sv[:, last], sf[:, last]))
+    return keep[:, :n], keys[:, :n], packed[:, :n], has_ref, carry
 
 
 def decode_front_plain_seg(data, chunks_len, n_max: int, mode: str,

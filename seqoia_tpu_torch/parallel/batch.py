@@ -27,8 +27,11 @@ pinned host memory (on a second stream) are queued, and the host goes on
 staging the next class; results are unpacked class by class as their
 copies complete. Device bytes held by queued work are bounded
 (``max_outstanding_bytes``): past the bound the oldest class drains first.
-A ``torch.cuda.OutOfMemoryError`` drains the queue and re-runs the class at
-half size, down to a single image, which then decodes on the host.
+A ``torch.cuda.OutOfMemoryError`` (PyTorch raises it where a class is
+dispatched, at the allocation) drains the queue and re-runs the class at
+half size, down to a single image; one that still does not fit comes back
+as that image's error slot. Work the card fails at is never moved to the
+host: the native codec decodes only the two routes named above.
 """
 
 from __future__ import annotations
@@ -110,7 +113,8 @@ class BatchDecoder:
     dispatching (``stage``), waiting for the first class's output
     (``compute``), unpacking the outputs (``fetch``) and in host decodes
     that nothing overlapped (``host``); ``last_stats`` the early drains,
-    OOM re-dispatches, packed rows and rows decoded on the host."""
+    OOM re-dispatches, packed rows and rows decoded on the host (REF rows
+    and mono ``.qoi`` streams, nothing else)."""
 
     def __init__(self, device="cuda", max_outstanding_bytes: int | None = None):
         self.device = resolve(device)
@@ -243,43 +247,34 @@ class BatchDecoder:
         def recover(items, key):
             """OOM degradation: re-run the class synchronously (everything
             else has drained), halving it while it still does not fit; a
-            single image that does not fit decodes on the host."""
+            single image that does not fit is that image's error."""
             stats["oom_redispatch"] += 1
             try:
-                self._finish(self._dispatch(items, key), results, fallback)
+                entry = self._dispatch(items, key)
             except is_oom:
                 if len(items) == 1:
-                    fallback.append(items[0][:2])
+                    results[items[0][0]] = DecodeResult(
+                        None, None, "out of device memory")
                     return
                 recover(items[: len(items) // 2], key)
                 recover(items[len(items) // 2:], key)
+                return
+            self._finish(entry, results, fallback)
 
         def drain_one():
             nonlocal outstanding
             entry = pending.pop(0)
             outstanding -= entry.nbytes
-            try:
-                self._finish(entry, results, fallback)
-            except is_oom:
-                # drop every queued class, then re-run each one
-                # synchronously at a bounded size
-                failed = [(entry.items, entry.key)]
-                for p in pending:
-                    try:
-                        self._finish(p, results, fallback)
-                    except is_oom:
-                        failed.append((p.items, p.key))
-                pending.clear()
-                outstanding = 0
-                for its, key in failed:
-                    recover(its, key)
+            self._finish(entry, results, fallback)
 
         t0 = time.perf_counter()
         for key, items in groups.items():
             try:
                 entry = self._dispatch(items, key)
             except is_oom:
-                while pending:  # free the queue, then run degraded
+                # free the queue (each drain gives its bytes back, so
+                # ``outstanding`` restarts from 0), then run degraded
+                while pending:
                     drain_one()
                 if self.device.type == "cuda":
                     torch.cuda.empty_cache()

@@ -5,6 +5,14 @@ Port of ``seqoia_tpu/parallel/tiled.py``. ``encode_large`` and
 expands them to packed pixels, K3 and K2 encode (K1 and K2 decode), and the
 stream (the pixels) comes back through ``utils.transfer.fetch_flat``.
 
+Pinned memory: on a card the decoders return their pixels as a view of the
+pinned (page-locked) buffer they arrived in, ``n_pixels * channels`` bytes
+(0.4 GB for a 134 Mpx RGB image, 1.6 GB for 400 Mpx RGBA), which stays
+locked for as long as the caller keeps the array; ``pixels.copy()`` gives a
+pageable one. The functions do not copy themselves: on an H100 host that
+copy (first touch of fresh pages) took several times the whole decode
+(``PERF.md``). ``encode_large`` returns ``bytes``, a copy.
+
 ``encode_large_shardmap`` and ``decode_large_shardmap`` cut the image into
 ``n_shards`` ranges that are coded independently, with the codec state
 that crosses a boundary carried explicitly: a host prepass finds it (the
@@ -191,7 +199,8 @@ def encode_large_shardmap(pixels, desc: spec.SqoaDesc, n_shards: int = 4,
 
 def decode_large(data: bytes, channels: int = 0, device="cuda"):
     """Decode one large SQOA stream: K1, then K2 with the pixels emitted as
-    words. Returns (flat uint8 pixels, SqoaDesc) or (None, None). A stream
+    words. Returns (flat uint8 pixels, SqoaDesc) or (None, None); on a card
+    the pixels are a view of a pinned buffer (module docstring). A stream
     with REF ops (which no SQOA encoder emits) goes to the native codec."""
     dev = resolve(device)
     desc = _header(data)
@@ -207,17 +216,14 @@ def decode_large(data: bytes, channels: int = 0, device="cuda"):
     buf.numpy()[: len(data)] = np.frombuffer(data, np.uint8)
     n_max = _pad_to(desc.n_pixels, _TILE)
 
-    out, has_ref = decode_v2.decode_stream_batched(
-        buf.to(dev, non_blocking=True)[None],
-        _i32([len(data) - spec.PADDING_SIZE], dev),
-        _i32([desc.n_pixels], dev),
-        colch=colch, out_ch=out_ch, n_max=int(n_max), emit="words",
-        src_alpha=bool(desc.has_alpha))
-    if bool(has_ref[0]):
+    out, has_ref = decode_v2.decode_stream(
+        buf.to(dev, non_blocking=True), len(data) - spec.PADDING_SIZE,
+        desc.n_pixels, colch=colch, out_ch=out_ch, n_max=int(n_max),
+        emit="words", src_alpha=bool(desc.has_alpha))
+    if bool(has_ref):
         return _host_decode(data, channels)
     n_out = desc.n_pixels * out_ch
-    size = out.element_size()
-    host = transfer.fetch_flat(out[0], -(-n_out // size))
+    host = transfer.fetch_flat(out, -(-n_out // out.element_size()))
     return host.view(np.uint8)[:n_out], desc
 
 

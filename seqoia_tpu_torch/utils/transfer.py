@@ -1,13 +1,11 @@
 """Device -> host transfer of large codec outputs.
 
 Port of ``seqoia_tpu/utils/transfer.py`` (``fetch_flat``): the decoded
-pixels and encoded streams of the large-image and batch paths come back
-through here. The destination is pinned host memory and the copies are
-asynchronous, on a side stream that first waits for the work queued on the
-current one, so the caller's stream is free for the next launch while the
-copy engine drains this output. The JAX version fans its slices out over
-host threads to get around a slow device-to-host link; a card's copy engine
-needs no such thing.
+pixels and encoded streams of the large-image path come back through here,
+as one copy into pinned host memory. The JAX version cuts the array into
+slices and fans them out over host threads to get around a slow
+device-to-host link; a card's copy engine runs one copy at the link's rate,
+so there is nothing to cut.
 """
 
 from __future__ import annotations
@@ -16,23 +14,17 @@ import numpy as np
 import torch
 
 
-def fetch_flat(x, n_elems: int | None = None,
-               chunk_elems: int = 1 << 24) -> np.ndarray:
+def fetch_flat(x, n_elems: int | None = None) -> np.ndarray:
     """The first ``n_elems`` (default: all) of a rank-1 tensor as a numpy
-    array in host memory. A CUDA tensor is copied in ``chunk_elems`` slices
-    into one pinned buffer (explicit slices: the last one is short, nothing
-    overlaps), ended by one synchronize of the side stream."""
+    array. For a CUDA tensor the array is a view of a pinned buffer, filled
+    by one copy and one synchronize; it stays page-locked while the array
+    lives, which a caller that hands it on says in its own contract."""
     if x.dim() != 1:
         raise ValueError("fetch_flat takes a rank-1 tensor")
     n = x.shape[0] if n_elems is None else min(int(n_elems), x.shape[0])
     if not x.is_cuda:
         return x[:n].numpy()
     out = torch.empty(n, dtype=x.dtype, pin_memory=True)
-    side = torch.cuda.Stream(x.device)
-    side.wait_stream(torch.cuda.current_stream(x.device))
-    with torch.cuda.stream(side):
-        for lo in range(0, n, chunk_elems):
-            hi = min(lo + chunk_elems, n)
-            out[lo:hi].copy_(x[lo:hi], non_blocking=True)
-    side.synchronize()
+    out.copy_(x[:n], non_blocking=True)
+    torch.cuda.current_stream(x.device).synchronize()
     return out.numpy()

@@ -157,9 +157,10 @@ def test_drain_bound():
     assert dec.last_stats["early_drains"] == 0
 
 
-def test_oom_ladder_halves_then_decodes_on_the_host(monkeypatch):
+def test_oom_ladder_halves_down_to_an_error_slot(monkeypatch):
     """A class that does not fit is re-run in halves; a single image that
-    still does not fit is decoded by the native codec."""
+    still does not fit comes back as its error slot, and nothing the card
+    failed at is decoded on the host."""
     rng = np.random.default_rng(8)
     streams = [_image(rng, 40, 40, 3, "luma") for _ in range(5)] \
         + [_image(rng, 8, 8, 1, "luma")]
@@ -174,36 +175,49 @@ def test_oom_ladder_halves_then_decodes_on_the_host(monkeypatch):
         return run(items, key)
 
     monkeypatch.setattr(dec, "_run", tight)
-    _same(dec(streams), streams)
+    monkeypatch.setattr(
+        dec, "_host_pool",
+        lambda *a: pytest.fail("an out-of-memory image went to the host"))
+    results = dec(streams)
     # 5 -> (2, 3 -> (1, 2)): image 4 sits in the last pair -> (1, 1)
     assert seen == [5, 5, 2, 3, 1, 2, 1, 1, 1]
     assert dec.last_stats["oom_redispatch"] == 7
-    assert dec.last_stats["host_rows"] == 1
+    assert dec.last_stats["host_rows"] == 0
+    assert results[4].pixels is None
+    assert results[4].error == "out of device memory"
+    keep = [i for i in range(len(streams)) if i != 4]
+    _same([results[i] for i in keep], [streams[i] for i in keep])
 
 
-def test_oom_at_fetch_clears_the_queue_and_resets_outstanding(monkeypatch):
-    """An out-of-memory error while draining drops the whole queue and
-    re-runs it; the outstanding-bytes count restarts from zero, so the
-    classes dispatched afterwards are not drained early for bytes that are
-    no longer held."""
-    streams = _classes(np.random.default_rng(6))
+def test_oom_at_dispatch_drains_the_queue_and_resets_outstanding(monkeypatch):
+    """An out-of-memory error at a dispatch drains every queued class and
+    re-runs the failed one; the outstanding-bytes count restarts from zero,
+    so the classes dispatched afterwards are not drained early for bytes
+    that are no longer held."""
+    a, big, c, d = _classes(np.random.default_rng(6))
+    # the large class first: alone in the queue it is not drained early,
+    # but its bytes, if they stayed in the count, would drain C before D
+    streams = [big, a, c, d]
     dec = st.BatchDecoder(device="cpu", max_outstanding_bytes=60000)
-    finish = dec._finish
-    state = {"failed": False}
+    run = dec._run
+    state = {"failed": False, "order": []}
 
-    def flaky(entry, results, fallback):
-        if not state["failed"] and entry.items[0][0] == 0:
+    def flaky(items, key):
+        state["order"].append(items[0][0])
+        if not state["failed"] and items[0][0] == 1:  # at its dispatch
             state["failed"] = True
             raise torch.cuda.OutOfMemoryError("mocked")
-        return finish(entry, results, fallback)
+        return run(items, key)
 
-    monkeypatch.setattr(dec, "_finish", flaky)
+    monkeypatch.setattr(dec, "_run", flaky)
     _same(dec(streams), streams)
-    assert state["failed"]
-    # B pushed the count past the bound: one early drain, in which A failed,
-    # B was finished and A re-run; C and D together stay below the bound
-    assert dec.last_stats["early_drains"] == 1
+    assert state["order"] == [0, 1, 1, 2, 3]
     assert dec.last_stats["oom_redispatch"] == 1
+    # the large class was drained to make room and the failed one re-run
+    # and finished at once: the count is back at 0, and C and D together
+    # stay below the bound
+    assert dec.last_stats["early_drains"] == 0
+    assert dec.last_stats["host_rows"] == 0
 
 
 def test_corpus_decode():

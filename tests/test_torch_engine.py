@@ -195,3 +195,16 @@ def test_place_fill_streams_and_keys():
     assert fa.tolist() == [[-1, -1, 10, 10, 10, 11, 12, 12]]
     assert fb.tolist() == [[1, 1, -10, -10, -10, -11, -12, -12]]
     assert fk.tolist() == [[0, 0, 2, 2, 2, 5, 6, 6]]
+
+
+@pytest.mark.parametrize("start,n", [(0, 64), (20, 12), (60, 4)])
+def test_plain_fill_by_slot_range(start, n):
+    """A slot depends on no other, so the plain fill of a slot range is that
+    range of the whole fill (how a long output is checked piece by piece)."""
+    keys = torch.tensor([[3, 10, 40, 0], [0, 21, 22, 63]], dtype=torch.int32)
+    pays = torch.tensor([[7, 8, 9, 0], [1, 2, 3, 4]], dtype=torch.int32)
+    totals = torch.tensor([3, 4], dtype=torch.int32)
+    (whole,) = engine._fill_plain(keys, [pays], totals, 64, (5,))
+    (part,) = engine._fill_plain(keys, [pays], totals, n, (5,), start)
+    assert torch.equal(part, whole[:, start: start + n])
+    assert whole[0, :3].tolist() == [5, 5, 5] and int(whole[0, 63]) == 9

@@ -159,3 +159,20 @@ def test_front_flags_and_cuts():
         torch.from_numpy(CASES["noalpha_16384"]["clen"]), 8192,
         mode="noalpha")[2]
     assert (full > totals).all()
+
+
+@pytest.mark.parametrize("block", [16, 1000, 4096])
+@pytest.mark.parametrize("name", ["alpha_mods_16384", "noalpha_16384",
+                                  "mono_runs_16384", "truncated_16384"])
+def test_front_plain_blocks_carry_the_scans(name, block):
+    """The plain version walks a long row in blocks and carries the
+    automaton's state, the pixel offset and the channel sums: any block
+    length, aligned to the ops or not, gives the result of one block."""
+    c = CASES[name]
+    data, clen = torch.from_numpy(c["data"]), torch.from_numpy(c["clen"])
+    whole = frontend.decode_front_plain(data, clen, c["n_max"], c["mode"],
+                                        block=data.shape[1])
+    parts = frontend.decode_front_plain(data, clen, c["n_max"], c["mode"],
+                                        block=block)
+    for got, want in zip(parts, whole):
+        assert torch.equal(got, want)
