@@ -19,7 +19,13 @@
    launch of every distinct shape that encode_large, decode_large, the two
    shard forms (K3's carries, rows as shards) and BatchDecoder give them,
    checked on the arguments of that launch in one uncounted pass over
-   those calls; K1 on a stream whose pixel counts pass 2**31.
+   those calls; K1 on a stream whose pixel counts pass 2**31. K5 and K8
+   (single-pass look-back kernels, whose faults are races) also at edge
+   shapes (EDGE_SHAPES: every K8 combine, K5 with all-0, all-1, 35% and
+   last-only masks, inputs off 16-byte boundaries), and every recorded
+   .qoi launch of theirs re-launched REPEATS times, each output bitwise
+   equal to the first; their times also with the L2 flushed before each
+   launch, and K8 sum's beside torch.cumsum at one row and at 32.
 3. Resets the kernels' launch counters and drives the SQOA path through the
    public entry points: one 4096x4096 RGBA photo-class image, a batch of
    32 1024x1024 RGB photos (decode_stream_batched / encode_stream_batched)
@@ -72,6 +78,7 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM peak memory rate (NVIDIA data sheet)
 OUT_DIR = "chiprun_out"
 REPS = 10  # timed launches per kernel and shape
+REPEATS = 50  # re-launches of K5 and K8 held bitwise against the first
 
 KERNELS = {
     "K1": ("decode_front_compact", "seqoia_tpu_torch/csrc/frontend.cu",
@@ -198,6 +205,35 @@ def _timed(fn, reps: int = REPS):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _timed_cold(fn, reps: int = REPS):
+    """Mean ms of fn() on the card over reps launches, each after a 64 MB
+    write that flushes the 50 MB L2 (the time a caller that finds its
+    input in device memory, not in L2, sees)."""
+    import torch
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    fn()
+    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(2)]
+          for _ in range(reps)]
+    for start, end in ev:
+        flush.zero_()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in ev) / reps
+
+
+def _repeats_differ(run, view, first, n: int = REPEATS) -> int:
+    """Re-launch run() n times; the number of launches whose outputs
+    (view(out): a list of tensors) differ bitwise from first's."""
+    import torch
+
+    want = view(first)
+    return sum(not all(torch.equal(a, b) for a, b in zip(view(run()), want))
+               for _ in range(n))
 
 
 def _plain_ms(fn):
@@ -536,6 +572,7 @@ def _check_qoi_call(key, args, kw, where):
         got = run()
         want, p_ms = _plain_ms(lambda: scan.tile_scan_plain(arrays, combine))
         err = max(_max_err(g, w) for g, w in zip(got, want))
+        repeats = _repeats_differ(run, list, got)
         x = arrays[0]
         nbytes = 8 * len(arrays) * x.numel()
         if combine == "max":
@@ -554,6 +591,9 @@ def _check_qoi_call(key, args, kw, where):
             t = int(tot[r])
             err = max([err, _max_err(keys[r, :t], pk[r, :t])]
                       + [_max_err(a[r, :t], b[r, :t]) for a, b in zip(cp, pp)])
+        repeats = _repeats_differ(
+            run, lambda o: [o[2], _live(o[0], o[2])]
+            + [_live(p, o[2]) for p in o[1]], (keys, cp, tot))
         kept = int(tot.sum())
         nbytes = valid.numel() + 8 * (1 + len(pays)) * kept + 4 * len(tot)
         if valid.shape[0] == 1:
@@ -600,8 +640,12 @@ def _check_qoi_call(key, args, kw, where):
         nbytes = 4 * (1 + len(pays)) * n_ent + 4 * len(streams) * got[0].numel()
         shape = (f"{where} streams={len(streams)} n_out={n_out} "
                  f"entries={n_ent}")
-    return kid, dict(shape=shape, err=err, ms=_timed(run), plain_ms=p_ms,
-                     bytes=nbytes, library_ms=library, main=True)
+    r = dict(shape=shape, err=err, ms=_timed(run), plain_ms=p_ms,
+             bytes=nbytes, library_ms=library, main=True)
+    if kid in ("K5", "K8"):
+        # a look-back race can hide in one launch: the repeats must agree
+        r.update(repeats_differ=repeats, cold_ms=_timed_cold(run))
+    return kid, r
 
 
 def check_qoi_kernels(qstages, dev):
@@ -658,6 +702,93 @@ def check_qoi_kernels(qstages, dev):
             kid, r = _check_qoi_call(key, a, k, f"{s.name} encode")
             rec[kid].append(r)
         del seen
+        torch.cuda.empty_cache()
+    return rec
+
+
+# K5 and K8 at the edges of their tiling (4096 entries a tile): one entry,
+# a ragged vector, one tile less one, one, one more, three and one, many
+# short rows, rows that start off 16-byte boundaries, and a long unaligned
+# row (the .qoi decode's op count)
+EDGE_SHAPES = ((1, 1), (1, 3), (1, 4095), (1, 4096), (1, 4097),
+               (1, 3 * 4096 + 1), (37, 4097), (4096, 37), (2, 11807483))
+
+
+def _edge_inputs(gen, shape, combine, dev):
+    """Random (B, M) int32 arrays for one K8 combine, as its callers make
+    them (fill: 0/1 flags; segmod: pack_pair words; maps: state maps)."""
+    import torch
+
+    def ints(lo, hi):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev,
+                             dtype=torch.int64).to(torch.int32)
+
+    if combine == "fill":
+        return (ints(-2**31, 2**31), (ints(0, 1000) < 3).to(torch.int32))
+    if combine == "segmod":
+        return ((ints(0, 2**31) & 0x01FF01FF),)
+    if combine == "maps":
+        return (ints(0, 4) + ((0 << 3) | (1 << 6) | (2 << 9) | (3 << 12)),)
+    return (ints(-2**31, 2**31),)
+
+
+def _offset(x):
+    """x's values in a tensor of the same shape whose storage starts one
+    element (4 bytes for int32) past a 16-byte boundary."""
+    import torch
+
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+def check_edge_kernels(dev):
+    """K8 (every combine, fill with its two arrays) and K5 (all-0, all-1,
+    about 35% and last-entry-only masks, two payloads) against their plain
+    versions at EDGE_SHAPES, bit-exact, on inputs made on the card from a
+    seed; K8 and K5 also on inputs whose storage starts 4 bytes past a
+    16-byte boundary. Returns {kernel: [records]}."""
+    import torch
+
+    from seqoia_tpu_torch.ops import compact, scan
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    rec = {"K5": [], "K8": []}
+    for shape in EDGE_SHAPES:
+        bsz, m = shape
+        for combine in scan.COMBINES:
+            arrays = _edge_inputs(gen, shape, combine, dev)
+            for where, xs in (("", arrays),
+                              (" offset", tuple(_offset(a) for a in arrays))):
+                if where and bsz * m > 1 << 20:
+                    continue
+                got = scan.tile_scan(xs, combine)
+                want = scan.tile_scan_plain(xs, combine)
+                rec["K8"].append(dict(
+                    shape=f"edge {combine} {shape}{where}", main=False,
+                    err=max(_max_err(g, w) for g, w in zip(got, want))))
+        i32 = dict(dtype=torch.int32, device=dev)
+        key = torch.arange(bsz * m, **i32).view(shape)
+        pays = [_edge_inputs(gen, shape, "max", dev)[0] for _ in range(2)]
+        last = torch.zeros(shape, dtype=torch.bool, device=dev)
+        last[:, -1] = True
+        masks = {"none": torch.zeros_like(last), "all": ~torch.zeros_like(last),
+                 "35%": torch.rand(shape, generator=gen, device=dev) < 0.35,
+                 "last": last}
+        for name, valid in masks.items():
+            for where, (k, ps) in (("", (key, pays)),
+                                   (" offset", (_offset(key),
+                                                [_offset(p) for p in pays]))):
+                if where and (name != "35%" or bsz * m > 1 << 20):
+                    continue
+                keys, cp, tot = compact.compact(valid, k, ps)
+                pk, pp, ptot = compact.compact_plain(valid, k, ps)
+                err = max([_max_err(tot, ptot), _max_err(_live(keys, tot), pk)]
+                          + [_max_err(_live(a, tot), b) for a, b in zip(cp, pp)])
+                rec["K5"].append(dict(shape=f"edge {name} {shape}{where}",
+                                      err=err, main=False))
         torch.cuda.empty_cache()
     return rec
 
@@ -1242,16 +1373,32 @@ def main() -> int:
     rec["K1"].append(check_saturation(dev))
     for k, rows in check_path_kernels(large, classes, mixed, dev).items():
         rec[k] += rows
+    for k, rows in check_edge_kernels(dev).items():
+        print(f"{k} at {len(rows)} edge shapes: max err "
+              f"{max(r['err'] for r in rows)}")
+        rec[k] += rows
     for k, rows in rec.items():
         for r in rows:
+            if "ms" not in r:
+                continue
             lib = ("" if r.get("library_ms") is None
                    else f" library {r['library_ms']:.3f} ms")
-            print(f"{k} {r['shape']}: err {r['err']} kernel {r['ms']:.3f} ms "
+            cold = ("" if "cold_ms" not in r else
+                    f" L2-flushed {r['cold_ms']:.4f} ms, "
+                    f"{r['repeats_differ']}/{REPEATS} repeats differ")
+            print(f"{k} {r['shape']}: err {r['err']} kernel {r['ms']:.4f} ms "
                   f"plain {r['plain_ms']:.3f} ms bound "
-                  f"{r['bytes'] / HBM_BYTES_PER_S * 1e3:.4f} ms{lib}")
-    bad = [k for k, rows in rec.items() if any(r["err"] for r in rows)]
+                  f"{r['bytes'] / HBM_BYTES_PER_S * 1e3:.4f} ms{lib}{cold}")
+    for r in rec["K8"]:
+        if r["shape"].startswith(("photo_rgba_qoi decode ops sum",
+                                  "batch_rgb_qoi decode ops sum")):
+            print(f"K8 sum {r['shape'].split(' sum ')[1]}: kernel "
+                  f"{r['ms']:.4f} ms, torch.cumsum {r['library_ms']:.4f} ms")
+    bad = [k for k, rows in rec.items()
+           if any(r["err"] or r.get("repeats_differ") for r in rows)]
     if bad:
-        raise AssertionError(f"kernels differ from their plain versions: {bad}")
+        raise AssertionError(f"kernels differ from their plain versions or "
+                             f"between launches: {bad}")
 
     counters = {k: (fn, "launches") for k, fn in (
         ("K1", frontend.decode_front_compact), ("K2", engine.place_emit),

@@ -8,26 +8,27 @@
 // every combine is applied as op(left, right).
 //
 // Bound on the H100: bytes. It must read each input word once and write
-// each output word once.
+// each output word once (4 bytes in and out per entry and array); the
+// combines cost a few to a few dozen integer operations per entry.
 //
-// Design: the TPU version walks each row's tiles in order and threads the
-// running state through SMEM. Here the blocks run in parallel, so the scan
-// runs reduce-then-scan:
-//   k8_reduce  per block: the combine of its chunk
-//   scan       per row: exclusive scan of the block aggregates
-//   k8_apply   per block: redo the thread aggregates, scan them in shared
-//              memory, then walk each thread's run from its prefix.
-// Each thread owns 16 consecutive elements; the second walk re-reads them
-// (in L2 after the first pass) rather than storing per-element state.
+// Design: the TPU kernel walks each row's tiles in order and threads the
+// running state from one grid step to the next through SMEM. Here the
+// tiles run in parallel, in one launch, on lookback.cuh's decoupled
+// look-back: a block takes the next 4096-entry tile from a counter, loads
+// it into shared memory as 16-byte vectors, scans it (16 consecutive
+// entries a thread, then warp shuffles), gets its exclusive prefix from
+// its predecessors' published aggregates and prefixes, and writes the tile
+// back as vectors. The C function zeroes the status words with one
+// cudaMemsetAsync before the launch.
 
 #include <climits>
 
-#include "common.cuh"
+#include "lookback.cuh"
 
 namespace {
 
-constexpr int IPT = 16;
-constexpr int CHUNK = NT * IPT;
+using lb::PAD_TILE;
+using lb::u64;
 
 enum { C_MAX = 0, C_SUM = 1, C_FILL = 2, C_SEGMOD = 3, C_MAPS = 4 };
 
@@ -35,45 +36,71 @@ struct Pair {
   int v, f;
 };
 
-// Each combine: its element type, identity, op(left, right), and how an
-// element is read from / written to the one or two int32 arrays.
-struct MaxC {
+__device__ __forceinline__ Pair shfl_up(Pair p, int d) {
+  return Pair{__shfl_up_sync(lb::FULL, p.v, d),
+              __shfl_up_sync(lb::FULL, p.f, d)};
+}
+__device__ __forceinline__ Pair shfl_down(Pair p, int d) {
+  return Pair{__shfl_down_sync(lb::FULL, p.v, d),
+              __shfl_down_sync(lb::FULL, p.f, d)};
+}
+
+using Tile = int[PAD_TILE];
+
+// Each combine: its element type, identity, op(left, right), how a tile
+// entry at padded position p is read from and written to the one or two
+// staged arrays, and (for the status words) how an element packs into 33
+// bits.
+struct OneArray {
+  static constexpr int arrays = 1;
+  __device__ static int get(Tile* b, int p) { return b[0][p]; }
+  __device__ static void put(Tile* b, int p, int v) { b[0][p] = v; }
+};
+
+struct OneWord : OneArray {
+  __device__ static u64 pack(int v) { return (u64)(unsigned)v; }
+  __device__ static int unpack(u64 w) { return (int)(unsigned)w; }
+};
+
+struct MaxC : OneWord {
   using T = int;
   __host__ __device__ static T ident() { return INT_MIN; }
   __device__ T operator()(T a, T b) const { return a > b ? a : b; }
-  __device__ static T load(const int* x0, const int*, int i) { return x0[i]; }
-  __device__ static void store(int* y0, int*, int i, T v) { y0[i] = v; }
 };
 
-struct SumC {
-  using T = int;
-  __host__ __device__ static T ident() { return 0; }
-  __device__ T operator()(T a, T b) const {
-    return (int)((unsigned)a + (unsigned)b);  // wraps like int32 in JAX
-  }
-  __device__ static T load(const int* x0, const int*, int i) { return x0[i]; }
-  __device__ static void store(int* y0, int*, int i, T v) { y0[i] = v; }
-};
+struct SumC : OneArray, lb::WordSum {};  // wraps like int32 in JAX
 
+// The flags are 0 or 1 (fill_forward's contract; the status word keeps one
+// bit of flag). An entry reads as (value if flagged else 0, flag): the
+// kernels start every row from the identity (0, 0), and on entries read
+// so it is an identity on both sides.
 struct FillC {
   using T = Pair;
+  static constexpr int arrays = 2;
   __host__ __device__ static T ident() { return Pair{0, 0}; }
   __device__ T operator()(T l, T r) const {
     return Pair{r.f != 0 ? r.v : l.v, l.f | r.f};
   }
-  __device__ static T load(const int* x0, const int* x1, int i) {
-    return Pair{x0[i], x1[i]};
+  __device__ static T get(Tile* b, int p) {
+    const int f = b[1][p];
+    return Pair{f != 0 ? b[0][p] : 0, f};
   }
-  __device__ static void store(int* y0, int* y1, int i, T v) {
-    y0[i] = v.v;
-    y1[i] = v.f;
+  __device__ static void put(Tile* b, int p, T v) {
+    b[0][p] = v.v;
+    b[1][p] = v.f;
+  }
+  __device__ static u64 pack(T v) {
+    return (u64)(unsigned)v.v | ((u64)(v.f != 0) << 32);
+  }
+  __device__ static T unpack(u64 w) {
+    return Pair{(int)(unsigned)w, (int)(w >> 32) & 1};
   }
 };
 
 // bits 0-7 channel 0, bit 8 its reset flag, bits 16-23 channel 1, bit 24
 // its reset flag: a set flag on the right takes the right's value, else the
 // channels add mod 256; flags OR.
-struct SegmodC {
+struct SegmodC : OneWord {
   using T = int;
   __host__ __device__ static T ident() { return 0; }
   __device__ T operator()(T a, T b) const {
@@ -83,12 +110,10 @@ struct SegmodC {
     const unsigned ch1 = ((r >> 24) & 1u) ? (r & 0xFF0000u) : (s & 0xFF0000u);
     return (int)(ch0 | ch1 | (l & 0x01000100u) | (r & 0x01000100u));
   }
-  __device__ static T load(const int* x0, const int*, int i) { return x0[i]; }
-  __device__ static void store(int* y0, int*, int i, T v) { y0[i] = v; }
 };
 
 // five 3-bit entries: (left then right)[e] = right[left[e]]
-struct MapsC {
+struct MapsC : OneWord {
   using T = int;
   __host__ __device__ static T ident() {
     return 0 | (1 << 3) | (2 << 6) | (3 << 9) | (4 << 12);
@@ -102,82 +127,82 @@ struct MapsC {
     }
     return out;
   }
-  __device__ static T load(const int* x0, const int*, int i) { return x0[i]; }
-  __device__ static void store(int* y0, int*, int i, T v) { y0[i] = v; }
 };
 
+// Eight blocks an SM (32 registers a thread): the blocks in flight hide
+// each other's look-back and barriers.
 template <class C>
-__device__ typename C::T thread_agg(const int* r0, const int* r1, int g0,
-                                    int m) {
-  typename C::T acc = C::ident();
-  for (int j = 0; j < IPT; ++j) {
-    const int g = g0 + j;
-    if (g >= m) break;
-    acc = C()(acc, C::load(r0, r1, g));
-  }
-  return acc;
-}
-
-template <class C>
-__global__ void k8_reduce(const int* x0, const int* x1, int m, int nblk,
-                          typename C::T* blk) {
+__global__ void __launch_bounds__(NT, 8)
+    k8_kernel(const int* x0, const int* x1, int m, int n_tiles, u64* status,
+              unsigned* counter, int* y0, int* y1) {
   using T = typename C::T;
-  __shared__ T buf[NT];
-  const long long row = blockIdx.y;
-  const int* r0 = x0 + row * m;
-  const int* r1 = x1 ? x1 + row * m : nullptr;
-  const int g0 = blockIdx.x * CHUNK + threadIdx.x * IPT;
-  T tot;
-  block_scan_excl(thread_agg<C>(r0, r1, g0, m), C::ident(), buf, &tot, C());
-  if (threadIdx.x == 0) blk[row * nblk + blockIdx.x] = tot;
-}
+  constexpr int NA = C::arrays;
+  __shared__ Tile buf[NA];
+  __shared__ T wtot[lb::NW + 1];
+  __shared__ T s_ex;
+  __shared__ int s_id;
+  const int id = lb::next_tile(counter, &s_id);
+  const int row = id / n_tiles, tile = id - row * n_tiles;
+  const long long off = (long long)row * m + (long long)tile * lb::TILE;
+  const int len = min(lb::TILE, m - tile * lb::TILE);
+  lb::load_tile(x0 + off, len, lb::PaddedI32{buf[0]});
+  if constexpr (NA == 2)
+    lb::load_tile(x1 + off, len, lb::PaddedI32{buf[NA - 1]});
+  __syncthreads();
 
-template <class C>
-__global__ void k8_apply(const int* x0, const int* x1, int m, int nblk,
-                         const typename C::T* blk_ex, int* y0, int* y1) {
-  using T = typename C::T;
-  __shared__ T buf[NT];
-  const long long row = blockIdx.y;
-  const int* r0 = x0 + row * m;
-  const int* r1 = x1 ? x1 + row * m : nullptr;
-  int* o0 = y0 + row * m;
-  int* o1 = y1 ? y1 + row * m : nullptr;
-  const int g0 = blockIdx.x * CHUNK + threadIdx.x * IPT;
-  T tot;
-  const T ex = block_scan_excl(thread_agg<C>(r0, r1, g0, m), C::ident(), buf,
-                               &tot, C());
-  T run = C()(blk_ex[row * nblk + blockIdx.x], ex);
-  for (int j = 0; j < IPT; ++j) {
-    const int g = g0 + j;
-    if (g >= m) break;
-    run = C()(run, C::load(r0, r1, g));
-    C::store(o0, o1, g, run);
+  const int e0 = threadIdx.x * lb::IPT;
+  T acc = C::ident();
+#pragma unroll
+  for (int j = 0; j < lb::IPT; ++j)
+    if (e0 + j < len) acc = C()(acc, C::get(buf, lb::pad(e0 + j)));
+  T agg;
+  const T ex = lb::block_scan_warp(acc, C::ident(), wtot, &agg, C());
+  if (threadIdx.x < 32) {
+    const T tex =
+        lb::tile_prefix<C>(status + (long long)row * n_tiles, tile, agg);
+    if (threadIdx.x == 0) s_ex = tex;
   }
+  __syncthreads();
+
+  T run = C()(s_ex, ex);
+#pragma unroll
+  for (int j = 0; j < lb::IPT; ++j) {
+    if (e0 + j < len) {
+      const int p = lb::pad(e0 + j);
+      run = C()(run, C::get(buf, p));
+      C::put(buf, p, run);
+    }
+  }
+  __syncthreads();
+  lb::store_tile(y0 + off, len, lb::PaddedI32{buf[0]});
+  if constexpr (NA == 2)
+    lb::store_tile(y1 + off, len, lb::PaddedI32{buf[NA - 1]});
 }
 
 template <class C>
 int run(const int* x0, const int* x1, int B, int m, int* scratch, int* y0,
         int* y1, cudaStream_t st) {
-  using T = typename C::T;
-  const int nblk = (m + CHUNK - 1) / CHUNK;
-  T* agg = reinterpret_cast<T*>(scratch);
-  T* agg_ex = agg + (long long)B * nblk;
-  const dim3 grid(nblk, B);
-  k8_reduce<C><<<grid, NT, 0, st>>>(x0, x1, m, nblk, agg);
-  scan_blocks_kernel<T, C><<<B, NT, 0, st>>>(agg, agg_ex, nullptr, nblk,
-                                             C::ident(), C());
-  k8_apply<C><<<grid, NT, 0, st>>>(x0, x1, m, nblk, agg_ex, y0, y1);
+  const int nt = lb::n_tiles(m);
+  const long long tiles = (long long)B * nt;
+  if (tiles > INT_MAX) return (int)cudaErrorInvalidValue;
+  u64* words = reinterpret_cast<u64*>(scratch);
+  const cudaError_t e = lb::lb_scratch(words, tiles, st);
+  if (e != cudaSuccess) return (int)e;
+  k8_kernel<C><<<(unsigned)tiles, NT, 0, st>>>(
+      x0, x1, m, nt, words + 1, reinterpret_cast<unsigned*>(words), y0, y1);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// combine: C_MAX, C_SUM, C_FILL (x1/y1 the flags), C_SEGMOD or C_MAPS.
-// x0, x1, y0, y1: (B, m) i32 (x1, y1 null unless C_FILL). scratch: 4 * B *
-// ceil(m / 4096) i32. Returns cudaGetLastError.
+// combine: C_MAX, C_SUM, C_FILL (x1/y1 the flags, 0 or 1), C_SEGMOD or
+// C_MAPS. x0, x1, y0, y1: (B, m) i32 (x1, y1 null unless C_FILL); any row
+// length and 4-byte alignment. scratch: 2 * (B * n_tiles(m) + 1) i32
+// (ops/scan.py:scratch_words), zeroed here. Returns cudaGetLastError.
 extern "C" int k8_scan(int combine, const int* x0, const int* x1, int B,
                        int m, int* scratch, int* y0, int* y1, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  if (B <= 0 || m <= 0) return 0;
   switch (combine) {
     case C_MAX:
       return run<MaxC>(x0, x1, B, m, scratch, y0, y1, st);

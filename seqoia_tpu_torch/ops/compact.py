@@ -1,8 +1,9 @@
 """K5: order-preserving compaction of a key stream and its payloads.
 
 Port of ``seqoia_tpu/ops/pallas_engine.py:compact``. The kernel is
-``csrc/compact.cu`` (count, scan the counts, scatter each kept entry to its
-rank; see its header for what bounds it on the H100); ``compact_plain`` is
+``csrc/compact.cu`` (one launch: count each tile's kept entries, take the
+tile's output base by a decoupled look-back, write its run as contiguous
+stores; see its header for what bounds it on the H100); ``compact_plain`` is
 the same function in plain PyTorch. The Pallas kernel returns (B, M +
 slack) streams; the port's are (B, M), and ``convert.compact`` turns the
 one layout into the other. Either way only the entries below ``totals``
@@ -16,6 +17,7 @@ import torch
 
 from . import _build
 from ._plain import compact_rows
+from .scan import scratch_words
 
 
 def compact_plain(valid, key, payloads):
@@ -40,7 +42,8 @@ def compact(valid, key, payloads):
             raise ValueError("payloads must match key: (B, M) int32")
     if not 1 <= len(payloads) <= 2:
         raise ValueError("compact takes 1 or 2 payload streams")
-    valid = valid != 0
+    if valid.dtype != torch.bool:
+        valid = valid != 0
     if not key.is_cuda:
         if key.device.type != "cpu":
             raise ValueError(f"unsupported device {key.device}")
@@ -52,7 +55,7 @@ def compact(valid, key, payloads):
     outs = [torch.empty((bsz, m), **i32) for _ in ins]
     ins, outs = ins + [None] * (3 - len(ins)), outs + [None] * (3 - len(outs))
     totals = torch.empty(bsz, **i32)
-    scratch = torch.empty(2 * bsz * -(-m // 4096), **i32)
+    scratch = torch.empty(scratch_words(bsz, m), **i32)
     lib = _build.load("compact")
     P = _build.ptr
     compact.launches += 1

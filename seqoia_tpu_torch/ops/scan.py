@@ -2,9 +2,10 @@
 
 Port of ``seqoia_tpu/ops/pallas_scan.py:tile_scan`` and its wrappers
 (``cummax``, ``cumsum``, ``fill_forward``, ``segmented_modsum``,
-``compose_state_maps``). The kernel is ``csrc/scan.cu`` (reduce-then-scan
-across blocks; see its header for the design and what bounds it on the
-H100), one kernel with a combine selector. The plain versions run
+``compose_state_maps``). The kernel is ``csrc/scan.cu`` (one launch, tiles
+chained by a decoupled look-back, ``csrc/lookback.cuh``; see its header for
+the design and what bounds it on the H100), one kernel with a combine
+selector. The plain versions run
 ``_plain.hillis_steele`` with the same combine, in int64, and wrap once to
 the int32 patterns the kernel produces. None of the combines commute:
 each is applied as combine(left, right).
@@ -18,6 +19,7 @@ from . import _build
 from ._plain import hillis_steele, to_i32
 
 INT_MIN = -(2**31)
+TILE = 4096  # entries per tile of the look-back kernels (K5, K8)
 IDENTITY_MAP = 0 | (1 << 3) | (2 << 6) | (3 << 9) | (4 << 12)
 _M2, _F2 = 0x00FF00FF, 0x01000100
 
@@ -62,6 +64,18 @@ COMBINES = {
 }
 
 
+def n_tiles(m: int) -> int:
+    """Tiles of one row of m entries in the look-back kernels (at least
+    one, so an empty row still has a tile that writes its total)."""
+    return max(1, -(-m // TILE))
+
+
+def scratch_words(bsz: int, m: int) -> int:
+    """int32 words of a look-back launch's scratch over (bsz, m): a 64-bit
+    tile counter and one 64-bit status word per tile (csrc/lookback.cuh)."""
+    return 2 * (bsz * n_tiles(m) + 1)
+
+
 def tile_scan_plain(arrays, combine: str):
     """Plain PyTorch K8: the same inclusive scan by log-step doubling."""
     _, _, comb = COMBINES[combine]
@@ -76,7 +90,8 @@ def tile_scan_plain(arrays, combine: str):
 
 def tile_scan(arrays, combine: str):
     """K8. arrays: the (B, M) int32 tensors scanned jointly (two for
-    "fill": values and flags, one otherwise); combine: a key of COMBINES.
+    "fill": values and flags, the flags 0 or 1, one otherwise); combine: a
+    key of COMBINES.
     Returns the inclusive scans, one (B, M) int32 tensor per array.
 
     A CUDA tensor runs the kernel; a CPU tensor runs the plain version."""
@@ -97,7 +112,7 @@ def tile_scan(arrays, combine: str):
     xs = [a.contiguous() for a in arrays] + [None] * (2 - n_arr)
     ys = [torch.empty((bsz, m), dtype=torch.int32, device=dev)
           for _ in range(n_arr)] + [None] * (2 - n_arr)
-    scratch = torch.empty(4 * bsz * -(-m // 4096), dtype=torch.int32,
+    scratch = torch.empty(scratch_words(bsz, m), dtype=torch.int32,
                           device=dev)
     lib = _build.load("scan")
     P = _build.ptr

@@ -7,6 +7,13 @@ payloads, at (2, 32768) and at (1, 65536), where the Pallas kernel carries
 its cursor and partial row across tiles. The comparison is exact over the
 valid region: the totals, and the keys and payloads below them
 (``convert.compact`` trims the Pallas slack).
+
+``lookback_compact`` models ``csrc/compact.cu`` in PyTorch: each thread's
+count of 16 mask bytes, the block's warp-shuffle scan, the tiles' output
+bases from the decoupled look-back walk of ``test_torch_scan`` (its sum
+combine), each kept entry's rank and each row's total from its last tile.
+It is held against the plain version, which is also held against numpy's
+boolean index at the edge shapes ``chip_smoke.py`` checks the kernel at.
 """
 
 import os
@@ -18,7 +25,8 @@ import pytest
 import torch
 
 from seqoia_tpu_torch import convert
-from seqoia_tpu_torch.ops import compact
+from seqoia_tpu_torch.ops import compact, scan
+from test_torch_scan import EDGE_SHAPES, IPT, NW, _walk, _warp_scan
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -117,3 +125,95 @@ def test_compact_takes_an_integer_mask_and_checks_shapes():
         compact.compact(valid, key, [key, key, key])
     with pytest.raises(ValueError, match="int32"):
         compact.compact(valid, key.long(), [key])
+
+
+# --- the look-back kernel's ranks -------------------------------------------
+
+
+def lookback_compact(valid, key, payloads, seed=0, p_prefix=0.05):
+    """csrc/compact.cu's arithmetic in PyTorch: each kept entry's output
+    position from the thread counts, the block scan and the look-back over
+    the tiles' counts; the streams placed there and the totals."""
+    comb = scan.COMBINES["sum"][2]
+    rng = np.random.default_rng(seed)
+    bsz, m = valid.shape
+    nt = scan.n_tiles(m)
+    v = torch.zeros(bsz, nt * scan.TILE, dtype=torch.int64)
+    v[:, :m] = valid.long()
+    per_thread = v.view(bsz, nt, NW, 32, IPT)
+    cnt = (per_thread.sum(-1),)
+    _, lane_ex = _warp_scan(cnt, comb, (0,), 32)
+    warp_inc, warp_ex = _warp_scan(
+        (_warp_scan(cnt, comb, (0,), 32)[0][0][..., 31],), comb, (0,), NW)
+    tile_agg = warp_inc[0][..., NW - 1]
+    thread_ex = warp_ex[0][..., None] + lane_ex[0]
+    base = torch.zeros(bsz, nt, dtype=torch.int64)
+    totals = torch.zeros(bsz, dtype=torch.int32)
+    for r in range(bsz):
+        status = {}
+        for t in range(nt):
+            agg = int(tile_agg[r, t])
+            ex = 0 if t == 0 else int(_walk("sum", comb, (0,), status, t, rng,
+                                            p_prefix)[0][0])
+            status[t] = (agg, ex + agg)
+            base[r, t] = ex
+            if t == nt - 1:
+                totals[r] = ex + agg
+    # the rank of each kept entry: the thread's prefix, then its own run
+    rank = (base[:, :, None, None, None] + thread_ex[..., None]
+            + per_thread.cumsum(-1) - per_thread).view(bsz, -1)[:, :m]
+    outs = []
+    for stream in [key] + list(payloads):
+        out = torch.zeros_like(stream)
+        for r in range(bsz):
+            kept = valid[r]
+            out[r, rank[r, kept]] = stream[r, kept]
+        outs.append(out)
+    return outs[0], outs[1:], totals
+
+
+def _mask(rng, shape, kind):
+    if kind == "none":
+        return np.zeros(shape, bool)
+    if kind == "all":
+        return np.ones(shape, bool)
+    if kind == "last":
+        v = np.zeros(shape, bool)
+        v[:, -1] = True
+        return v
+    return rng.random(shape) < 0.35
+
+
+@pytest.mark.parametrize("kind", ["none", "all", "35%", "last"])
+def test_lookback_model_matches_plain(kind):
+    rng = np.random.default_rng(51)
+    shape = (2, 37 * 4096 + 1234)  # crosses windows of 32 predecessors
+    c = _case(rng, shape, 2, 0.35)
+    valid = torch.from_numpy(_mask(rng, shape, kind))
+    key = convert.tensor(c["key"])
+    pays = [convert.tensor(p) for p in c["pay"]]
+    want = compact.compact_plain(valid, key, pays)
+    for seed, p_prefix in ((0, 0.02), (1, 0.5)):
+        keys, got_pays, totals = lookback_compact(valid, key, pays, seed,
+                                                  p_prefix)
+        assert torch.equal(totals, want[2])
+        assert torch.equal(keys, want[0])
+        for g, w in zip(got_pays, want[1]):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("shape", EDGE_SHAPES)
+def test_plain_compact_at_edge_shapes(shape):
+    rng = np.random.default_rng(52)
+    c = _case(rng, shape, 2, 0.35)
+    for kind in ("none", "all", "35%", "last"):
+        valid = _mask(rng, shape, kind)
+        keys, pays, totals = compact.compact(
+            torch.from_numpy(valid), convert.tensor(c["key"]),
+            [convert.tensor(p) for p in c["pay"]])
+        assert totals.tolist() == valid.sum(axis=1).tolist()
+        for r in range(shape[0]):
+            n = int(totals[r])
+            assert keys[r, :n].tolist() == c["key"][r][valid[r]].tolist()
+            for got, want in zip(pays, c["pay"]):
+                assert got[r, :n].tolist() == want[r][valid[r]].tolist()
