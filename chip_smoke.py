@@ -19,13 +19,18 @@
    launch of every distinct shape that encode_large, decode_large, the two
    shard forms (K3's carries, rows as shards) and BatchDecoder give them,
    checked on the arguments of that launch in one uncounted pass over
-   those calls; K1 on a stream whose pixel counts pass 2**31. K5 and K8
-   (single-pass look-back kernels, whose faults are races) also at edge
-   shapes (EDGE_SHAPES: every K8 combine, K5 with all-0, all-1, 35% and
-   last-only masks, inputs off 16-byte boundaries), and every recorded
-   .qoi launch of theirs re-launched REPEATS times, each output bitwise
-   equal to the first; their times also with the L2 flushed before each
-   launch, and K8 sum's beside torch.cumsum at one row and at 32.
+   those calls; K1 on a stream whose pixel counts pass 2**31. K1, K5, K7
+   and K8 (single-pass look-back kernels, whose faults are races) also at
+   edge shapes (EDGE_SHAPES: every K8 combine, K5 with all-0, all-1, 35%
+   and last-only masks, K7 with 64 and 128 slots, four n_live, three kinds
+   of hashes, dense and sparse queries; K1 in its three modes on rows
+   around its 4096-byte tile, tokens across tile edges, padding far past
+   the stream, an n_max that cuts the last op, 37 short rows; inputs off
+   16-byte boundaries), and every recorded .qoi launch of K5, K7 and K8
+   and every SQOA and large-image launch of K1 re-launched REPEATS times,
+   each output bitwise equal to the first; their times also with the L2
+   flushed before each launch, and K8 sum's beside torch.cumsum at one row
+   and at 32.
 3. Resets the kernels' launch counters and drives the SQOA path through the
    public entry points: one 4096x4096 RGBA photo-class image, a batch of
    32 1024x1024 RGB photos (decode_stream_batched / encode_stream_batched)
@@ -78,7 +83,7 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM peak memory rate (NVIDIA data sheet)
 OUT_DIR = "chiprun_out"
 REPS = 10  # timed launches per kernel and shape
-REPEATS = 50  # re-launches of K5 and K8 held bitwise against the first
+REPEATS = 50  # re-launches of K1, K5, K7 and K8 held bitwise against the first
 
 KERNELS = {
     "K1": ("decode_front_compact", "seqoia_tpu_torch/csrc/frontend.cu",
@@ -236,6 +241,13 @@ def _repeats_differ(run, view, first, n: int = REPEATS) -> int:
                for _ in range(n))
 
 
+def _front_view(out):
+    """K1's outputs that its contract defines: totals, has_ref, and the
+    keys and payloads below totals."""
+    keys, pays, tot, ref = out
+    return [tot, ref, _live(keys, tot), _live(pays, tot)]
+
+
 def _plain_ms(fn):
     import torch
 
@@ -350,7 +362,10 @@ def check_kernels(stages, dev):
         rec["K1"].append(dict(
             shape=f"{s.name} {tuple(s.data.shape)} {s.mode}", err=err,
             ms=_timed(k1), plain_ms=p_ms,
-            bytes=sum(len(x) for x in s.streams) + 8 * n_ops + 16 * bsz))
+            bytes=sum(len(x) for x in s.streams) + 8 * n_ops + 16 * bsz,
+            repeats_differ=_repeats_differ(k1, _front_view,
+                                           (keys, pays, tot, ref)),
+            cold_ms=_timed_cold(k1)))
         del pk, pp
         # --- K2 decode epilogue, K6 ----------------------------------------
         npx = s.npx[:, None]
@@ -611,6 +626,7 @@ def _check_qoi_call(key, args, kw, where):
         want, p_ms = _plain_ms(lambda: slots.slot_last_writer_plain(
             h, v, q, n_slots, init, n_live))
         err = _max_err(got, want)
+        repeats = _repeats_differ(run, lambda o: [o], got)
         idx = torch.arange(h.shape[1], device=h.device)[None, :]
         live = idx < n_live.long()[:, None]
         n_q = int(((q >= 0) & (q < n_slots) & live).sum())
@@ -642,7 +658,7 @@ def _check_qoi_call(key, args, kw, where):
                  f"entries={n_ent}")
     r = dict(shape=shape, err=err, ms=_timed(run), plain_ms=p_ms,
              bytes=nbytes, library_ms=library, main=True)
-    if kid in ("K5", "K8"):
+    if kid in ("K5", "K7", "K8"):
         # a look-back race can hide in one launch: the repeats must agree
         r.update(repeats_differ=repeats, cold_ms=_timed_cold(run))
     return kid, r
@@ -791,6 +807,140 @@ def check_edge_kernels(dev):
                                       err=err, main=False))
         torch.cuda.empty_cache()
     return rec
+
+
+def check_edge_slots(dev):
+    """K7 against its plain version, bit-exact, at EDGE_SHAPES with 64 and
+    128 slots: n_live at 0, 1, mid-tile and m; hashes all in one slot, all
+    -1 (no writer) and uniform; queries dense (the encode's form: the
+    hashes themselves) and sparse (about 0.5%, as in the decode); and on
+    storage 4 bytes past a 16-byte boundary. The 11.8 M-entry shape only
+    with uniform hashes (its plain version takes seconds). Returns
+    [records]."""
+    import torch
+
+    from seqoia_tpu_torch.ops import slots
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    i32 = dict(dtype=torch.int32, device=dev)
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev,
+                             dtype=torch.int64).to(torch.int32)
+
+    rows = []
+    for shape in EDGE_SHAPES:
+        bsz, m = shape
+        big = bsz * m > 1 << 20
+        values = ints(-2**31, 2**31, shape)
+        for n_slots in (64, 128):
+            hashes = {"uniform": torch.where(ints(0, 100, shape) < 90,
+                                             ints(0, n_slots, shape), -1)}
+            if not big:
+                hashes["one slot"] = torch.full(shape, n_slots - 1, **i32)
+                hashes["none"] = torch.full(shape, -1, **i32)
+            lives = {"m": m, "mid-tile": min(m, 4096 + 1234) // 2 + 1}
+            if not big:
+                lives.update({"0": 0, "1": 1})
+            for hname, h in hashes.items():
+                sparse = torch.where(ints(0, 1000, shape) < 5,
+                                     ints(0, n_slots, shape), -1)
+                for qname, q in (("dense", h), ("sparse", sparse)):
+                    if big and (n_slots, qname) == (128, "dense"):
+                        continue
+                    for lname, live in lives.items():
+                        if big and lname != "m" and n_slots == 64:
+                            continue
+                        n_live = torch.full((bsz,), live, **i32)
+                        args = (h, values, q, n_slots, -7, n_live)
+                        got = slots.slot_last_writer(*args)
+                        want = slots.slot_last_writer_plain(*args)
+                        rows.append(dict(
+                            shape=f"edge {shape} slots={n_slots} {hname} "
+                                  f"{qname} n_live={lname}",
+                            err=_max_err(got, want), main=False))
+            if not big:  # inputs off 16-byte boundaries
+                h, q = hashes["uniform"], sparse
+                args = (_offset(h), _offset(values), _offset(q), n_slots, 3,
+                        None)
+                rows.append(dict(
+                    shape=f"edge {shape} slots={n_slots} uniform offset",
+                    err=_max_err(slots.slot_last_writer(*args),
+                                 slots.slot_last_writer_plain(
+                                     *args[:5], torch.full((bsz,), m, **i32))),
+                    main=False))
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _edge_tokens(mode, m=3 * 4096 + 200):
+    """Synthetic op bytes with tokens across the 4096-byte tile edges of
+    K1: an RGBA op with its alpha modifier, an RGB op, a LUMA op, BIGRUNs
+    and a modifier alone after an edge, between 1-byte runs
+    (tests/test_torch_frontend.py builds the same stream)."""
+    s = np.full(m, 0xC1, np.uint8)
+    s[:15] = 0
+    for edge, token in ((4096, [0xFF, 1, 2, 3, 200, 0x65]),
+                        (2 * 4096, [0xFE, 9, 8, 7]),
+                        (2 * 4096 + 100, [0x9A, 0x37]),
+                        (3 * 4096, [0xFF, 5, 6, 7, 8, 0x7F])):
+        at = edge - 3 if edge % 4096 == 0 else edge
+        s[at: at + len(token)] = token
+    s[4096 + 50: 4096 + 60] = 0xFD
+    if mode == "mono":
+        s[2 * 4096 - 1: 2 * 4096 + 2] = [0xFF, 40, 90]
+    return s
+
+
+def check_edge_front(stages, dev):
+    """K1 (one row a scan) against its plain version, bit-exact, in its
+    three modes, on the SQOA workloads' streams (alpha: the RGBA photo,
+    noalpha: an RGB photo, mono: the gray+alpha scan): rows of 4095, 4096,
+    4097 and 3 * 4096 + 1 bytes with the stream's end at the row's end and 8
+    bytes before it, a stream padded far past its end, an n_max that cuts
+    the last op, 37 short rows, and the synthetic stream with tokens across
+    the tile edges. Returns [records]."""
+    import torch
+
+    from seqoia_tpu_torch.ops import frontend
+
+    rows = []
+    for s in stages:
+        stream = np.frombuffer(s.streams[0], np.uint8)
+        cases = []
+        for m in (4095, 4096, 4097, 3 * 4096 + 1):
+            for end in (m - 8, m):
+                cases.append((f"M={m} clen={end}", stream[None, :m], [end],
+                              s.n_max))
+        pad = np.zeros((1, 1 << 22), np.uint8)
+        pad[0, :20000] = stream[:20000]
+        cases.append(("padded far past clen", pad, [20000 - 8], s.n_max))
+        cases.append(("n_max cuts the last op", stream[None, :100000],
+                      [100000 - 8], None))
+        short = np.zeros((37, 700), np.uint8)
+        for r in range(37):
+            short[r, : 300 + 10 * r] = stream[: 300 + 10 * r]
+        cases.append(("37 short rows", short,
+                      [300 + 10 * r - 8 for r in range(37)], s.n_max))
+        edge = _edge_tokens(s.mode)
+        cases.append(("tokens across tile edges", np.stack([edge, edge]),
+                      [len(edge) - 8, 2 * 4096 + 1], 1 << 20))
+        for name, data, clen, n_max in cases:
+            data = torch.from_numpy(np.array(data)).to(dev)
+            clen = torch.tensor(clen, dtype=torch.int32, device=dev)
+            if n_max is None:  # one pixel short of the last op's first
+                keys, _, tot, _ = frontend.decode_front_plain(
+                    data, clen, 1 << 30, s.mode)
+                n_max = int(keys[0, int(tot[0]) - 1])
+            got = frontend.decode_front_compact(data, clen, n_max, s.mode)
+            want = frontend.decode_front_plain(data, clen, n_max, s.mode)
+            rows.append(dict(
+                shape=f"edge {s.name} {s.mode} {name} {tuple(data.shape)}",
+                err=max(_max_err(a, b) for a, b in zip(
+                    _front_view(got), _front_view(want))),
+                main=False))
+    return rows
 
 
 def _fix_row(s, conv, rows, stats):
@@ -1009,13 +1159,17 @@ def _checked(run, where, rec):
                   _max_err(_live(keys, tot), pk),
                   _max_err(_live(pays, tot), pp))
         del pk, pp
-        rec["K1" if seg is None else "K1seg"].append(dict(
+        run = lambda: fn(data, clen, n_max, mode, seg, seg_px)  # noqa: E731
+        r = dict(
             shape=f"{where} {tuple(data.shape)} {mode}"
                   + (f" seg={seg}" if seg else ""),
-            err=err, plain_ms=p_ms, main=False,
-            ms=_timed(lambda: fn(data, clen, n_max, mode, seg, seg_px), reps),
+            err=err, plain_ms=p_ms, main=False, ms=_timed(run, reps),
             bytes=int(clen.sum()) + 4 * clen.numel() + 8 * int(tot.sum())
-            + 8 * len(tot)))
+            + 8 * len(tot))
+        if seg is None:  # the look-back kernel: the repeats must agree
+            r.update(repeats_differ=_repeats_differ(run, _front_view, out),
+                     cold_ms=_timed_cold(run, reps))
+        rec["K1" if seg is None else "K1seg"].append(r)
         return out
 
     def k2(fn, keys, pays, tot, scal, n_out, inits, epi):
@@ -1373,7 +1527,10 @@ def main() -> int:
     rec["K1"].append(check_saturation(dev))
     for k, rows in check_path_kernels(large, classes, mixed, dev).items():
         rec[k] += rows
-    for k, rows in check_edge_kernels(dev).items():
+    edges = check_edge_kernels(dev)
+    edges["K7"] = check_edge_slots(dev)
+    edges["K1"] = check_edge_front(stages, dev)
+    for k, rows in edges.items():
         print(f"{k} at {len(rows)} edge shapes: max err "
               f"{max(r['err'] for r in rows)}")
         rec[k] += rows

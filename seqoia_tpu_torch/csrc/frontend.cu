@@ -6,49 +6,70 @@
 // mod-256 channel sum between absolute anchors (packed RGBA), the
 // foreign/REF flag and the order-preserving compaction of the ops.
 //
-// Bound on the H100: bytes. It must read the (B, M) stream once and write
-// one (key, payload) pair per op; everything else is integer work that the
-// SMs do far faster than HBM delivers bytes.
+// Bound on the H100: bytes. It must read the (B, M) stream once (up to the
+// stream's end) and write one (key, payload) pair per op; everything else
+// is integer work, a few dozen operations a byte.
 //
 // Design: the TPU version walks tiles in order and carries the automaton
-// map, the channel sum and the cursors in SMEM. Here each of the two scans
-// (the automaton's map composition, then the channel/count/pixel scan that
-// depends on the token flags) runs reduce-then-scan across blocks:
-//   k1_maps   per block: composed automaton map of its 4096 bytes
-//   scan      per row: exclusive composition of the block maps
-//   k1_chan   per block: entry state -> token walk -> block aggregate of
-//             (SWAR channel sum + flags, op count, pixel count); REF flag
-//   scan      per row: exclusive scan of the channel aggregates
-//   k1_emit   per block: redo the walk with its prefix and write each op at
-//             its rank (the compaction), counting ops whose key < n_max.
-// Each thread owns 16 consecutive bytes, staged with an 8-byte halo in
-// shared memory (the operands and the absorbed alpha modifier sit at most
-// 5 bytes after an op). The walks are recomputed rather than stored, so
-// the only traffic is the byte stream (read three times, from L2 after the
-// first) and the compacted output.
+// map, the channel sum and the cursors in SMEM. Here one launch chains the
+// 4096-byte tiles of each row by three decoupled look-backs
+// (lookback.cuh), in the order their values depend on each other:
+//   1. the block takes the next tile from a counter and stages its bytes
+//      and an 8-byte halo (operands and the absorbed alpha modifier sit at
+//      most 5 bytes after an op) in shared memory by 16-byte vectors, up to
+//      the stream's end and no further; a tile wholly past it returns at
+//      once (nothing after it has an op, so nothing waits on it);
+//   2. each thread takes its 16 bytes and the halo into registers (two
+//      vector reads of shared memory, no bank conflicts), computes every
+//      byte's token length once, and composes its automaton map with a
+//      SWAR step of 8 integer operations a byte; the block scans the maps
+//      by warp shuffles and warp 0 looks back over the tiles' composed
+//      maps (Compose6, 18 bits): the tile's entry state is the exclusive
+//      map applied to state 0;
+//   3. each thread walks its bytes from its entry state and folds its ops'
+//      channel elements (Chan); the block scans them, then warp 0 looks
+//      back over the (val, flg) part (34 bits, folded right to left: it
+//      does not commute) and warp 1 over the (op count, saturating pixel
+//      count) part (62 bits). ChanOp combines the two parts independently,
+//      so the split is exact;
+//   4. each thread walks its bytes again with its prefix and places every
+//      op whose key < n_max at its rank in shared memory; the tile's run
+//      leaves as one contiguous stretch of vector stores a stream. The tile
+//      in which the pixel count reaches n_max, or else the row's last tile
+//      with bytes before the stream's end, writes totals[row]: no atomic.
 //
-// Segment mode (k > 1): a row of M bytes packs k small images, image j in
-// bytes [j*seg, (j+1)*seg) with its header, each decoding to exactly seg_px
+// Segment mode (k > 1) keeps the passes of its first port, in their own
+// section below: a row of M bytes packs k small images, image j in bytes
+// [j*seg, (j+1)*seg) with its header, each decoding to exactly seg_px
 // pixels. The TPU kernel restarts its carried scans there with a reset map,
 // an injected anchor and a flagged in-tile prefix. Here the segments are
 // independent: every segment is a scan row of its own (the grid runs over
 // B*k rows of seg bytes, so no scan needs a reset), keys come out global
 // (j*seg_px + offset), ops whose offset reaches seg_px are dropped (a
-// suffix of their segment), and two small passes give the compaction its
-// rank across the segments of a packed row:
+// suffix of their segment), and the scans run reduce-then-scan across
+// blocks:
+//   k1_maps      per block: composed automaton map of its 4096 bytes
+//   scan         per segment: exclusive composition of the block maps
+//   k1_chan      per block: entry state -> token walk -> block aggregate of
+//                (SWAR channel sum + flags, op count, pixel count); REF flag
+//   scan         per segment: exclusive scan of the channel aggregates
 //   k1_segcount  per block: the segment's ops below seg_px (from the block
 //                aggregates; only a block that straddles seg_px walks)
 //   scan         per packed row: exclusive sum of its segments' counts
+//   k1_emit      per block: redo the walk with its prefix and write each op
+//                at its rank.
 // A segment below 4096 bytes leaves its block underfilled.
 
 #include <climits>
 
-#include "common.cuh"
+#include "lookback.cuh"
 
 namespace {
 
+using lb::u64;
+
 constexpr int IPT = 16;
-constexpr int CHUNK = NT * IPT;
+constexpr int CHUNK = NT * IPT;  // bytes a block (= lb::TILE)
 constexpr int HALO = 8;
 constexpr long long HDR1 = 15;  // header + start byte: first op position
 
@@ -79,20 +100,31 @@ struct Chan {
   int cnt, npix;
 };
 
+// The (val, flg) part of ChanOp: left then right.
+__device__ __forceinline__ void val_op(uint32_t lv, uint32_t lf, uint32_t rv,
+                                       uint32_t rf, uint32_t* ov,
+                                       uint32_t* of) {
+  const uint32_t s =
+      ((lv & 0x7F7F7F7Fu) + (rv & 0x7F7F7F7Fu)) ^ ((lv ^ rv) & 0x80808080u);
+  const uint32_t m =
+      ((rf & 1u) ? 0x00FFFFFFu : 0u) | ((rf & 2u) ? 0xFF000000u : 0u);
+  *ov = (rv & m) | (s & ~m);
+  *of = (lf | rf) & 3u;
+}
+
+// Saturating pixel counts (both are at most INT_MAX, so the unsigned sum is
+// exact): 4 MiB of BIGRUN bytes count 2^31 pixels, and a wrapped offset
+// would pass the key < n_max test that the plain version's int64 keys fail.
+__device__ __forceinline__ int sat_add(int a, int b) {
+  return (int)min((unsigned)a + (unsigned)b, (unsigned)INT_MAX);
+}
+
 struct ChanOp {
   __device__ Chan operator()(const Chan& l, const Chan& r) const {
-    const uint32_t s = ((l.val & 0x7F7F7F7Fu) + (r.val & 0x7F7F7F7Fu)) ^
-                       ((l.val ^ r.val) & 0x80808080u);
-    const uint32_t m = ((r.flg & 1u) ? 0x00FFFFFFu : 0u) |
-                       ((r.flg & 2u) ? 0xFF000000u : 0u);
     Chan o;
-    o.val = (r.val & m) | (s & ~m);
-    o.flg = (l.flg | r.flg) & 3u;
+    val_op(l.val, l.flg, r.val, r.flg, &o.val, &o.flg);
     o.cnt = l.cnt + r.cnt;
-    // saturating (both are at most INT_MAX, so the unsigned sum is exact):
-    // 4 MiB of BIGRUN bytes count 2^31 pixels, and a wrapped offset would
-    // pass the key < n_max test that the plain version's int64 keys fail
-    o.npix = (int)min((unsigned)l.npix + (unsigned)r.npix, (unsigned)INT_MAX);
+    o.npix = sat_add(l.npix, r.npix);
     return o;
   }
 };
@@ -105,6 +137,368 @@ __host__ __device__ __forceinline__ Chan chan_ident() {
   c.npix = 0;
   return c;
 }
+
+// Channel element, pixel count and foreign flag of the op whose bytes are
+// b0..b4, with alpha modifier delta att.
+__device__ __forceinline__ Chan op_elem_b(int b0, int b1, int b2, int b3,
+                                          int b4, int att, int mode,
+                                          bool* foreign) {
+  const bool luma = (b0 & 0xC0) == 0x80, rgb = b0 == 0xFE, rgba = b0 == 0xFF;
+  const int vg = (b0 & 0x3F) - 32;
+  const bool anc = rgb || rgba;
+  const bool anc_a = rgba && mode != MODE_NOALPHA;
+  int r = 0, g = 0, bl = 0, a = 0;
+  if (mode == MODE_MONO) {  // gray rides byte lane 0, alpha lane 3
+    r = anc ? b1 : (luma ? vg : 0);
+    a = anc_a ? b2 : 0;
+  } else {
+    r = anc ? b1 : (luma ? vg - 8 + ((b1 >> 4) & 15) : 0);
+    g = anc ? b2 : (luma ? vg : 0);
+    bl = anc ? b3 : (luma ? vg - 8 + (b1 & 15) : 0);
+    a = anc_a ? b4 : 0;
+    if (mode == MODE_ALPHA) a += att;
+  }
+  int npix = (b0 & 0x3F) + 1;  // any unmatched byte is a run
+  if (luma || anc) npix = 1;
+  if (b0 == 0xFD) npix = 512;  // BIGRUN
+  if (b0 < 0x60) npix = 1;     // REF: the stream falls back anyway
+  *foreign = mode == MODE_NOALPHA ? (b0 < 0x80 || rgba) : (b0 < 0x60);
+  Chan e;
+  e.val = (uint32_t)(r & 255) | ((uint32_t)(g & 255) << 8) |
+          ((uint32_t)(bl & 255) << 16) | ((uint32_t)(a & 255) << 24);
+  e.flg = (anc ? 1u : 0u) | (anc_a ? 2u : 0u);
+  e.cnt = 1;
+  e.npix = npix;
+  return e;
+}
+
+// The packed RGBA payload after an op (alpha starts at 255).
+__device__ __forceinline__ int payload(const Chan& run) {
+  uint32_t a = (run.val >> 24) & 255u;
+  if (!(run.flg & 2u)) a = (a + 255u) & 255u;
+  return (int)((run.val & 0x00FFFFFFu) | (a << 24));
+}
+
+// ===== one row a scan (k == 1): one launch, three look-backs a tile =====
+
+// Status words of the three look-backs (lookback.cuh's C interface).
+struct MapC {
+  using T = uint32_t;
+  __host__ __device__ static T ident() { return IDENT6; }
+  __device__ T operator()(T l, T r) const { return Compose6()(l, r); }
+  __device__ static u64 pack(T v) { return v; }
+  __device__ static T unpack(u64 w) { return (T)w; }
+};
+
+struct Val {
+  uint32_t val, flg;
+};
+
+struct ValC {
+  using T = Val;
+  __host__ __device__ static T ident() { return Val{0, 0}; }
+  __device__ T operator()(T l, T r) const {
+    T o;
+    val_op(l.val, l.flg, r.val, r.flg, &o.val, &o.flg);
+    return o;
+  }
+  __device__ static u64 pack(T v) { return (u64)v.val | ((u64)v.flg << 32); }
+  __device__ static T unpack(u64 w) {
+    return Val{(uint32_t)w, (uint32_t)(w >> 32) & 3u};
+  }
+};
+
+struct Cnt {
+  int cnt, npix;
+};
+
+struct CntC {  // op count (below 2^31: M is) and saturating pixel count
+  using T = Cnt;
+  __host__ __device__ static T ident() { return Cnt{0, 0}; }
+  __device__ T operator()(T l, T r) const {
+    return Cnt{l.cnt + r.cnt, sat_add(l.npix, r.npix)};
+  }
+  __device__ static u64 pack(T v) {
+    return (u64)(unsigned)v.cnt | ((u64)(unsigned)v.npix << 31);
+  }
+  __device__ static T unpack(u64 w) {
+    return Cnt{(int)(w & 0x7FFFFFFFu), (int)((w >> 31) & 0x7FFFFFFFu)};
+  }
+};
+
+__device__ __forceinline__ Val shfl_down(Val v, int d) {
+  return Val{(uint32_t)lb::shfl_down((int)v.val, d),
+             (uint32_t)lb::shfl_down((int)v.flg, d)};
+}
+__device__ __forceinline__ Cnt shfl_down(Cnt v, int d) {
+  return Cnt{lb::shfl_down(v.cnt, d), lb::shfl_down(v.npix, d)};
+}
+__device__ __forceinline__ Chan shfl_up(Chan c, int d) {
+  Chan o;
+  o.val = (uint32_t)lb::shfl_up((int)c.val, d);
+  o.flg = (uint32_t)lb::shfl_up((int)c.flg, d);
+  o.cnt = lb::shfl_up(c.cnt, d);
+  o.npix = lb::shfl_up(c.npix, d);
+  return o;
+}
+
+// The composed map after one more byte of token length c + 1: a digit in
+// a nonzero state steps down, a digit in state 0 starts a token (c bytes
+// left to skip). The same as Compose6(m, BASE6 + c), by SWAR.
+__device__ __forceinline__ uint32_t step6(uint32_t m, uint32_t c) {
+  constexpr uint32_t LOW = 0x9249u;  // bit 0 of each 3-bit digit
+  const uint32_t nz = (m | (m >> 1) | (m >> 2)) & LOW;
+  return (m - nz) | ((LOW & ~nz) * c);
+}
+
+// A thread's 16 bytes and the 8 after them, in registers; k is a constant
+// wherever the loops below are unrolled.
+struct Run {
+  uint32_t w[6];
+  __device__ __forceinline__ int b(int k) const {
+    return (w[k >> 2] >> (8 * (k & 3))) & 255;
+  }
+};
+
+// Token length at byte j (the length the automaton skips); in mode alpha an
+// op absorbs a following alpha-range byte (the reference's one alpha peek
+// after every op), *att being that modifier's delta.
+template <int MODE>
+__device__ __forceinline__ int tok_len(const Run& r, int j, int* att) {
+  const int b = r.b(j);
+  const int luma = (b & 0xC0) == 0x80, rgb = b == 0xFE, rgba = b == 0xFF;
+  *att = 0;
+  if (MODE == MODE_MONO) return 1 + rgb + 2 * rgba;
+  if (MODE == MODE_NOALPHA) return 1 + luma + 3 * rgb;
+  const int len = 1 + luma + 3 * rgb + 4 * rgba;  // 1, 2, 4 or 5
+  const int nx = len == 1   ? r.b(j + 1)
+                 : len == 2 ? r.b(j + 2)
+                 : len == 4 ? r.b(j + 4)
+                            : r.b(j + 5);
+  if (nx >= 0x60 && nx < 0x80) {
+    *att = (nx & 31) - 16;
+    return len + 1;
+  }
+  return len;
+}
+
+// A byte tile into 16-byte aligned shared memory: a vector store where the
+// tile's vectors fall on 16-byte boundaries of it (an aligned row), else
+// byte stores.
+struct BytePut {
+  uint8_t* s;
+  __device__ void vec(int e, uint4 q) const {
+    if ((e & 15) == 0) {
+      *reinterpret_cast<uint4*>(s + e) = q;
+      return;
+    }
+    const uint8_t* b = reinterpret_cast<const uint8_t*>(&q);
+#pragma unroll
+    for (int c = 0; c < 16; ++c) s[e + c] = b[c];
+  }
+  __device__ void one(int e, uint8_t x) const { s[e] = x; }
+};
+
+struct Linear {
+  const int* s;
+  __device__ uint4 vec(int e) const {
+    return make_uint4((unsigned)s[e], (unsigned)s[e + 1], (unsigned)s[e + 2],
+                      (unsigned)s[e + 3]);
+  }
+  __device__ int one(int e) const { return s[e]; }
+};
+
+// Per byte of the thread's run: token length - 1 in bits 0-2, the alpha
+// modifier's delta + 16 in bits 3-7, one byte each.
+struct Codes {
+  uint32_t c[IPT / 4];
+  __device__ __forceinline__ int lm1(int j) const {
+    return (c[j >> 2] >> (8 * (j & 3))) & 7;
+  }
+  __device__ __forceinline__ int att(int j) const {
+    return (int)((c[j >> 2] >> (8 * (j & 3) + 3)) & 31) - 16;
+  }
+};
+
+// Four blocks an SM: 37 KB of shared memory each (the byte tile and the
+// staged ops), at most 64 registers a thread.
+template <int MODE>
+__global__ void __launch_bounds__(NT, 4)
+    k1_tiles(const uint8_t* data, long long M, int nt, const int* clen,
+             int n_max, u64* st_map, u64* st_val, u64* st_cnt,
+             unsigned* counter, int* keys, int* pays, int* totals,
+             int* has_ref) {
+  __shared__ __align__(16) uint8_t s[CHUNK + 16];
+  __shared__ __align__(16) int stage_k[CHUNK];
+  __shared__ __align__(16) int stage_p[CHUNK];
+  __shared__ uint32_t mtot[lb::NW + 1];
+  __shared__ Chan ctot[lb::NW + 1];
+  __shared__ uint32_t s_map;
+  __shared__ Val s_val;
+  __shared__ Cnt s_cnt;
+  __shared__ int s_id, s_emit;
+  const int id = lb::next_tile(counter, &s_id);
+  const int row = id / nt, tile = id - row * nt;
+  const long long base = (long long)tile * CHUNK;
+  // ops start before live_end only; the tiles from here on have none
+  const long long live_end = min((long long)clen[row], M);
+  if (base >= live_end) return;
+  const int n =
+      (int)min(min(M, live_end + HALO) - base, (long long)(CHUNK + HALO));
+  lb::load_tile(data + row * M + base, n, BytePut{s});
+  for (int i = n + threadIdx.x; i < CHUNK + 16; i += NT) s[i] = 0;
+  if (threadIdx.x == 0) s_emit = 0;
+  __syncthreads();
+
+  // --- the thread's bytes, token lengths and automaton map --------------
+  const int i0 = threadIdx.x * IPT;
+  Run r;
+  {
+    const uint4 a = *reinterpret_cast<const uint4*>(s + i0);
+    const uint2 h = *reinterpret_cast<const uint2*>(s + i0 + IPT);
+    r.w[0] = a.x, r.w[1] = a.y, r.w[2] = a.z, r.w[3] = a.w;
+    r.w[4] = h.x, r.w[5] = h.y;
+  }
+  const long long p0 = base + i0;
+  // bytes of the run before the first op position; bytes that may start an
+  // op (before the stream's end)
+  const int lo = (int)min(max(HDR1 - p0, 0LL), (long long)IPT);
+  const int hi = (int)min(max(live_end - p0, 0LL), (long long)IPT);
+  Codes cd;
+  uint32_t map = IDENT6;
+#pragma unroll
+  for (int q = 0; q < IPT / 4; ++q) cd.c[q] = 0;
+#pragma unroll
+  for (int j = 0; j < IPT; ++j) {
+    int att;
+    int L = tok_len<MODE>(r, j, &att);
+    if (j < lo) L = 1;
+    cd.c[j >> 2] |= (uint32_t)((L - 1) | ((att + 16) << 3)) << (8 * (j & 3));
+    map = step6(map, (uint32_t)(L - 1));
+  }
+  uint32_t agg_map;
+  const uint32_t ex_map =
+      lb::block_scan_warp(map, IDENT6, mtot, &agg_map, Compose6());
+  if (threadIdx.x < 32) {
+    const uint32_t t =
+        lb::tile_prefix<MapC>(st_map + (long long)row * nt, tile, agg_map);
+    if (threadIdx.x == 0) s_map = t;
+  }
+  __syncthreads();
+  const int state0 = (int)((ex_map >> (3 * (s_map & 7u))) & 7u);
+
+  // --- walk 1: the thread's channel aggregate; the tile's prefix ----------
+  Chan acc = chan_ident();
+  bool fr = false;
+  int state = state0;
+#pragma unroll
+  for (int j = 0; j < IPT; ++j) {
+    if (state == 0 && j >= lo && j < hi) {
+      bool f;
+      acc = ChanOp()(acc, op_elem_b(r.b(j), r.b(j + 1), r.b(j + 2),
+                                    r.b(j + 3), r.b(j + 4), cd.att(j), MODE,
+                                    &f));
+      fr |= f;
+    }
+    state = state == 0 ? cd.lm1(j) : state - 1;
+  }
+  Chan agg;
+  const Chan ex = lb::block_scan_warp(acc, chan_ident(), ctot, &agg, ChanOp());
+  if (threadIdx.x < 32) {
+    const Val v = lb::tile_prefix<ValC>(st_val + (long long)row * nt, tile,
+                                        Val{agg.val, agg.flg});
+    if (threadIdx.x == 0) s_val = v;
+  } else if (threadIdx.x < 64) {
+    const Cnt c = lb::tile_prefix<CntC>(st_cnt + (long long)row * nt, tile,
+                                        Cnt{agg.cnt, agg.npix});
+    if (threadIdx.x == 32) s_cnt = c;
+  }
+  if (__syncthreads_or(fr) && threadIdx.x == 0) atomicOr(has_ref + row, 1);
+
+  // --- walk 2: every op below n_max to its rank in the tile ---------------
+  const Cnt tc = s_cnt;
+  Chan run = chan_ident();
+  run.val = s_val.val;
+  run.flg = s_val.flg;
+  run.cnt = tc.cnt;
+  run.npix = tc.npix;
+  run = ChanOp()(run, ex);
+  int here = 0;
+  state = state0;
+#pragma unroll
+  for (int j = 0; j < IPT; ++j) {
+    if (state == 0 && j >= lo && j < hi) {
+      bool f;
+      const int key = run.npix;
+      run = ChanOp()(run, op_elem_b(r.b(j), r.b(j + 1), r.b(j + 2),
+                                    r.b(j + 3), r.b(j + 4), cd.att(j), MODE,
+                                    &f));
+      if (key < n_max) {  // offsets grow with rank: in-range ops are a prefix
+        const int k = run.cnt - 1 - tc.cnt;
+        stage_k[k] = key;
+        stage_p[k] = payload(run);
+        ++here;
+      }
+    }
+    state = state == 0 ? cd.lm1(j) : state - 1;
+  }
+  if (here) atomicAdd(&s_emit, here);
+  __syncthreads();
+  const int n_emit = s_emit;
+  if (n_emit) {
+    const long long o = (long long)row * M + tc.cnt;
+    lb::store_tile(keys + o, n_emit, Linear{stage_k});
+    lb::store_tile(pays + o, n_emit, Linear{stage_p});
+  }
+  if (threadIdx.x == 0) {
+    // the ops below n_max are a prefix of the row: the tile where the pixel
+    // count reaches n_max holds its last one; if it is never reached, the
+    // last tile with bytes before the stream's end holds the row's last op
+    const int incl = sat_add(tc.npix, agg.npix);
+    if (tc.npix < n_max && incl >= n_max)
+      totals[row] = tc.cnt + n_emit;
+    else if (incl < n_max && tile == (int)((live_end - 1) / CHUNK))
+      totals[row] = tc.cnt + agg.cnt;
+  }
+}
+
+int front_rows(const uint8_t* data, const int* clen, int B, long long M,
+               int n_max, int mode, uint32_t* scratch, int* keys, int* pays,
+               int* totals, int* has_ref, cudaStream_t st) {
+  if (B <= 0 || M <= 0) return 0;
+  if (M >= INT_MAX) return (int)cudaErrorInvalidValue;  // 31-bit op counts
+  const long long nt = (M + CHUNK - 1) / CHUNK;
+  const long long tiles = B * nt;
+  if (tiles > INT_MAX) return (int)cudaErrorInvalidValue;
+  u64* words = reinterpret_cast<u64*>(scratch);
+  const cudaError_t e = lb::lb_scratch(words, 3 * tiles, st);
+  if (e != cudaSuccess) return (int)e;
+  u64* st_map = words + 1;
+  u64* st_val = st_map + tiles;
+  u64* st_cnt = st_val + tiles;
+  unsigned* counter = reinterpret_cast<unsigned*>(words);
+#define K1_LAUNCH(MODE)                                                    \
+  k1_tiles<MODE><<<(unsigned)tiles, NT, 0, st>>>(                          \
+      data, M, (int)nt, clen, n_max, st_map, st_val, st_cnt, counter, keys, \
+      pays, totals, has_ref)
+  switch (mode) {
+    case MODE_ALPHA:
+      K1_LAUNCH(MODE_ALPHA);
+      break;
+    case MODE_NOALPHA:
+      K1_LAUNCH(MODE_NOALPHA);
+      break;
+    case MODE_MONO:
+      K1_LAUNCH(MODE_MONO);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef K1_LAUNCH
+  return (int)cudaGetLastError();
+}
+
+// ===== segment mode (k > 1): reduce-then-scan over every segment =====
 
 __device__ void load_chunk(const uint8_t* row, long long M, long long base,
                            uint8_t* s) {
@@ -154,35 +548,8 @@ __device__ uint32_t thread_map(const uint8_t* s, long long base, int mode) {
 // Channel element, pixel count and foreign flag of the op at local byte i.
 __device__ __forceinline__ Chan op_elem(const uint8_t* s, int i, int att,
                                         int mode, bool* foreign) {
-  const int b0 = s[i], b1 = s[i + 1], b2 = s[i + 2], b3 = s[i + 3],
-            b4 = s[i + 4];
-  const bool luma = (b0 & 0xC0) == 0x80, rgb = b0 == 0xFE, rgba = b0 == 0xFF;
-  const int vg = (b0 & 0x3F) - 32;
-  const bool anc = rgb || rgba;
-  const bool anc_a = rgba && mode != MODE_NOALPHA;
-  int r = 0, g = 0, bl = 0, a = 0;
-  if (mode == MODE_MONO) {  // gray rides byte lane 0, alpha lane 3
-    r = anc ? b1 : (luma ? vg : 0);
-    a = anc_a ? b2 : 0;
-  } else {
-    r = anc ? b1 : (luma ? vg - 8 + ((b1 >> 4) & 15) : 0);
-    g = anc ? b2 : (luma ? vg : 0);
-    bl = anc ? b3 : (luma ? vg - 8 + (b1 & 15) : 0);
-    a = anc_a ? b4 : 0;
-    if (mode == MODE_ALPHA) a += att;
-  }
-  int npix = (b0 & 0x3F) + 1;  // any unmatched byte is a run
-  if (luma || anc) npix = 1;
-  if (b0 == 0xFD) npix = 512;  // BIGRUN
-  if (b0 < 0x60) npix = 1;     // REF: the stream falls back anyway
-  *foreign = mode == MODE_NOALPHA ? (b0 < 0x80 || rgba) : (b0 < 0x60);
-  Chan e;
-  e.val = (uint32_t)(r & 255) | ((uint32_t)(g & 255) << 8) |
-          ((uint32_t)(bl & 255) << 16) | ((uint32_t)(a & 255) << 24);
-  e.flg = (anc ? 1u : 0u) | (anc_a ? 2u : 0u);
-  e.cnt = 1;
-  e.npix = npix;
-  return e;
+  return op_elem_b(s[i], s[i + 1], s[i + 2], s[i + 3], s[i + 4], att, mode,
+                   foreign);
 }
 
 // Walk the thread's 16 bytes from automaton state `state`, calling
@@ -307,12 +674,11 @@ __global__ void k1_segcount(const uint8_t* data, long long M, unsigned R,
   if (here) atomicAdd(seg_cnt + row, here);
 }
 
-// limit: pixels per scan row (n_max, or seg_px in segment mode). Scan row
-// `row` is segment row % k of output row row / k: its keys start at
-// (row % k) * limit and its ops rank after seg_base[row] (null: 0).
+// Scan row `row` is segment row % k of output row row / k: its keys start
+// at (row % k) * seg_px and its ops rank after seg_base[row].
 __global__ void k1_emit(const uint8_t* data, long long M, unsigned R,
                         int nblk, int mode, const int* clen, const uint32_t* blk_map_ex,
-                        const Chan* blk_chan_ex, int limit, int k,
+                        const Chan* blk_chan_ex, int seg_px, int k,
                         const int* seg_base, int* keys, int* pays,
                         int* totals) {
   __shared__ uint8_t s[CHUNK + HALO];
@@ -332,10 +698,9 @@ __global__ void k1_emit(const uint8_t* data, long long M, unsigned R,
   Chan tot;
   const Chan ex = block_scan_excl(acc, chan_ident(), cbuf, &tot, op);
   Chan run = op(blk_chan_ex[g], ex);
-  const unsigned orow = k == 1 ? blk.row : blk.row / (unsigned)k;
-  const int kbase = (int)(blk.row - orow * (unsigned)k) * limit;
-  const long long rbase =
-      (long long)orow * (M * k) + (seg_base ? seg_base[row] : 0);
+  const unsigned orow = blk.row / (unsigned)k;
+  const int kbase = (int)(blk.row - orow * (unsigned)k) * seg_px;
+  const long long rbase = (long long)orow * (M * k) + seg_base[row];
   int* krow = keys + rbase;
   int* prow = pays + rbase;
   int here = 0;
@@ -343,11 +708,9 @@ __global__ void k1_emit(const uint8_t* data, long long M, unsigned R,
     bool f;
     const int key = run.npix;
     run = op(run, op_elem(s, i, att, mode, &f));
-    if (key < limit) {  // offsets grow with rank: in-range ops are a prefix
-      uint32_t a = (run.val >> 24) & 255u;
-      if (!(run.flg & 2u)) a = (a + 255u) & 255u;  // alpha starts at 255
+    if (key < seg_px) {  // offsets grow with rank: in-range ops are a prefix
       krow[run.cnt - 1] = kbase + key;
-      prow[run.cnt - 1] = (int)((run.val & 0x00FFFFFFu) | (a << 24));
+      prow[run.cnt - 1] = payload(run);
       ++here;
     }
   });
@@ -356,18 +719,23 @@ __global__ void k1_emit(const uint8_t* data, long long M, unsigned R,
 
 }  // namespace
 
-// data (B, M) u8. k = 1: clen (B,) i32 = stream length minus the end marker.
-// k > 1 (segment mode): a row packs k images of seg = M / k bytes, clen is
-// (B, k), relative to the segment, every image decodes to seg_px pixels and
-// n_max = k * seg_px. scratch: 10 * B * k * nblk + 2 * B * k u32 (nblk =
-// ceil(seg / 4096)). keys/pays (B, M) i32; totals, has_ref (B,) i32, zeroed
-// by the caller. Returns cudaGetLastError.
+// data (B, M) u8, any row length and alignment. k = 1: clen (B,) i32 =
+// stream length minus the end marker; scratch 2 * (3 * B * ceil(M / 4096)
+// + 1) u32, zeroed here (one launch). k > 1 (segment mode): a row packs k
+// images of seg = M / k bytes, clen is (B, k), relative to the segment,
+// every image decodes to seg_px pixels and n_max = k * seg_px; scratch
+// 10 * B * k * nblk + 2 * B * k u32 (nblk = ceil(seg / 4096)). Both sizes:
+// ops/frontend.py:scratch_words. keys/pays (B, M) i32; totals, has_ref (B,)
+// i32, zeroed by the caller. Returns cudaGetLastError.
 extern "C" int k1_decode_front(const uint8_t* data, const int* clen, int B,
                                long long M, int n_max, int mode, int k,
                                int seg_px, uint32_t* scratch, int* keys,
                                int* pays, int* totals, int* has_ref,
                                void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  if (k == 1)
+    return front_rows(data, clen, B, M, n_max, mode, scratch, keys, pays,
+                      totals, has_ref, st);
   const long long seg = M / k;
   const long long R = (long long)B * k;  // scan rows
   const int nblk = (int)((seg + CHUNK - 1) / CHUNK);
@@ -378,6 +746,8 @@ extern "C" int k1_decode_front(const uint8_t* data, const int* clen, int B,
   uint32_t* blk_map_ex = scratch + nb;
   Chan* blk_chan = reinterpret_cast<Chan*>(scratch + 2 * nb);
   Chan* blk_chan_ex = reinterpret_cast<Chan*>(scratch + 6 * nb);
+  int* seg_cnt = reinterpret_cast<int*>(scratch + 10 * nb);
+  int* seg_base = seg_cnt + R;
   const unsigned rows = (unsigned)R, ry = rows < 65535u ? rows : 65535u;
   const dim3 grid(nblk, ry, (rows + ry - 1) / ry);
   k1_maps<<<grid, NT, 0, st>>>(data, seg, rows, nblk, mode, blk_maps);
@@ -387,19 +757,14 @@ extern "C" int k1_decode_front(const uint8_t* data, const int* clen, int B,
                                k, blk_chan, has_ref);
   scan_blocks_kernel<Chan, ChanOp><<<rows, NT, 0, st>>>(
       blk_chan, blk_chan_ex, nullptr, nblk, chan_ident(), ChanOp());
-  int* seg_base = nullptr;
-  if (k > 1) {
-    int* seg_cnt = reinterpret_cast<int*>(scratch + 10 * nb);
-    seg_base = seg_cnt + R;
-    cudaMemsetAsync(seg_cnt, 0, R * sizeof(int), st);
-    k1_segcount<<<grid, NT, 0, st>>>(data, seg, rows, nblk, mode, clen,
-                                     blk_map_ex, blk_chan, blk_chan_ex, seg_px,
-                                     seg_cnt);
-    scan_blocks_kernel<int, SumOp><<<B, NT, 0, st>>>(seg_cnt, seg_base,
-                                                     nullptr, k, 0, SumOp());
-  }
+  cudaMemsetAsync(seg_cnt, 0, R * sizeof(int), st);
+  k1_segcount<<<grid, NT, 0, st>>>(data, seg, rows, nblk, mode, clen,
+                                   blk_map_ex, blk_chan, blk_chan_ex, seg_px,
+                                   seg_cnt);
+  scan_blocks_kernel<int, SumOp><<<B, NT, 0, st>>>(seg_cnt, seg_base, nullptr,
+                                                   k, 0, SumOp());
   k1_emit<<<grid, NT, 0, st>>>(data, seg, rows, nblk, mode, clen, blk_map_ex,
-                               blk_chan_ex, k > 1 ? seg_px : n_max, k,
-                               seg_base, keys, pays, totals);
+                               blk_chan_ex, seg_px, k, seg_base, keys, pays,
+                               totals);
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,8 @@
-// Single-pass scan machinery for the port's Hopper kernels (K5, K8): a
-// decoupled look-back across tiles (Merrill and Garland, "Single-pass
-// Parallel Prefix Scan with Decoupled Look-back", NVIDIA 2016), a block
-// scan by warp shuffles, and tile loads and stores by 16-byte vectors.
+// Single-pass scan machinery for the port's Hopper kernels (K1, K5, K7,
+// K8): a decoupled look-back across tiles (Merrill and Garland,
+// "Single-pass Parallel Prefix Scan with Decoupled Look-back", NVIDIA
+// 2016), a block scan by warp shuffles, and tile loads and stores by
+// 16-byte vectors.
 //
 // A kernel built on it reads its input once and writes its output once:
 //   1. next_tile: a block takes the next tile from a global counter, so
@@ -19,7 +20,8 @@
 //   5. the kernel applies the prefix and writes the tile with store_tile.
 //
 // Status words: one 64-bit word per tile, state in bits 62-63 (none,
-// aggregate, inclusive prefix), value in bits 0-32 (C::pack / C::unpack).
+// aggregate, inclusive prefix), value in bits 0-61 (C::pack / C::unpack;
+// K5 and K8 pack at most 33 bits, K1's pixel and op counts 62).
 // A word is published by one 64-bit store and read by 64-bit loads, so
 // state and value are seen together. The words and the counter are zeroed
 // on the launch's stream before every launch (lb_scratch).
@@ -45,7 +47,7 @@ using u64 = unsigned long long;
 constexpr int ST_SHIFT = 62;
 constexpr u64 ST_AGG = 1ull << ST_SHIFT;
 constexpr u64 ST_PREFIX = 2ull << ST_SHIFT;
-constexpr u64 VAL_MASK = (1ull << 33) - 1;
+constexpr u64 VAL_MASK = (1ull << ST_SHIFT) - 1;
 
 // The status word carries its value, so nothing else has to be ordered
 // around it: relaxed 64-bit accesses at GPU scope (single-copy atomic, not

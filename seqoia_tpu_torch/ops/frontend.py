@@ -1,8 +1,11 @@
 """K1: SQOA decode front-end, bytes -> compacted op stream.
 
 Port of ``seqoia_tpu/ops/pallas_frontend.py:decode_front_compact``. The
-kernel is ``csrc/frontend.cu`` (reduce-then-scan across blocks; see its
-header for the design and what bounds it on the H100); ``decode_front_plain``
+kernel is ``csrc/frontend.cu``: one launch whose 4096-byte tiles are chained
+by three decoupled look-backs (automaton map, channel sum, op and pixel
+counts), and in segment mode its first port's reduce-then-scan passes; see
+its header for the design and what bounds it on the H100.
+``decode_front_plain``
 is the same function in plain PyTorch, in the form of the JAX package's
 XLA path (``decode_v2._tokenize`` / ``_npix_table`` / ``_reconstruct``),
 with the fused front's mode semantics:
@@ -65,6 +68,21 @@ def _chan_combine(left, right):
     m = torch.where((rf & 1) == 1, 0x00FFFFFF, 0) | torch.where(
         (rf & 2) == 2, 0xFF000000, 0)
     return (rv & m) | (s & (m ^ 0xFFFFFFFF)), (lf | rf) & 3
+
+
+TILE = 4096  # bytes a tile (a block) of the kernel
+
+
+def scratch_words(bsz: int, m: int, k: int = 1) -> int:
+    """int32 words of a K1 launch's scratch over (bsz, m) bytes. One row a
+    scan (k = 1): a 64-bit tile counter and three 64-bit status words per
+    tile. Segment mode (k segments a row): per block of every segment its
+    map, composed map and two 4-word channel aggregates, and per segment
+    its op count and rank base."""
+    if k == 1:
+        return 2 * (3 * bsz * -(-m // TILE) + 1)
+    rows = bsz * k
+    return 10 * rows * -(-(m // k) // TILE) + 2 * rows
 
 
 #: positions (rows x bytes) the plain version evaluates at once: it walks a
@@ -243,11 +261,11 @@ def decode_front_compact(data, chunks_len, n_max: int, mode: str = "alpha",
     dev = data.device
     data = data.contiguous()
     clen = chunks_len.to(device=dev, dtype=torch.int32).contiguous()
-    rows = bsz * k
-    nblk = -(-(m // k) // 4096)
-    if rows * nblk >= 2**31:
+    if m >= 2**31 - 1:
+        raise ValueError("M must be below 2**31 - 1 (31-bit op counts)")
+    if bsz * k * -(-(m // k) // TILE) >= 2**31:
         raise ValueError("B * M passes the kernel's 2**31 - 1 blocks")
-    scratch = torch.empty(10 * rows * nblk + 2 * rows, dtype=torch.int32,
+    scratch = torch.empty(scratch_words(bsz, m, k), dtype=torch.int32,
                           device=dev)
     keys = torch.empty((bsz, m), dtype=torch.int32, device=dev)
     pays = torch.empty((bsz, m), dtype=torch.int32, device=dev)

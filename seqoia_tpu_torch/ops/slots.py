@@ -4,10 +4,12 @@ Port of ``seqoia_tpu/ops/pallas_slots.py:slot_last_writer``. Every position
 writes its value into slot ``hashes[i]``; a query reads slot ``qslots[i]``
 as it stood before position i (reference: seqoia.h:563-582 in the encoder,
 seqoia.h:753-755,785-787 in the decoder). The kernel is ``csrc/slots.cu``
-(a per-slot running max of writer indices, reduce-then-scan with the slot
-table as the aggregate, then one gather; see its header for what bounds it
-on the H100); ``slot_last_writer_plain`` is the same function in plain
-PyTorch, one running max per slot.
+(a per-slot running max of writer indices in one launch: 4096-entry tiles
+chained by a decoupled look-back over one status word per tile and slot,
+each warp resolving its groups of 32 entries by class masks, then one
+gather; see its header for what bounds it on the H100);
+``slot_last_writer_plain`` is the same function in plain PyTorch, one
+running max per slot.
 
 The Pallas kernel skips only whole 32768-entry tiles past ``n_live``; the
 port returns ``init`` at every position at or past ``n_live``. Below
@@ -20,8 +22,15 @@ import torch
 
 from . import _build
 from ._plain import to_i32
+from .scan import n_tiles
 
 MAX_SLOTS = 128
+
+
+def scratch_words(bsz: int, m: int, n_slots: int) -> int:
+    """int32 words of a K7 launch's scratch over (bsz, m): a 64-bit tile
+    counter and one 64-bit status word per tile and slot."""
+    return 2 * (bsz * n_tiles(m) * n_slots + 1)
 
 
 def slot_last_writer_plain(hashes, values, qslots, n_slots: int, init: int,
@@ -70,7 +79,7 @@ def slot_last_writer(hashes, values, qslots, n_slots: int = 64, init: int = 0,
                                       n_live)
     i32 = dict(dtype=torch.int32, device=dev)
     out = torch.empty((bsz, m), **i32)
-    scratch = torch.empty(2 * bsz * n_slots * -(-m // 8192), **i32)
+    scratch = torch.empty(scratch_words(bsz, m, n_slots), **i32)
     lib = _build.load("slots")
     P = _build.ptr
     slot_last_writer.launches += 1

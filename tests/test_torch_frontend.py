@@ -176,3 +176,330 @@ def test_front_plain_blocks_carry_the_scans(name, block):
                                         block=block)
     for got, want in zip(parts, whole):
         assert torch.equal(got, want)
+
+
+# --- the single-pass kernel's design (csrc/frontend.cu, k = 1) --------------
+
+NT, IPT = 256, 16        # threads a block, bytes a thread
+TILE = NT * IPT          # bytes a tile
+HALO, HDR1 = 8, 15
+I32MAX = 2**31 - 1
+IDENT6 = sum(e << (3 * e) for e in range(6))
+
+
+def compose6(left, right):
+    """Apply left, then right (6 states, 3 bits each)."""
+    return sum(((right >> (3 * ((left >> (3 * e)) & 7))) & 7) << (3 * e)
+               for e in range(6))
+
+
+def step6(m, c):
+    """The kernel's SWAR step: compose6(m, the map of a byte whose token
+    skips c more bytes)."""
+    low = 0x9249
+    nz = (m | (m >> 1) | (m >> 2)) & low
+    return (m - nz) | ((low & ~nz) * c)
+
+
+def val_op(left, right):
+    """ChanOp's (val, flg) part: the segmented per-byte sum mod 256."""
+    (lv, lf), (rv, rf) = left, right
+    s = (((lv & 0x7F7F7F7F) + (rv & 0x7F7F7F7F)) ^ ((lv ^ rv) & 0x80808080))
+    m = (0x00FFFFFF if rf & 1 else 0) | (0xFF000000 if rf & 2 else 0)
+    return ((rv & m) | (s & ~m & 0xFFFFFFFF)), (lf | rf) & 3
+
+
+def cnt_op(left, right):
+    """ChanOp's (op count, pixel count) part; pixel counts saturate."""
+    return left[0] + right[0], min(left[1] + right[1], I32MAX)
+
+
+def chan_op(left, right):
+    """ChanOp on whole (val, flg, cnt, npix) elements, as the kernel of the
+    first port folds them."""
+    (lv, lf, lc, ln), (rv, rf, rc, rn) = left, right
+    s = (((lv & 0x7F7F7F7F) + (rv & 0x7F7F7F7F)) ^ ((lv ^ rv) & 0x80808080))
+    m = (0x00FFFFFF if rf & 1 else 0) | (0xFF000000 if rf & 2 else 0)
+    return ((rv & m) | (s & ~m & 0xFFFFFFFF), (lf | rf) & 3, lc + rc,
+            min(ln + rn, I32MAX))
+
+
+# the status words' packings: the map in 18 bits, (val, flg) in 34 and
+# (cnt, npix) in 62, under the 2 state bits
+PACK = {
+    "map": (lambda x: x, lambda w: w),
+    "val": (lambda x: x[0] | (x[1] << 32),
+            lambda w: (w & 0xFFFFFFFF, (w >> 32) & 3)),
+    "cnt": (lambda x: x[0] | (x[1] << 31),
+            lambda w: (w & 0x7FFFFFFF, (w >> 31) & 0x7FFFFFFF)),
+}
+OPS = {"map": compose6, "val": val_op, "cnt": cnt_op}
+IDENT = {"map": IDENT6, "val": (0, 0), "cnt": (0, 0)}
+
+
+def _look_back(kind, status, tile, rng, p_prefix):
+    """tile_prefix: windows of 32 predecessors, each read in a random
+    published state from its status word, folded from the window's
+    farthest lane down to the nearest inclusive prefix (the combines of the
+    map and the channel sum do not commute), ex = op(window, ex)."""
+    op, ident = OPS[kind], IDENT[kind]
+    pack, unpack = PACK[kind]
+    ex, j = ident, tile - 1
+    while True:
+        vals, stop = [], 31
+        for lane in range(32):
+            k = j - lane
+            if k < 0:
+                vals.append(ident)
+                stop = min(stop, lane)
+                break
+            agg, incl = status[k]
+            prefix = rng.random() < p_prefix
+            word = pack(incl if prefix else agg)
+            assert word < 1 << 62
+            vals.append(unpack(word))
+            if prefix:
+                stop = lane
+                break
+        window = ident
+        for v in reversed(vals[: stop + 1]):
+            window = op(window, v)
+        ex = op(window, ex)
+        if stop < 31 or len(vals) < 32:
+            return ex
+        j -= 32
+
+
+def _tok(t, i, mode):
+    """The token length and alpha modifier delta at staged byte i."""
+    b = int(t[i])
+    luma, rgb, rgba = (b & 0xC0) == 0x80, b == 0xFE, b == 0xFF
+    if mode == "mono":
+        return 1 + rgb + 2 * rgba, 0
+    if mode == "noalpha":
+        return 1 + luma + 3 * rgb, 0
+    n = 1 + luma + 3 * rgb + 4 * rgba
+    nx = int(t[i + n])
+    if 0x60 <= nx < 0x80:
+        return n + 1, (nx & 31) - 16
+    return n, 0
+
+
+def _elem(t, i, att, mode):
+    """op_elem_b: (val, flg, cnt, npix) and the foreign flag of the op at
+    staged byte i."""
+    b0, b1, b2, b3, b4 = (int(x) for x in t[i: i + 5])
+    luma, rgb, rgba = (b0 & 0xC0) == 0x80, b0 == 0xFE, b0 == 0xFF
+    vg = (b0 & 0x3F) - 32
+    anc, anc_a = rgb or rgba, rgba and mode != "noalpha"
+    r = g = bl = a = 0
+    if mode == "mono":
+        r = b1 if anc else (vg if luma else 0)
+        a = b2 if anc_a else 0
+    else:
+        r = b1 if anc else (vg - 8 + ((b1 >> 4) & 15) if luma else 0)
+        g = b2 if anc else (vg if luma else 0)
+        bl = b3 if anc else (vg - 8 + (b1 & 15) if luma else 0)
+        a = (b4 if anc_a else 0) + (att if mode == "alpha" else 0)
+    npix = (b0 & 0x3F) + 1
+    if luma or anc or b0 < 0x60:
+        npix = 1
+    if b0 == 0xFD:
+        npix = 512
+    foreign = (b0 < 0x80 or rgba) if mode == "noalpha" else b0 < 0x60
+    val = (r & 255) | ((g & 255) << 8) | ((bl & 255) << 16) | ((a & 255) << 24)
+    return (val, int(anc) | (int(anc_a) << 1), 1, npix), foreign
+
+
+def lookback_front(data, clen, n_max, mode, seed=0, p_prefix=0.05):
+    """csrc/frontend.cu's single-row path in Python, tile by tile in the
+    counter's order: the staged bytes (zero from the stream's end + HALO
+    on), each thread's map by step6, the block's exclusive scans, the three
+    look-backs (map; (val, flg); (cnt, npix)), the two walks, the ops below
+    n_max at their ranks, and totals from the tile where the pixel count
+    reaches n_max, or else the row's last tile before the stream's end.
+    Returns (keys, payloads, totals, has_ref) as numpy arrays, the entries
+    past totals 0; and the tiles entered inside a token."""
+    rng = np.random.default_rng(seed)
+    bsz, m = data.shape
+    nt = max(1, -(-m // TILE))
+    keys = np.zeros((bsz, m), np.int64)
+    pays = np.zeros((bsz, m), np.int64)
+    totals = np.zeros(bsz, np.int64)
+    has_ref = np.zeros(bsz, np.int64)
+    inside = 0
+    for row in range(bsz):
+        live_end = min(int(clen[row]), m)
+        status = {k: {} for k in OPS}
+        for tile in range(nt):
+            base = tile * TILE
+            if base >= live_end:
+                break
+            n = min(min(m, live_end + HALO) - base, TILE + HALO)
+            t = np.zeros(TILE + 16, np.int64)
+            t[:n] = data[row, base: base + n]
+            lens, atts = zip(*(_tok(t, i, mode) for i in range(TILE)))
+            lens = [1 if base + i < HDR1 else x for i, x in enumerate(lens)]
+            maps = []
+            for th in range(NT):
+                mp = IDENT6
+                for j in range(IPT):
+                    mp = step6(mp, lens[th * IPT + j] - 1)
+                maps.append(mp)
+
+            def block_scan(vals, op, ident):
+                ex, run = [], ident
+                for v in vals:
+                    ex.append(run)
+                    run = op(run, v)
+                return ex, run
+
+            def publish(kind, agg):
+                ex = (IDENT[kind] if tile == 0 else
+                      _look_back(kind, status[kind], tile, rng, p_prefix))
+                status[kind][tile] = (agg, OPS[kind](ex, agg))
+                return ex
+
+            ex_map, agg_map = block_scan(maps, compose6, IDENT6)
+            s0 = publish("map", agg_map) & 7
+            inside += s0 != 0
+            states = [(e >> (3 * s0)) & 7 for e in ex_map]
+
+            def walk(th, f):
+                state = states[th]
+                for j in range(IPT):
+                    i, pos = th * IPT + j, base + th * IPT + j
+                    if state == 0 and HDR1 <= pos < live_end:
+                        f(*_elem(t, i, atts[i], mode))
+                    state = lens[i] - 1 if state == 0 else state - 1
+
+            accs, foreign = [], False
+            for th in range(NT):
+                acc = [(0, 0, 0, 0)]
+
+                def fold(e, fr):
+                    nonlocal foreign
+                    acc[0] = chan_op(acc[0], e)
+                    foreign |= fr
+                walk(th, fold)
+                accs.append(acc[0])
+            ex_c, agg = block_scan(accs, chan_op, (0, 0, 0, 0))
+            pv = publish("val", agg[:2])
+            pc = publish("cnt", agg[2:])
+            has_ref[row] |= foreign
+            here = 0
+            for th in range(NT):
+                run = [chan_op(pv + pc, ex_c[th])]
+
+                def emit(e, fr):
+                    nonlocal here
+                    key = run[0][3]
+                    run[0] = chan_op(run[0], e)
+                    if key < n_max:
+                        v, f, c, _ = run[0]
+                        a = (v >> 24) & 255
+                        a = a if f & 2 else (a + 255) & 255
+                        keys[row, c - 1] = key
+                        pays[row, c - 1] = (v & 0xFFFFFF) | (a << 24)
+                        here += 1
+                walk(th, emit)
+            incl = min(pc[1] + agg[3], I32MAX)
+            if pc[1] < n_max <= incl:
+                totals[row] = pc[0] + here
+            elif incl < n_max and tile == (live_end - 1) // TILE:
+                totals[row] = pc[0] + agg[2]
+    for row in range(bsz):
+        keys[row, totals[row]:] = 0
+        pays[row, totals[row]:] = 0
+    return (keys.astype(np.int32), pays.astype(np.uint32).view(np.int32),
+            totals.astype(np.int32), has_ref.astype(np.int32), inside)
+
+
+def _edge_stream(mode, m=3 * TILE + 200):
+    """Synthetic op bytes with tokens across tile edges: an RGBA op and
+    its alpha modifier, an RGB op, a LUMA op, and a modifier alone right
+    after an edge, between runs of 1-byte ops."""
+    s = np.full(m, 0xC1, np.uint8)  # a run of 2 pixels
+    s[:HDR1] = 0
+    for edge, token in ((TILE, [0xFF, 1, 2, 3, 200, 0x65]),
+                        (2 * TILE, [0xFE, 9, 8, 7]),
+                        (2 * TILE + 100, [0x9A, 0x37]),
+                        (3 * TILE, [0xFF, 5, 6, 7, 8, 0x7F])):
+        at = edge - 3 if edge % TILE == 0 else edge
+        s[at: at + len(token)] = token
+    s[TILE + 50: TILE + 60] = 0xFD  # BIGRUNs
+    if mode == "mono":
+        s[2 * TILE - 1: 2 * TILE + 2] = [0xFF, 40, 90]
+    return s
+
+
+def _front_model_cases():
+    cases = {}
+    for name in ("alpha_mods_16384", "noalpha_16384", "mono_runs_16384",
+                 "truncated_16384"):
+        cases[name] = CASES[name]
+    for mode in ("alpha", "noalpha", "mono"):
+        s = _edge_stream(mode)
+        data = np.stack([s, s, s])
+        cases[f"edges_{mode}"] = dict(
+            data=data, mode=mode,
+            # the stream's end past the last tile, inside it, and an n_max
+            # that cuts the last ops
+            clen=np.array([len(s) - 8, 2 * TILE + 1, len(s) - 8], np.int32),
+            n_max=16000 if mode != "mono" else 1 << 20)
+    return cases
+
+
+@pytest.mark.parametrize("name", list(_front_model_cases()))
+def test_lookback_front_model_matches_plain(name):
+    c = _front_model_cases()[name]
+    want = frontend.decode_front_plain(
+        torch.from_numpy(c["data"]), torch.from_numpy(c["clen"]), c["n_max"],
+        c["mode"])
+    for seed, p_prefix in ((0, 0.1), (1, 0.7)):
+        *got, inside = lookback_front(c["data"], c["clen"], c["n_max"],
+                                      c["mode"], seed, p_prefix)
+        for g, w in zip(got, want):
+            assert np.array_equal(g, w.numpy())
+        if name.startswith("edges"):
+            assert inside >= 3  # tiles entered inside a token
+
+
+def test_chan_split_is_exact():
+    """ChanOp folds (val, flg) and (cnt, npix) independently: the two
+    look-backs' combines, through their status words' packings, give
+    ChanOp's result, pixel counts saturating at 2**31 - 1 included."""
+    rng = np.random.default_rng(5)
+    big = [0, 1, 512, I32MAX - 1000, I32MAX]
+    for _ in range(2000):
+        el = []
+        for _ in range(2):
+            el.append((int(rng.integers(0, 2**32)), int(rng.integers(0, 4)),
+                       int(rng.integers(0, 2**30)),
+                       int(rng.choice(big)) if rng.random() < 0.5
+                       else int(rng.integers(0, 2**31))))
+        left, right = el
+        whole = chan_op(left, right)
+        pv, uv = PACK["val"]
+        pc, uc = PACK["cnt"]
+        v = val_op(uv(pv(left[:2])), uv(pv(right[:2])))
+        c = cnt_op(uc(pc(left[2:])), uc(pc(right[2:])))
+        assert v + c == whole
+        assert uc(pc(c)) == c and pc(c) < 1 << 62
+        assert uv(pv(v)) == v and pv(v) < 1 << 62
+
+
+def test_step6_is_compose6():
+    for m in (IDENT6, 0, 5 * 0x9249, 0x2C688):
+        for c in range(6):
+            base = sum((e - 1) << (3 * e) for e in range(1, 6))
+            assert step6(m & 0x3FFFF, c) == compose6(m & 0x3FFFF, base + c)
+
+
+@pytest.mark.parametrize("bsz, m, k, words", [
+    (1, 4096, 1, 2 * (3 + 1)), (1, 4097, 1, 2 * (6 + 1)),
+    (32, 2097152, 1, 2 * (3 * 32 * 512 + 1)),
+    (1, 227180544, 1, 2 * (3 * 55464 + 1)),
+    (4, 32768, 4, 10 * 16 * 2 + 2 * 16)])
+def test_front_scratch(bsz, m, k, words):
+    assert frontend.scratch_words(bsz, m, k) == words

@@ -130,3 +130,139 @@ def test_slot_last_writer_semantics():
     assert out.tolist() == [[-1, 10, 11, -1, -1, -1]]
     with pytest.raises(ValueError, match="n_slots"):
         slots.slot_last_writer(h, v, q, n_slots=129)
+
+
+# --- the look-back kernel's design (csrc/slots.cu) --------------------------
+
+NT, NW = 256, 8          # threads and warps a block
+TILE = 4096              # entries a tile
+WRUN = TILE // NW        # entries a warp: 16 groups of 32
+AGG, PREFIX = 1, 2
+
+
+def _slot_prefix(status, tile, k, rng, p_prefix):
+    """slot_prefix: slot k's predecessors read four at a time, each in a
+    random published state (an unpublished one is read again, as the thread
+    waits), folded by max until one is an inclusive prefix."""
+    ex = -1
+    j = tile - 1
+    while True:
+        for u in range(4):
+            if j - u < 0:
+                return ex
+            agg, prefix = status[j - u]
+            seen = AGG if rng.random() >= p_prefix else PREFIX
+            ex = max(ex, int((agg if seen == AGG else prefix)[k]))
+            if seen == PREFIX:
+                return ex
+        j -= 4
+
+
+def lookback_slots(hashes, values, qslots, n_slots, init, n_live, seed=0,
+                   p_prefix=0.05):
+    """csrc/slots.cu's arithmetic in numpy: tiles in the counter's order,
+    each warp's table of last writers, the fold of the warp tables, the
+    per-slot look-back, and each warp's groups of 32 resolved by class
+    masks (a lane's writer in its own group is the highest lower lane of
+    its slot's class, else the warp's running table)."""
+    rng = np.random.default_rng(seed)
+    h_all, v_all, q_all = (np.asarray(a, np.int64)
+                           for a in (hashes, values, qslots))
+    bsz, m = h_all.shape
+    S = n_slots
+    nt = max(1, -(-m // TILE))
+    out = np.full((bsz, m), init, np.int64)
+    lanes = np.arange(32)
+    for r in range(bsz):
+        live = max(min(int(n_live[r]), m), 0)
+        status = {}
+        for t in range(nt):
+            t0 = t * TILE
+            if t0 >= live:  # this tile and all after it: init, no status
+                break
+            idx = t0 + np.arange(TILE)
+            inside = idx < live
+            cut = np.minimum(idx, m - 1)
+
+            def slots_of(a):
+                s = np.where(inside, a[r, cut], -1)
+                return np.where((s >= 0) & (s < S), s, -1)
+            h, q = slots_of(h_all), slots_of(q_all)
+            tab = np.full((NW, S), -1, np.int64)
+            for w in range(NW):
+                run = slice(w * WRUN, (w + 1) * WRUN)
+                wr = h[run] >= 0
+                np.maximum.at(tab[w], h[run][wr], idx[run][wr])
+            agg = np.full(S, -1, np.int64)
+            for w in range(NW):  # every warp's exclusive prefix
+                tab[w], agg = agg.copy(), np.maximum(agg, tab[w])
+            ex = np.array([-1 if t == 0 else
+                           _slot_prefix(status, t, k, rng, p_prefix)
+                           for k in range(S)], np.int64)
+            status[t] = (agg, np.maximum(ex, agg))
+            tab = np.maximum(tab, ex[None, :])
+            for w in range(NW):
+                cls = np.zeros(S, np.int64)
+                for g in range(WRUN // 32):
+                    e = w * WRUN + 32 * g + lanes
+                    hv, qv = h[e], q[e]
+                    same = (hv[:, None] == hv[None, :]) & (hv[:, None] >= 0)
+                    mask = (same * (1 << lanes)[None, :]).sum(1)
+                    high = np.array([int(x).bit_length() - 1 for x in mask])
+                    top = (hv >= 0) & (high == lanes)
+                    cls[hv[top]] = mask[top]
+                    wrt = np.full(32, -1, np.int64)
+                    for ln in np.nonzero(qv >= 0)[0]:
+                        mm = int(cls[qv[ln]]) & ((1 << int(ln)) - 1)
+                        wrt[ln] = (idx[e[0]] + mm.bit_length() - 1 if mm
+                                   else tab[w][qv[ln]])
+                    tab[w][hv[top]] = idx[e[top]]
+                    cls[hv[top]] = 0
+                    keep = (idx[e] < m) & (wrt >= 0)
+                    out[r, idx[e][keep]] = v_all[r, wrt[keep]]
+    return out.astype(np.int32)
+
+
+def _model_cases():
+    rng = np.random.default_rng(43)
+    cases = dict(CASES)
+    # the encode's form: every position writes and queries its own slot
+    for S, shape, live in ((64, (1, 3 * TILE + 5), [3 * TILE + 5]),
+                           (128, (2, 2 * TILE), [TILE + 777, 2 * TILE])):
+        c = _case(rng, shape, S, -3, live, p_write=0.9)
+        c["qslots"] = c["hashes"]
+        cases[f"dense_s{S}"] = c
+    return cases
+
+
+@pytest.mark.parametrize("name", list(_model_cases()))
+def test_lookback_slots_model_matches_plain(name):
+    c = _model_cases()[name]
+    want = slots.slot_last_writer(
+        *(convert.tensor(c[k]) for k in ("hashes", "values", "qslots")),
+        n_slots=c["n_slots"], init=c["init"],
+        n_live=convert.tensor(c["n_live"])).numpy()
+    for seed, p_prefix in ((0, 0.05), (1, 0.6)):
+        got = lookback_slots(c["hashes"], c["values"], c["qslots"],
+                             c["n_slots"], c["init"], c["n_live"], seed,
+                             p_prefix)
+        assert np.array_equal(got, want), (seed, p_prefix)
+
+
+def test_lookback_slots_model_matches_pallas(pallas_out):
+    """The model agrees with the Pallas kernel in interpret mode below
+    n_live (past it the Pallas kernel computes the tile that n_live cuts)."""
+    for name, c in CASES.items():
+        got = lookback_slots(c["hashes"], c["values"], c["qslots"],
+                             c["n_slots"], c["init"], c["n_live"])
+        for r, live in enumerate(c["n_live"].tolist()):
+            assert np.array_equal(got[r, :live], pallas_out[name][r, :live])
+
+
+@pytest.mark.parametrize("bsz, m, n_slots, tiles", [
+    (1, 1, 64, 1), (1, 4096, 64, 1), (1, 4097, 128, 2),
+    (32, 771453, 64, 189), (1, 11807483, 64, 2883)])
+def test_slots_scratch(bsz, m, n_slots, tiles):
+    # a 64-bit counter and one 64-bit status word per tile and slot
+    assert slots.scratch_words(bsz, m, n_slots) == 2 * (
+        bsz * tiles * n_slots + 1)
