@@ -29,8 +29,9 @@
    16-byte boundaries), and every recorded .qoi launch of K5, K7 and K8
    and every SQOA and large-image launch of K1 re-launched REPEATS times,
    each output bitwise equal to the first; their times also with the L2
-   flushed before each launch, and K8 sum's beside torch.cumsum at one row
-   and at 32.
+   flushed before each launch, K1's and K7's also as device time from a
+   torch.profiler trace (without the host's launch overhead), and K8
+   sum's beside torch.cumsum at one row and at 32.
 3. Resets the kernels' launch counters and drives the SQOA path through the
    public entry points: one 4096x4096 RGBA photo-class image, a batch of
    32 1024x1024 RGB photos (decode_stream_batched / encode_stream_batched)
@@ -231,6 +232,25 @@ def _timed_cold(fn, reps: int = REPS):
     return sum(s.elapsed_time(e) for s, e in ev) / reps
 
 
+def _device_ms(fn, reps: int = REPS):
+    """Mean device time of fn() over reps calls: its kernels and memsets,
+    summed from a torch.profiler trace (the time without the host's
+    launch overhead, which _timed includes once a call is this short)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", None)
+             or getattr(e, "self_cuda_time_total", 0)
+             for e in prof.key_averages() if e.device_type.name == "CUDA")
+    return us / 1e3 / reps
+
+
 def _repeats_differ(run, view, first, n: int = REPEATS) -> int:
     """Re-launch run() n times; the number of launches whose outputs
     (view(out): a list of tensors) differ bitwise from first's."""
@@ -365,7 +385,7 @@ def check_kernels(stages, dev):
             bytes=sum(len(x) for x in s.streams) + 8 * n_ops + 16 * bsz,
             repeats_differ=_repeats_differ(k1, _front_view,
                                            (keys, pays, tot, ref)),
-            cold_ms=_timed_cold(k1)))
+            cold_ms=_timed_cold(k1), device_ms=_device_ms(k1)))
         del pk, pp
         # --- K2 decode epilogue, K6 ----------------------------------------
         npx = s.npx[:, None]
@@ -661,6 +681,8 @@ def _check_qoi_call(key, args, kw, where):
     if kid in ("K5", "K7", "K8"):
         # a look-back race can hide in one launch: the repeats must agree
         r.update(repeats_differ=repeats, cold_ms=_timed_cold(run))
+    if kid == "K7":
+        r["device_ms"] = _device_ms(run)
     return kid, r
 
 
@@ -1168,7 +1190,8 @@ def _checked(run, where, rec):
             + 8 * len(tot))
         if seg is None:  # the look-back kernel: the repeats must agree
             r.update(repeats_differ=_repeats_differ(run, _front_view, out),
-                     cold_ms=_timed_cold(run, reps))
+                     cold_ms=_timed_cold(run, reps),
+                     device_ms=_device_ms(run, reps))
         rec["K1" if seg is None else "K1seg"].append(r)
         return out
 
@@ -1543,6 +1566,8 @@ def main() -> int:
             cold = ("" if "cold_ms" not in r else
                     f" L2-flushed {r['cold_ms']:.4f} ms, "
                     f"{r['repeats_differ']}/{REPEATS} repeats differ")
+            if "device_ms" in r:
+                cold += f", device {r['device_ms']:.4f} ms"
             print(f"{k} {r['shape']}: err {r['err']} kernel {r['ms']:.4f} ms "
                   f"plain {r['plain_ms']:.3f} ms bound "
                   f"{r['bytes'] / HBM_BYTES_PER_S * 1e3:.4f} ms{lib}{cold}")

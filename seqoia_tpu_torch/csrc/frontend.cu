@@ -20,23 +20,30 @@
 //      the stream's end and no further; a tile wholly past it returns at
 //      once (nothing after it has an op, so nothing waits on it);
 //   2. each thread takes its 16 bytes and the halo into registers (two
-//      vector reads of shared memory, no bank conflicts), computes every
-//      byte's token length once, and composes its automaton map with a
-//      SWAR step of 8 integer operations a byte; the block scans the maps
+//      vector reads of shared memory, no bank conflicts), computes the
+//      token lengths four bytes at a time (per-byte SIMD compares), and
+//      composes its automaton map with a SWAR step of 8 integer operations
+//      a byte; the block scans the maps
 //      by warp shuffles and warp 0 looks back over the tiles' composed
 //      maps (Compose6, 18 bits): the tile's entry state is the exclusive
 //      map applied to state 0;
-//   3. each thread walks its bytes from its entry state and folds its ops'
-//      channel elements (Chan); the block scans them, then warp 0 looks
-//      back over the (val, flg) part (34 bits, folded right to left: it
-//      does not commute) and warp 1 over the (op count, saturating pixel
-//      count) part (62 bits). ChanOp combines the two parts independently,
-//      so the split is exact;
-//   4. each thread walks its bytes again with its prefix and places every
-//      op whose key < n_max at its rank in shared memory; the tile's run
-//      leaves as one contiguous stretch of vector stores a stream. The tile
-//      in which the pixel count reaches n_max, or else the row's last tile
-//      with bytes before the stream's end, writes totals[row]: no atomic.
+//   3. each thread runs the automaton over its bytes from its entry state
+//      and lists its ops' bytes, in order, in shared memory; the ops (0.35
+//      to 1 a byte) are then dealt out as runs of consecutive ops, the
+//      same number to every thread, so no lane idles while another walks
+//      a byte that starts no op;
+//   4. each thread folds its ops' channel elements (Chan, computed from
+//      the staged bytes and kept in shared memory for step 5); the block
+//      scans them, then warp 0 looks back over the (val, flg) part (34
+//      bits, folded right to left: it does not commute) and warp 1 over
+//      the (op count, saturating pixel count) part (62 bits). ChanOp
+//      combines the two parts independently, so the split is exact;
+//   5. each thread folds its ops' elements from its prefix and places
+//      every op whose key < n_max at its rank in shared memory; the tile's
+//      run leaves as one contiguous stretch of vector stores a stream. The
+//      tile in which the pixel count reaches n_max, or else the row's last
+//      tile with bytes before the stream's end, writes totals[row]: no
+//      atomic.
 //
 // Segment mode (k > 1) keeps the passes of its first port, in their own
 // section below: a row of M bytes packs k small images, image j in bytes
@@ -282,56 +289,62 @@ __device__ __forceinline__ int tok_len(const Run& r, int j, int* att) {
   return len;
 }
 
-// A byte tile into 16-byte aligned shared memory: a vector store where the
-// tile's vectors fall on 16-byte boundaries of it (an aligned row), else
-// byte stores.
-struct BytePut {
-  uint8_t* s;
-  __device__ void vec(int e, uint4 q) const {
-    if ((e & 15) == 0) {
-      *reinterpret_cast<uint4*>(s + e) = q;
-      return;
-    }
-    const uint8_t* b = reinterpret_cast<const uint8_t*>(&q);
-#pragma unroll
-    for (int c = 0; c < 16; ++c) s[e + c] = b[c];
-  }
-  __device__ void one(int e, uint8_t x) const { s[e] = x; }
-};
-
-struct Linear {
-  const int* s;
-  __device__ uint4 vec(int e) const {
-    return make_uint4((unsigned)s[e], (unsigned)s[e + 1], (unsigned)s[e + 2],
-                      (unsigned)s[e + 3]);
-  }
-  __device__ int one(int e) const { return s[e]; }
-};
-
-// Per byte of the thread's run: token length - 1 in bits 0-2, the alpha
-// modifier's delta + 16 in bits 3-7, one byte each.
-struct Codes {
-  uint32_t c[IPT / 4];
-  __device__ __forceinline__ int lm1(int j) const {
-    return (c[j >> 2] >> (8 * (j & 3))) & 7;
-  }
-  __device__ __forceinline__ int att(int j) const {
-    return (int)((c[j >> 2] >> (8 * (j & 3) + 3)) & 31) - 16;
-  }
-};
-
-// Four blocks an SM: 37 KB of shared memory each (the byte tile and the
-// staged ops), at most 64 registers a thread.
+// Token length - 1 of bytes 4q..4q+3 of the run, one a byte, four at a
+// time by per-byte SIMD compares (the same lengths as tok_len).
 template <int MODE>
-__global__ void __launch_bounds__(NT, 4)
+__device__ __forceinline__ uint32_t lens4(const Run& r, int q) {
+  const uint32_t w = r.w[q];
+  const uint32_t luma = __vcmpeq4(w & 0xC0C0C0C0u, 0x80808080u);
+  const uint32_t rgb = __vcmpeq4(w, 0xFEFEFEFEu);
+  const uint32_t rgba = __vcmpeq4(w, 0xFFFFFFFFu);
+  if (MODE == MODE_MONO) return (rgb & 0x01010101u) | (rgba & 0x02020202u);
+  if (MODE == MODE_NOALPHA) return (luma & 0x01010101u) | (rgb & 0x03030303u);
+  // in alpha-range flags of the bytes k after each byte
+  const auto alpha_after = [&](int k) {
+    const uint32_t x =
+        __funnelshift_r(r.w[q + (k >> 2)], r.w[q + (k >> 2) + 1], 8 * (k & 3));
+    return __vcmpeq4(x & 0xE0E0E0E0u, 0x60606060u);
+  };
+  const uint32_t one = ~(luma | rgb | rgba);
+  const uint32_t ext = (one & alpha_after(1)) | (luma & alpha_after(2)) |
+                       (rgb & alpha_after(4)) | (rgba & alpha_after(5));
+  return ((luma & 0x01010101u) | (rgb & 0x03030303u) | (rgba & 0x04040404u)) +
+         (ext & 0x01010101u);
+}
+
+// The channel element and foreign flag of the op at byte p of the staged
+// tile: its bytes p..p+7 from three words of shared memory (funnel
+// shifts), its alpha modifier found again from its length.
+template <int MODE>
+__device__ __forceinline__ Chan elem_at(const uint8_t* s, int p, bool* f) {
+  const uint32_t* sw = reinterpret_cast<const uint32_t*>(s);
+  const int q = p >> 2, sh = 8 * (p & 3);
+  const uint32_t w0 = sw[q], w1 = sw[q + 1], w2 = sw[q + 2];
+  Run r;
+  r.w[0] = __funnelshift_r(w0, w1, sh);
+  r.w[1] = __funnelshift_r(w1, w2, sh);
+  int att;
+  tok_len<MODE>(r, 0, &att);
+  return op_elem_b(r.b(0), r.b(1), r.b(2), r.b(3), r.b(4), att, MODE, f);
+}
+
+// Six blocks an SM: 37 KB of shared memory each (the byte tile and the two
+// staging arrays), at most 40 registers a thread (measured faster than
+// four or five blocks on the 227 MB row, with no spills).
+template <int MODE>
+__global__ void __launch_bounds__(NT, 6)
     k1_tiles(const uint8_t* data, long long M, int nt, const int* clen,
              int n_max, u64* st_map, u64* st_val, u64* st_cnt,
              unsigned* counter, int* keys, int* pays, int* totals,
              int* has_ref) {
   __shared__ __align__(16) uint8_t s[CHUNK + 16];
+  // op k of the tile, at each step: its staged byte (stage_p[k]), then its
+  // element (val; npix | flg << 16), then its key and payload. Only the
+  // thread whose run holds k touches entry k between the barriers.
   __shared__ __align__(16) int stage_k[CHUNK];
   __shared__ __align__(16) int stage_p[CHUNK];
   __shared__ uint32_t mtot[lb::NW + 1];
+  __shared__ int itot[lb::NW + 1];
   __shared__ Chan ctot[lb::NW + 1];
   __shared__ uint32_t s_map;
   __shared__ Val s_val;
@@ -345,7 +358,7 @@ __global__ void __launch_bounds__(NT, 4)
   if (base >= live_end) return;
   const int n =
       (int)min(min(M, live_end + HALO) - base, (long long)(CHUNK + HALO));
-  lb::load_tile(data + row * M + base, n, BytePut{s});
+  lb::load_tile(data + row * M + base, n, lb::BytePut{s});
   for (int i = n + threadIdx.x; i < CHUNK + 16; i += NT) s[i] = 0;
   if (threadIdx.x == 0) s_emit = 0;
   __syncthreads();
@@ -364,18 +377,18 @@ __global__ void __launch_bounds__(NT, 4)
   // op (before the stream's end)
   const int lo = (int)min(max(HDR1 - p0, 0LL), (long long)IPT);
   const int hi = (int)min(max(live_end - p0, 0LL), (long long)IPT);
-  Codes cd;
+  uint32_t lm1[IPT / 4];  // token length - 1 of byte j in byte j of lm1
+#pragma unroll
+  for (int q = 0; q < IPT / 4; ++q) lm1[q] = lens4<MODE>(r, q);
+  if (lo > 0) {  // the header: one byte a step
+#pragma unroll
+    for (int j = 0; j < IPT; ++j)
+      if (j < lo) lm1[j >> 2] &= ~(0xFFu << (8 * (j & 3)));
+  }
   uint32_t map = IDENT6;
 #pragma unroll
-  for (int q = 0; q < IPT / 4; ++q) cd.c[q] = 0;
-#pragma unroll
-  for (int j = 0; j < IPT; ++j) {
-    int att;
-    int L = tok_len<MODE>(r, j, &att);
-    if (j < lo) L = 1;
-    cd.c[j >> 2] |= (uint32_t)((L - 1) | ((att + 16) << 3)) << (8 * (j & 3));
-    map = step6(map, (uint32_t)(L - 1));
-  }
+  for (int j = 0; j < IPT; ++j)
+    map = step6(map, (lm1[j >> 2] >> (8 * (j & 3))) & 7u);
   uint32_t agg_map;
   const uint32_t ex_map =
       lb::block_scan_warp(map, IDENT6, mtot, &agg_map, Compose6());
@@ -387,20 +400,34 @@ __global__ void __launch_bounds__(NT, 4)
   __syncthreads();
   const int state0 = (int)((ex_map >> (3 * (s_map & 7u))) & 7u);
 
-  // --- walk 1: the thread's channel aggregate; the tile's prefix ----------
-  Chan acc = chan_ident();
-  bool fr = false;
+  // --- the tile's ops in order: their bytes, listed in shared memory ----
+  uint32_t tm = 0;  // bit j: byte j starts an op
   int state = state0;
 #pragma unroll
   for (int j = 0; j < IPT; ++j) {
-    if (state == 0 && j >= lo && j < hi) {
-      bool f;
-      acc = ChanOp()(acc, op_elem_b(r.b(j), r.b(j + 1), r.b(j + 2),
-                                    r.b(j + 3), r.b(j + 4), cd.att(j), MODE,
-                                    &f));
-      fr |= f;
-    }
-    state = state == 0 ? cd.lm1(j) : state - 1;
+    if (state == 0 && j >= lo && j < hi) tm |= 1u << j;
+    state = state == 0 ? (int)((lm1[j >> 2] >> (8 * (j & 3))) & 7u)
+                       : state - 1;
+  }
+  int n_ops;
+  int o = lb::block_scan_warp(__popc(tm), 0, itot, &n_ops, lb::WordSum());
+  for (; tm; tm &= tm - 1) stage_p[o++] = i0 + __ffs(tm) - 1;
+  __syncthreads();
+
+  // --- each thread's run of consecutive ops: its aggregate; the tile's
+  // prefix by look-back ----------------------------------------------------
+  const int per = (n_ops + NT - 1) / NT;
+  const int o0 = min((int)threadIdx.x * per, n_ops);
+  const int o1 = min(o0 + per, n_ops);
+  Chan acc = chan_ident();
+  bool fr = false;
+  for (int k = o0; k < o1; ++k) {
+    bool f;
+    const Chan e = elem_at<MODE>(s, stage_p[k], &f);
+    acc = ChanOp()(acc, e);
+    fr |= f;
+    stage_k[k] = (int)e.val;
+    stage_p[k] = e.npix | (int)(e.flg << 16);  // npix <= 512
   }
   Chan agg;
   const Chan ex = lb::block_scan_warp(acc, chan_ident(), ctot, &agg, ChanOp());
@@ -415,7 +442,7 @@ __global__ void __launch_bounds__(NT, 4)
   }
   if (__syncthreads_or(fr) && threadIdx.x == 0) atomicOr(has_ref + row, 1);
 
-  // --- walk 2: every op below n_max to its rank in the tile ---------------
+  // --- every op below n_max to its rank in the tile -----------------------
   const Cnt tc = s_cnt;
   Chan run = chan_ident();
   run.val = s_val.val;
@@ -424,31 +451,27 @@ __global__ void __launch_bounds__(NT, 4)
   run.npix = tc.npix;
   run = ChanOp()(run, ex);
   int here = 0;
-  state = state0;
-#pragma unroll
-  for (int j = 0; j < IPT; ++j) {
-    if (state == 0 && j >= lo && j < hi) {
-      bool f;
-      const int key = run.npix;
-      run = ChanOp()(run, op_elem_b(r.b(j), r.b(j + 1), r.b(j + 2),
-                                    r.b(j + 3), r.b(j + 4), cd.att(j), MODE,
-                                    &f));
-      if (key < n_max) {  // offsets grow with rank: in-range ops are a prefix
-        const int k = run.cnt - 1 - tc.cnt;
-        stage_k[k] = key;
-        stage_p[k] = payload(run);
-        ++here;
-      }
+  for (int k = o0; k < o1; ++k) {
+    Chan e;
+    e.val = (uint32_t)stage_k[k];
+    e.flg = (uint32_t)stage_p[k] >> 16;
+    e.cnt = 1;
+    e.npix = stage_p[k] & 0xFFFF;
+    const int key = run.npix;
+    run = ChanOp()(run, e);
+    if (key < n_max) {  // offsets grow with rank: in-range ops are a prefix
+      stage_k[k] = key;
+      stage_p[k] = payload(run);
+      ++here;
     }
-    state = state == 0 ? cd.lm1(j) : state - 1;
   }
   if (here) atomicAdd(&s_emit, here);
   __syncthreads();
   const int n_emit = s_emit;
   if (n_emit) {
-    const long long o = (long long)row * M + tc.cnt;
-    lb::store_tile(keys + o, n_emit, Linear{stage_k});
-    lb::store_tile(pays + o, n_emit, Linear{stage_p});
+    const long long out = (long long)row * M + tc.cnt;
+    lb::store_tile(keys + out, n_emit, lb::Linear{stage_k});
+    lb::store_tile(pays + out, n_emit, lb::Linear{stage_p});
   }
   if (threadIdx.x == 0) {
     // the ops below n_max are a prefix of the row: the tile where the pixel

@@ -264,6 +264,33 @@ __device__ __forceinline__ void store_tile(E* dst, int len, Get get) {
   if (t < len - sp.tail) dst[sp.tail + t] = get.one(sp.tail + t);
 }
 
+// A byte tile into 16-byte aligned shared memory (load_tile's put): a
+// vector store where the tile's vectors fall on 16-byte boundaries of it
+// (an aligned row), else byte stores.
+struct BytePut {
+  uint8_t* s;
+  __device__ void vec(int e, uint4 q) const {
+    if ((e & 15) == 0) {
+      *reinterpret_cast<uint4*>(s + e) = q;
+      return;
+    }
+    const uint8_t* b = reinterpret_cast<const uint8_t*>(&q);
+#pragma unroll
+    for (int c = 0; c < 16; ++c) s[e + c] = b[c];
+  }
+  __device__ void one(int e, uint8_t x) const { s[e] = x; }
+};
+
+// int32 entries staged contiguously in shared memory (store_tile's get).
+struct Linear {
+  const int* s;
+  __device__ uint4 vec(int e) const {
+    return make_uint4((unsigned)s[e], (unsigned)s[e + 1], (unsigned)s[e + 2],
+                      (unsigned)s[e + 3]);
+  }
+  __device__ int one(int e) const { return s[e]; }
+};
+
 // A tile of int32 in shared memory, one pad word after every 32 so that a
 // thread's run of IPT consecutive entries and a warp's vectors both fall
 // on distinct banks.

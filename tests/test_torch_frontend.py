@@ -315,9 +315,10 @@ def lookback_front(data, clen, n_max, mode, seed=0, p_prefix=0.05):
     """csrc/frontend.cu's single-row path in Python, tile by tile in the
     counter's order: the staged bytes (zero from the stream's end + HALO
     on), each thread's map by step6, the block's exclusive scans, the three
-    look-backs (map; (val, flg); (cnt, npix)), the two walks, the ops below
-    n_max at their ranks, and totals from the tile where the pixel count
-    reaches n_max, or else the row's last tile before the stream's end.
+    look-backs (map; (val, flg); (cnt, npix)), the tile's op list dealt out
+    as equal runs of consecutive ops, the ops below n_max at their ranks,
+    and totals from the tile where the pixel count reaches n_max, or else
+    the row's last tile before the stream's end.
     Returns (keys, payloads, totals, has_ref) as numpy arrays, the entries
     past totals 0; and the tiles entered inside a token."""
     rng = np.random.default_rng(seed)
@@ -365,44 +366,41 @@ def lookback_front(data, clen, n_max, mode, seed=0, p_prefix=0.05):
             inside += s0 != 0
             states = [(e >> (3 * s0)) & 7 for e in ex_map]
 
-            def walk(th, f):
+            ops = []  # the tile's ops in order: their staged bytes
+            for th in range(NT):
                 state = states[th]
                 for j in range(IPT):
                     i, pos = th * IPT + j, base + th * IPT + j
                     if state == 0 and HDR1 <= pos < live_end:
-                        f(*_elem(t, i, atts[i], mode))
+                        ops.append(i)
                     state = lens[i] - 1 if state == 0 else state - 1
-
-            accs, foreign = [], False
-            for th in range(NT):
-                acc = [(0, 0, 0, 0)]
-
-                def fold(e, fr):
-                    nonlocal foreign
-                    acc[0] = chan_op(acc[0], e)
-                    foreign |= fr
-                walk(th, fold)
-                accs.append(acc[0])
+            elems = [_elem(t, i, atts[i], mode) for i in ops]
+            per = -(-len(ops) // NT)  # consecutive ops a thread
+            runs = [range(min(th * per, len(ops)),
+                          min(th * per + per, len(ops))) for th in range(NT)]
+            accs = []
+            for rn in runs:
+                acc = (0, 0, 0, 0)
+                for k in rn:
+                    acc = chan_op(acc, elems[k][0])
+                accs.append(acc)
             ex_c, agg = block_scan(accs, chan_op, (0, 0, 0, 0))
             pv = publish("val", agg[:2])
             pc = publish("cnt", agg[2:])
-            has_ref[row] |= foreign
+            has_ref[row] |= any(f for _, f in elems)
             here = 0
-            for th in range(NT):
-                run = [chan_op(pv + pc, ex_c[th])]
-
-                def emit(e, fr):
-                    nonlocal here
-                    key = run[0][3]
-                    run[0] = chan_op(run[0], e)
+            for th, rn in enumerate(runs):
+                run = chan_op(pv + pc, ex_c[th])
+                for k in rn:
+                    key = run[3]
+                    run = chan_op(run, elems[k][0])
                     if key < n_max:
-                        v, f, c, _ = run[0]
+                        v, f, c, _ = run
                         a = (v >> 24) & 255
                         a = a if f & 2 else (a + 255) & 255
                         keys[row, c - 1] = key
                         pays[row, c - 1] = (v & 0xFFFFFF) | (a << 24)
                         here += 1
-                walk(th, emit)
             incl = min(pc[1] + agg[3], I32MAX)
             if pc[1] < n_max <= incl:
                 totals[row] = pc[0] + here
@@ -503,3 +501,49 @@ def test_step6_is_compose6():
     (4, 32768, 4, 10 * 16 * 2 + 2 * 16)])
 def test_front_scratch(bsz, m, k, words):
     assert frontend.scratch_words(bsz, m, k) == words
+
+
+def _vcmpeq4(a, b):
+    """__vcmpeq4: 0xFF in each byte where a and b agree."""
+    return sum(0xFF << (8 * k) for k in range(4)
+               if (a >> (8 * k)) & 255 == (b >> (8 * k)) & 255)
+
+
+def lens4(words, q, mode):
+    """csrc/frontend.cu's lens4: token length - 1 of bytes 4q..4q+3, one a
+    byte, from per-byte compares of the run's words."""
+    w = words[q]
+    luma = _vcmpeq4(w & 0xC0C0C0C0, 0x80808080)
+    rgb, rgba = _vcmpeq4(w, 0xFEFEFEFE), _vcmpeq4(w, 0xFFFFFFFF)
+    if mode == "mono":
+        return (rgb & 0x01010101) | (rgba & 0x02020202)
+    if mode == "noalpha":
+        return (luma & 0x01010101) | (rgb & 0x03030303)
+
+    def alpha_after(k):
+        pair = words[q + k // 4] | (words[q + k // 4 + 1] << 32)
+        return _vcmpeq4((pair >> (8 * (k % 4))) & 0xE0E0E0E0, 0x60606060)
+    one = ~(luma | rgb | rgba) & 0xFFFFFFFF
+    ext = ((one & alpha_after(1)) | (luma & alpha_after(2))
+           | (rgb & alpha_after(4)) | (rgba & alpha_after(5)))
+    return (((luma & 0x01010101) | (rgb & 0x03030303) | (rgba & 0x04040404))
+            + (ext & 0x01010101))
+
+
+@pytest.mark.parametrize("mode", ["alpha", "noalpha", "mono"])
+def test_lens4_matches_token_lengths(mode):
+    """The four-bytes-at-a-time token lengths equal tok_len's, byte by byte,
+    on runs rich in op tags and alpha-range modifiers."""
+    rng = np.random.default_rng(9)
+    tags = np.array([0x80, 0xBF, 0x95, 0xFE, 0xFF, 0x60, 0x7F, 0x65, 0xC1,
+                     0xFD, 0x05, 0x5F], np.int64)
+    for _ in range(300):
+        run = np.where(rng.random(24) < 0.7, rng.choice(tags, 24),
+                       rng.integers(0, 256, 24))
+        words = [int(sum(int(run[4 * i + k]) << (8 * k) for k in range(4)))
+                 for i in range(6)]
+        for q in range(4):
+            got = lens4(words, q, mode)
+            for b in range(4):
+                want = _tok(run, 4 * q + b, mode)[0] - 1
+                assert (got >> (8 * b)) & 255 == want
