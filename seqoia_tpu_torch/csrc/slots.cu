@@ -22,11 +22,9 @@
 //     exclusive prefix and the tile's aggregate;
 //   - the aggregate is published as one 64-bit status word per (tile,
 //     slot), writer index + 1 in the value bits (0: none), so no fence
-//     orders a table against a flag; a group of 2-8 threads per slot (as
-//     many as the block holds) walks back over the slot's words, four
-//     predecessors a thread a step, until it meets an inclusive prefix
-//     (max commutes and is idempotent, so the order and the overlap of the
-//     folds do not matter);
+//     orders a table against a flag; the same thread walks back over its
+//     slot's words, four predecessors a load, until it meets an inclusive
+//     prefix (max commutes, so the order of the folds does not matter);
 //   - each warp then resolves its groups in order: a query's writer inside
 //     its own group is the highest lower lane of its slot's class
 //     (__match_any_sync masks written per slot and read masked by
@@ -51,46 +49,38 @@ constexpr int TILE = lb::TILE;            // entries a tile
 constexpr int WRUN = TILE / lb::NW;       // entries a warp
 constexpr int GROUPS = WRUN / 32;         // groups of 32 a warp
 
-constexpr int LB_READS = 4;  // predecessors a thread reads a step
-
 // The exclusive prefix of slot k in tile `tile` (writer index, -1: none),
-// by the T threads of the slot's group (lanes gmask of one warp; sub =
-// 0..T-1), whose aggregate agg they all hold; st holds the row's words,
-// (tile j, slot k) at j * S + k. Each step the group reads T * LB_READS
-// predecessors, nearest first, and folds every one of them by max (which
-// commutes and is idempotent, so words past the nearest inclusive prefix
-// do no harm) until one of them is an inclusive prefix.
-__device__ int slot_prefix(u64* st, int tile, int S, int k, int sub, int T,
-                           unsigned gmask, int agg) {
+// by one thread; st holds the row's words, (tile j, slot k) at j * S + k.
+__device__ int slot_prefix(u64* st, int tile, int S, int k, int agg) {
   if (tile == 0) {
-    if (sub == 0) lb::st_status(st + k, lb::ST_PREFIX | (u64)(agg + 1));
+    lb::st_status(st + k, lb::ST_PREFIX | (u64)(agg + 1));
     return -1;
   }
-  if (sub == 0)
-    lb::st_status(st + (long long)tile * S + k, lb::ST_AGG | (u64)(agg + 1));
+  lb::st_status(st + (long long)tile * S + k, lb::ST_AGG | (u64)(agg + 1));
   int ex = -1;
-  for (int j = tile - 1 - sub * LB_READS;; j -= T * LB_READS) {
-    u64 s[LB_READS];
+  for (int j = tile - 1;; j -= 4) {
+    u64 s[4];
 #pragma unroll
-    for (int u = 0; u < LB_READS; ++u)
+    for (int u = 0; u < 4; ++u)
       s[u] = j - u >= 0 ? lb::ld_status(st + (long long)(j - u) * S + k)
                         : lb::ST_PREFIX;
-    bool prefix = false;
+    bool done = false;
 #pragma unroll
-    for (int u = 0; u < LB_READS; ++u) {
+    for (int u = 0; u < 4; ++u) {
       while ((s[u] >> lb::ST_SHIFT) == 0) {
         __nanosleep(32);
         s[u] = lb::ld_status(st + (long long)(j - u) * S + k);
       }
       ex = max(ex, (int)(s[u] & lb::VAL_MASK) - 1);
-      prefix |= (s[u] >> lb::ST_SHIFT) == 2;
+      if ((s[u] >> lb::ST_SHIFT) == 2) {
+        done = true;
+        break;
+      }
     }
-    if (__any_sync(gmask, prefix)) break;
+    if (done) break;
   }
-  for (int d = 1; d < T; d <<= 1) ex = max(ex, __shfl_xor_sync(gmask, ex, d));
-  if (sub == 0)
-    lb::st_status(st + (long long)tile * S + k,
-                  lb::ST_PREFIX | (u64)(max(ex, agg) + 1));
+  lb::st_status(st + (long long)tile * S + k,
+                lb::ST_PREFIX | (u64)(max(ex, agg) + 1));
   return ex;
 }
 
@@ -136,29 +126,19 @@ __global__ void __launch_bounds__(NT, 4)
     if (h[g] >= 0) atomicMax(&tab[w][h[g]], g0 + 32 * g);
   }
   __syncthreads();
-  // gs threads a slot (aligned lanes of one warp) fold the warp tables and
-  // look back
-  int gs = 1;
-  while (gs < 8 && 2 * gs * S <= NT) gs *= 2;
-  if (threadIdx.x < S * gs) {
-    const int k = threadIdx.x / gs, sub = threadIdx.x % gs;
-    const unsigned gmask = ((1u << gs) - 1u) << (lane & ~(gs - 1));
+  if (threadIdx.x < S) {
+    const int k = threadIdx.x;
     int agg = -1;
-    if (sub == 0) {
 #pragma unroll
-      for (int v = 0; v < lb::NW; ++v) {
-        const int t = tab[v][k];
-        tab[v][k] = agg;
-        agg = max(agg, t);
-      }
+    for (int v = 0; v < lb::NW; ++v) {
+      const int t = tab[v][k];
+      tab[v][k] = agg;
+      agg = max(agg, t);
     }
-    agg = __shfl_sync(gmask, agg, lane & ~(gs - 1));
-    const int ex = slot_prefix(status + (long long)row * nt * S, tile, S, k,
-                               sub, gs, gmask, agg);
-    if (sub == 0) {
+    const int ex =
+        slot_prefix(status + (long long)row * nt * S, tile, S, k, agg);
 #pragma unroll
-      for (int v = 0; v < lb::NW; ++v) tab[v][k] = max(tab[v][k], ex);
-    }
+    for (int v = 0; v < lb::NW; ++v) tab[v][k] = max(tab[v][k], ex);
   }
   __syncthreads();
 

@@ -140,29 +140,22 @@ WRUN = TILE // NW        # entries a warp: 16 groups of 32
 AGG, PREFIX = 1, 2
 
 
-def _slot_prefix(status, tile, k, S, rng, p_prefix):
-    """slot_prefix: the slot's group of gs threads reads gs * 4 of its
-    predecessors a step, each in a random published state (an unpublished
-    one is read again, as its thread waits), and folds all of them by max,
-    also those past the nearest inclusive prefix, until the step holds
-    one."""
-    gs = 1
-    while gs < 8 and 2 * gs * S <= NT:
-        gs *= 2
-    ex, j = -1, tile - 1
+def _slot_prefix(status, tile, k, rng, p_prefix):
+    """slot_prefix: slot k's predecessors read four at a time, each in a
+    random published state (an unpublished one is read again, as the thread
+    waits), folded by max until one is an inclusive prefix."""
+    ex = -1
+    j = tile - 1
     while True:
-        prefix = False
-        for d in range(gs * 4):
-            if j - d < 0:
-                prefix = True
-                continue
-            agg, incl = status[j - d]
+        for u in range(4):
+            if j - u < 0:
+                return ex
+            agg, prefix = status[j - u]
             seen = AGG if rng.random() >= p_prefix else PREFIX
-            ex = max(ex, int((agg if seen == AGG else incl)[k]))
-            prefix |= seen == PREFIX
-        if prefix:
-            return ex
-        j -= gs * 4
+            ex = max(ex, int((agg if seen == AGG else prefix)[k]))
+            if seen == PREFIX:
+                return ex
+        j -= 4
 
 
 def lookback_slots(hashes, values, qslots, n_slots, init, n_live, seed=0,
@@ -204,7 +197,7 @@ def lookback_slots(hashes, values, qslots, n_slots, init, n_live, seed=0,
             for w in range(NW):  # every warp's exclusive prefix
                 tab[w], agg = agg.copy(), np.maximum(agg, tab[w])
             ex = np.array([-1 if t == 0 else
-                           _slot_prefix(status, t, k, S, rng, p_prefix)
+                           _slot_prefix(status, t, k, rng, p_prefix)
                            for k in range(S)], np.int64)
             status[t] = (agg, np.maximum(ex, agg))
             tab = np.maximum(tab, ex[None, :])
