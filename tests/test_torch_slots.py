@@ -160,19 +160,19 @@ def _slot_prefix(status, tile, k, rng, p_prefix):
 
 def lookback_slots(hashes, values, qslots, n_slots, init, n_live, seed=0,
                    p_prefix=0.05):
-    """csrc/slots.cu's arithmetic in numpy: tiles in the counter's order,
+    """csrc/slots.cu's arithmetic in PyTorch: tiles in the counter's order,
     each warp's table of last writers, the fold of the warp tables, the
     per-slot look-back, and each warp's groups of 32 resolved by class
     masks (a lane's writer in its own group is the highest lower lane of
     its slot's class, else the warp's running table)."""
     rng = np.random.default_rng(seed)
-    h_all, v_all, q_all = (np.asarray(a, np.int64)
+    h_all, v_all, q_all = (torch.as_tensor(np.asarray(a)).long()
                            for a in (hashes, values, qslots))
     bsz, m = h_all.shape
     S = n_slots
     nt = max(1, -(-m // TILE))
-    out = np.full((bsz, m), init, np.int64)
-    lanes = np.arange(32)
+    out = torch.full((bsz, m), init, dtype=torch.long)
+    lanes = torch.arange(32)
     for r in range(bsz):
         live = max(min(int(n_live[r]), m), 0)
         status = {}
@@ -180,47 +180,49 @@ def lookback_slots(hashes, values, qslots, n_slots, init, n_live, seed=0,
             t0 = t * TILE
             if t0 >= live:  # this tile and all after it: init, no status
                 break
-            idx = t0 + np.arange(TILE)
+            idx = t0 + torch.arange(TILE)
             inside = idx < live
-            cut = np.minimum(idx, m - 1)
+            cut = idx.clamp(max=m - 1)
 
             def slots_of(a):
-                s = np.where(inside, a[r, cut], -1)
-                return np.where((s >= 0) & (s < S), s, -1)
+                s = torch.where(inside, a[r, cut], -1)
+                return torch.where((s >= 0) & (s < S), s, -1)
             h, q = slots_of(h_all), slots_of(q_all)
-            tab = np.full((NW, S), -1, np.int64)
+            tab = torch.full((NW, S), -1, dtype=torch.long)
             for w in range(NW):
                 run = slice(w * WRUN, (w + 1) * WRUN)
                 wr = h[run] >= 0
-                np.maximum.at(tab[w], h[run][wr], idx[run][wr])
-            agg = np.full(S, -1, np.int64)
+                tab[w].scatter_reduce_(0, h[run][wr], idx[run][wr], "amax")
+            agg = torch.full((S,), -1, dtype=torch.long)
             for w in range(NW):  # every warp's exclusive prefix
-                tab[w], agg = agg.copy(), np.maximum(agg, tab[w])
-            ex = np.array([-1 if t == 0 else
-                           _slot_prefix(status, t, k, rng, p_prefix)
-                           for k in range(S)], np.int64)
-            status[t] = (agg, np.maximum(ex, agg))
-            tab = np.maximum(tab, ex[None, :])
+                tab[w], agg = agg.clone(), torch.maximum(agg, tab[w])
+            ex = torch.tensor([-1 if t == 0 else
+                               _slot_prefix(status, t, k, rng, p_prefix)
+                               for k in range(S)])
+            status[t] = (agg, torch.maximum(ex, agg))
+            tab = torch.maximum(tab, ex[None, :])
             for w in range(NW):
-                cls = np.zeros(S, np.int64)
+                cls = torch.zeros(S, dtype=torch.long)
                 for g in range(WRUN // 32):
                     e = w * WRUN + 32 * g + lanes
                     hv, qv = h[e], q[e]
                     same = (hv[:, None] == hv[None, :]) & (hv[:, None] >= 0)
-                    mask = (same * (1 << lanes)[None, :]).sum(1)
-                    high = np.array([int(x).bit_length() - 1 for x in mask])
+                    mask = (same.long() << lanes[None, :]).sum(1)
+                    high = torch.tensor([int(x).bit_length() - 1
+                                         for x in mask.tolist()])
                     top = (hv >= 0) & (high == lanes)
                     cls[hv[top]] = mask[top]
-                    wrt = np.full(32, -1, np.int64)
-                    for ln in np.nonzero(qv >= 0)[0]:
-                        mm = int(cls[qv[ln]]) & ((1 << int(ln)) - 1)
-                        wrt[ln] = (idx[e[0]] + mm.bit_length() - 1 if mm
-                                   else tab[w][qv[ln]])
-                    tab[w][hv[top]] = idx[e[top]]
+                    wrt = torch.full((32,), -1, dtype=torch.long)
+                    first = int(idx[e[0]])
+                    for ln in torch.nonzero(qv >= 0).flatten().tolist():
+                        mm = int(cls[qv[ln]]) & ((1 << ln) - 1)
+                        wrt[ln] = (first + mm.bit_length() - 1 if mm
+                                   else int(tab[w, qv[ln]]))
+                    tab[w, hv[top]] = idx[e[top]]
                     cls[hv[top]] = 0
                     keep = (idx[e] < m) & (wrt >= 0)
                     out[r, idx[e][keep]] = v_all[r, wrt[keep]]
-    return out.astype(np.int32)
+    return out.to(torch.int32).numpy()
 
 
 def _model_cases():
