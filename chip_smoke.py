@@ -12,7 +12,9 @@
    (.qoi): the arguments of the first launch of K5 (compaction), K6, K7
    (slot last writer) and each K8 (scan) combine, recorded during one
    decode_stream_compat_batched / encode_stream_batched(compat=True) call
-   per photo workload, and of K9 (the sequential decoder) in the value
+   per photo workload (K2's EPI_ENCQ launch also beside the K6 spread and
+   torch byte emission it replaced), and of K9 (the sequential decoder) in
+   the value
    chain's decode; K8 sum and K7 at 128 slots (not on the path) at the
    decode's op shape. Large images and icons: K4 at the three strides, K1
    in segment mode in its three modes, and K1, K2 and K3 at the first
@@ -26,12 +28,17 @@
    of hashes, dense and sparse queries; K1 in its three modes on rows
    around its 4096-byte tile, tokens across tile edges, padding far past
    the stream, an n_max that cuts the last op, 37 short rows; inputs off
-   16-byte boundaries), and every recorded .qoi launch of K5, K7 and K8
-   and every SQOA and large-image launch of K1 re-launched REPEATS times,
-   each output bitwise equal to the first; their times also with the L2
-   flushed before each launch, K1's and K7's also as device time from a
-   torch.profiler trace (without the host's launch overhead), and K8
-   sum's beside torch.cumsum at one row and at 32.
+   16-byte boundaries; K2 with every epilogue and K6 at _engine_edge_cases:
+   an entry on a tile's first slot, a tile with no entry, tiles of 4096
+   entries, totals of 0, rows of different totals, n_out not a multiple of
+   the tile, RGB words across a tile edge, on fresh storage and 4 bytes past
+   a 16-byte boundary), and every recorded .qoi launch of K2, K5, K6, K7
+   and K8, every SQOA launch of K2 and K6 and every SQOA and large-image
+   launch of K1 and K2 re-launched REPEATS times, each output bitwise equal
+   to the first; their times also with the L2 flushed before each launch,
+   K1's, K2's, K6's and K7's also as device time from a torch.profiler trace
+   (without the host's launch overhead), and K8 sum's beside torch.cumsum
+   at one row and at 32.
 3. Resets the kernels' launch counters and drives the SQOA path through the
    public entry points: one 4096x4096 RGBA photo-class image, a batch of
    32 1024x1024 RGB photos (decode_stream_batched / encode_stream_batched)
@@ -61,8 +68,11 @@
    it and the resolutions that took) beside the INDEX-chain depth that
    ``native.compat_probe`` measures on its streams, the BatchDecoder's
    ``last_timings``, the steps of the 134 Mpx encode and decode one by
-   one, the peak device memory, each kernel's time beside its bound, a JSON ``kernels`` line and, last, ``{"ok": true,
-   "device": {...}}``.
+   one, the peak device memory, each kernel's time beside its bound, each
+   kernel's summed gap over the four paths' launches (Σ(ms − bound), every
+   launch timed in place by CUDA events around its C entry point and
+   bounded at its own shape: _census), a JSON ``kernels`` line and, last,
+   ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero; without a CUDA device it exits 2 and prints
 no result. Images are synthetic and made from a fixed seed. Details go to
@@ -84,7 +94,7 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM peak memory rate (NVIDIA data sheet)
 OUT_DIR = "chiprun_out"
 REPS = 10  # timed launches per kernel and shape
-REPEATS = 50  # re-launches of K1, K5, K7 and K8 held bitwise against the first
+REPEATS = 50  # re-launches of K1, K2, K5, K6, K7, K8 held bitwise to the first
 
 KERNELS = {
     "K1": ("decode_front_compact", "seqoia_tpu_torch/csrc/frontend.cu",
@@ -111,7 +121,7 @@ KERNELS = {
            "seqoia_tpu/codec/decode_jax.py:93"),
 }
 SQOA_KERNELS = ("K1", "K2", "K3", "K6")
-QOI_KERNELS = ("K5", "K6", "K7", "K8", "K9")
+QOI_KERNELS = ("K2", "K5", "K6", "K7", "K8", "K9")
 LARGE_KERNELS = ("K1", "K2", "K3", "K4")
 ICON_KERNELS = ("K1seg", "K2")
 
@@ -248,7 +258,7 @@ def _device_ms(fn, reps: int = REPS):
     us = sum(getattr(e, "self_device_time_total", None)
              or getattr(e, "self_cuda_time_total", 0)
              for e in prof.key_averages() if e.device_type.name == "CUDA")
-    return us / 1e3 / reps
+    return us / 1e3 / reps if us else None  # None: the trace held no event
 
 
 def _repeats_differ(run, view, first, n: int = REPEATS) -> int:
@@ -259,6 +269,14 @@ def _repeats_differ(run, view, first, n: int = REPEATS) -> int:
     want = view(first)
     return sum(not all(torch.equal(a, b) for a, b in zip(view(run()), want))
                for _ in range(n))
+
+
+def _held(run, first, view=lambda o: [o], reps: int = REPS):
+    """The race checks and times of a launch beyond its warm time:
+    re-launched REPEATS times against ``first``, timed with the L2 flushed
+    and as device time."""
+    return dict(repeats_differ=_repeats_differ(run, view, first),
+                cold_ms=_timed_cold(run, reps), device_ms=_device_ms(run, reps))
 
 
 def _front_view(out):
@@ -404,7 +422,8 @@ def check_kernels(stages, dev):
         rec["K2"].append(dict(
             shape=f"{s.name} decode out_ch={s.out_ch} n_out={s.n_max}",
             err=_max_err(out, ref_out), ms=_timed(k2), plain_ms=p_ms,
-            bytes=8 * n_ops + out.numel() * out.element_size()))
+            bytes=8 * n_ops + out.numel() * out.element_size(),
+            **_held(k2, out)))
         del out, ref_out
         if s.colch == 1:
             def k6():
@@ -414,9 +433,8 @@ def check_kernels(stages, dev):
                 keys, [pays], tot, s.n_max, init))
             rec["K6"].append(dict(
                 shape=f"{s.name} fill n_out={s.n_max}",
-                err=_max_err(fk[:, : s.n], fp[:, : s.n]),
-                ms=_timed(k6), plain_ms=p_ms,
-                bytes=8 * n_ops + 4 * fk.numel()))
+                err=_max_err(fk, fp), ms=_timed(k6), plain_ms=p_ms,
+                bytes=8 * n_ops + 4 * fk.numel(), **_held(k6, [fk], list)))
             del fk, fp
         del keys, pays
         torch.cuda.empty_cache()
@@ -459,7 +477,7 @@ def check_kernels(stages, dev):
         rec["K2"].append(dict(
             shape=f"{s.name} encode colch={s.colch} n_out={cap}",
             err=_max_err(out, ref_out), ms=_timed(k2e), plain_ms=p_ms,
-            bytes=12 * n_ent + out.numel()))
+            bytes=12 * n_ent + out.numel(), **_held(k2e, out)))
         del out, ref_out, ek, ec, em
         torch.cuda.empty_cache()
     return rec
@@ -560,14 +578,15 @@ def _value_chain(links: int):
 
 
 def _capture(run):
-    """Run ``run()`` with the K5, K6, K7, K8 and K9 wrappers recording the
-    arguments of their first launch (K8: per combine). Returns ({kernel:
+    """Run ``run()`` with the K2, K5, K6, K7, K8 and K9 wrappers recording
+    the arguments of their first launch (K8: per combine). Returns ({kernel:
     (args, kwargs)}, run's result)."""
     from seqoia_tpu_torch.ops import compact, engine, scan, sequential, slots
 
     seen = {}
     saved = []
     for mod, name, key in (
+            (engine, "place_emit", lambda a, k: "K2"),
             (compact, "compact", lambda a, k: "K5"),
             (engine, "place_fill", lambda a, k: "K6"),
             (slots, "slot_last_writer", lambda a, k: "K7"),
@@ -662,6 +681,28 @@ def _check_qoi_call(key, args, kw, where):
         n_ops = int(tot.sum())
         nbytes = 12 * n_ops + 4 * len(tot)
         shape = f"{where} {tuple(lo.shape)} ops={n_ops}"
+    elif kid == "K2":
+        keys, pays, tot, scal, n_out, inits, epi = args
+        run = lambda: engine.place_emit(keys, pays, tot, scal,  # noqa: E731
+                                        n_out, inits, epi)
+        got = run()
+        err, p_ms = _plain_emit(got, keys, pays, tot, scal, n_out, inits, epi)
+        repeats = _repeats_differ(run, lambda o: [o], got)
+        n_ent = int(tot.sum())
+        nbytes = 4 * (1 + len(pays)) * n_ent + got.numel() * got.element_size()
+        shape = (f"{where} epilogue {_EPILOGUES[epi.kind]} "
+                 f"rows={keys.shape[0]} n_out={n_out} entries={n_ent}")
+        if epi.kind == engine.EPI_ENCQ:
+            # the route this launch replaced: a K6 spread of the three
+            # streams over the cap, then the compat bytes as torch ops
+            from seqoia_tpu_torch.codec import encode_v2
+
+            t = torch.arange(n_out, dtype=torch.int32,
+                             device=keys.device)[None, :]
+            replaced_ms = _timed(lambda: encode_v2._compat_bytes(
+                engine.place_fill(keys, pays, tot, n_out, inits,
+                                  fill_keys=True), t, scal))
+            del t
     else:  # K6
         keys, pays, tot, n_out, inits = args
         fill_keys = kw.get("fill_keys", False)
@@ -672,16 +713,20 @@ def _check_qoi_call(key, args, kw, where):
         want, p_ms = _plain_ms(lambda: engine._fill_plain(
             keys, streams, tot, n_out, inits))
         err = max(_max_err(g, w) for g, w in zip(got, want))
+        repeats = _repeats_differ(run, list, got)
         n_ent = int(tot.sum())
         nbytes = 4 * (1 + len(pays)) * n_ent + 4 * len(streams) * got[0].numel()
         shape = (f"{where} streams={len(streams)} n_out={n_out} "
                  f"entries={n_ent}")
     r = dict(shape=shape, err=err, ms=_timed(run), plain_ms=p_ms,
              bytes=nbytes, library_ms=library, main=True)
-    if kid in ("K5", "K7", "K8"):
-        # a look-back race can hide in one launch: the repeats must agree
+    if kid == "K2" and args[-1].kind == engine.EPI_ENCQ:
+        r["replaced_ms"] = replaced_ms
+    if kid in ("K2", "K5", "K6", "K7", "K8"):
+        # a race (look-back, shared-memory staging) can hide in one launch:
+        # the repeats must agree
         r.update(repeats_differ=repeats, cold_ms=_timed_cold(run))
-    if kid == "K7":
+    if kid in ("K2", "K6", "K7"):
         r["device_ms"] = _device_ms(run)
     return kid, r
 
@@ -965,6 +1010,109 @@ def check_edge_front(stages, dev):
     return rows
 
 
+def _engine_edge_cases():
+    """K2 and K6 at the edges of their tiling (4096 slots a block): (name,
+    [keys per row], n_out), keys strictly increasing, made from a seed."""
+    t = 4096
+    rng = np.random.default_rng(6)
+
+    def srt(n, hi, lo=0):
+        return np.sort(rng.choice(np.arange(lo, hi), n, replace=False))
+
+    n3 = 3 * t
+    return [
+        ("an entry on a tile's first slot",
+         [np.r_[0, 5, t, t + 1, srt(50, 2 * t, t + 2), 2 * t],
+          np.array([t, 2 * t, 2 * t + 3])], n3),
+        ("a tile with no entry", [np.array([0, 10, 2 * t + 100, 2 * t + 101]),
+                                  np.array([3, t - 1])], n3),
+        ("tiles of 4096 entries", [np.arange(2 * t),
+                                   np.r_[np.arange(t), np.arange(t, n3, 2)]],
+         n3),
+        ("totals of 0", [np.zeros(0, np.int64), srt(300, n3)], n3),
+        ("rows of different totals", [srt(n, n3) for n in (1, 40, 2000, 9000)],
+         n3),
+        ("n_out not a multiple of 4096", [srt(700, 2 * t + 62), srt(3, 2 * t)],
+         2 * t + 12),
+        ("rgb words across a tile edge",
+         [np.r_[srt(30, t - 2), t - 2, t - 1, t, t + 2] for _ in range(3)],
+         t + 4),
+        ("37 short rows", [srt(int(rng.integers(0, 60)), 100)
+                           for _ in range(37)], 100),
+        ("one long row", [srt(3_000_000, 1 << 22)], 1 << 22),
+    ]
+
+
+def check_edge_engine(dev):
+    """K2 (every epilogue) and K6 (one stream, and three with the keys)
+    against their plain versions, bit-exact, at _engine_edge_cases: keys
+    past each row's total are junk, payloads random, n_pixels and the
+    encode scalars vary by row; once on fresh storage and once on storage 4
+    bytes past a 16-byte boundary; each launch re-launched REPEATS times.
+    Returns {"K2": [records], "K6": [records]}."""
+    import torch
+
+    from seqoia_tpu_torch.codec import decode_v2, encode_v2
+    from seqoia_tpu_torch.ops import engine
+
+    rng = np.random.default_rng(7)
+    epilogues = [decode_v2._dec_epilogue(4), decode_v2._dec_epilogue(3),
+                 decode_v2._dec_epilogue_mono(1),
+                 decode_v2._dec_epilogue_mono(2), encode_v2._emit_epilogue(3),
+                 encode_v2._emit_epilogue(1), encode_v2._compat_epilogue()]
+    rec = {"K2": [], "K6": []}
+    for name, ks, n_out in _engine_edge_cases():
+        bsz, mc = len(ks), max(len(k) for k in ks) + 3
+        keys = rng.integers(-5, n_out, (bsz, mc)).astype(np.int32)
+        for r, k in enumerate(ks):
+            keys[r, : len(k)] = k
+        i32 = dict(dtype=torch.int32, device=dev)
+        keys = torch.from_numpy(keys).to(dev)
+        pays = [torch.from_numpy(rng.integers(-2**31, 2**31, (bsz, mc))
+                                 .astype(np.int32)).to(dev) for _ in range(3)]
+        tot = torch.tensor([len(k) for k in ks], **i32)
+        rows = torch.arange(bsz, **i32)
+        npx = (n_out - 7 * rows).clamp(min=0)[:, None]
+        enc_scal = torch.stack([
+            torch.tensor([n_out - 30, n_out + 5, 0, n_out // 2],
+                         **i32)[rows % 4], rows % 2,
+            ((rows + 1) % 3 != 0).to(torch.int32)], dim=-1)
+        for where in ("", " offset"):
+            if where:
+                keys, pays = _offset(keys), [_offset(p) for p in pays]
+            for n_pay, fk in ((1, False), (3, True)):
+                inits = (-7, 3, 11)[:n_pay] + ((-1,) if fk else ())
+                run = lambda: engine.place_fill(  # noqa: E731
+                    keys, pays[:n_pay], tot, n_out, inits, fill_keys=fk)
+                got = run()
+                want = engine._fill_plain(
+                    keys, pays[:n_pay] + ([keys] if fk else []), tot, n_out,
+                    inits)
+                rec["K6"].append(dict(
+                    shape=f"edge {name} streams={len(got)} rows={bsz} "
+                          f"n_out={n_out}{where}", main=False,
+                    err=max(_max_err(g, w) for g, w in zip(got, want)),
+                    repeats_differ=_repeats_differ(run, list, got)))
+            for epi in epilogues:
+                keyed = epi.kind in engine._KEYED
+                n_pay = 2 if keyed else 1
+                inits = (encode_v2._emit_inits() if keyed
+                         else (decode_v2._INIT_PACKED,))
+                scal = enc_scal if keyed else npx
+                run = lambda: engine.place_emit(  # noqa: E731
+                    keys, pays[:n_pay], tot, scal, n_out, inits, epi)
+                got = run()
+                err, _ = _plain_emit(got, keys, pays[:n_pay], tot, scal,
+                                     n_out, inits, epi)
+                rec["K2"].append(dict(
+                    shape=f"edge {name} epilogue {_EPILOGUES[epi.kind]} "
+                          f"rows={bsz} n_out={n_out}{where}", main=False,
+                    err=err, repeats_differ=_repeats_differ(
+                        run, lambda o: [o], got)))
+        torch.cuda.empty_cache()
+    return rec
+
+
 def _fix_row(s, conv, rows, stats):
     """One .qoi workload's fixpoint record: its stats beside the probe's
     INDEX-chain depths (strict and predicted, the largest over its
@@ -1134,7 +1282,31 @@ def check_segment_kernel(classes, dev):
 
 # K2's epilogue selectors (seqoia_tpu_torch/ops/engine.py), by name
 _EPILOGUES = ("fill", "decode 4ch", "decode 3ch", "decode mono 1ch",
-              "decode mono 2ch", "encode color", "encode mono")
+              "decode mono 2ch", "encode color", "encode mono", "encode qoi")
+
+
+def _plain_emit(out, keys, pays, tot, scal, n_out, inits, epi):
+    """place_emit's output ``out`` against its plain version on the same
+    arguments, evaluated slot range by slot range (a slot depends on no
+    other, so an output of 10**8 slots fits). Returns (max err, plain ms)."""
+    import torch
+
+    from seqoia_tpu_torch.ops import engine
+
+    streams = list(pays) + ([keys] if epi.kind in engine._KEYED else [])
+    num, den = epi.units
+    step = max((1 << 25) // keys.shape[0], 4096) // 4096 * 4096
+    err, p_ms = 0, 0.0
+    for lo in range(0, n_out, step):
+        hi = min(lo + step, n_out)
+        want, ms = _plain_ms(lambda: epi.plain(
+            engine._fill_plain(keys, streams, tot, hi - lo, inits, lo),
+            torch.arange(lo, hi, device=keys.device)[None, :], scal.long()))
+        p_ms += ms
+        err = max(err, _max_err(out[:, lo * num // den: hi * num // den],
+                                want))
+        del want
+    return err, p_ms
 
 
 def _live(rows, totals):
@@ -1200,29 +1372,15 @@ def _checked(run, where, rec):
         if not fresh("K2", tuple(keys.shape), n_out, epi.kind):
             return out
         pays = list(pays)
-        enc = epi.kind in (engine.EPI_ENC3, engine.EPI_ENC1)
-        streams = pays + ([keys] if enc else [])
-        num, den = epi.units
-        step = max((1 << 25) // keys.shape[0], 4096) // 4096 * 4096
-        err, p_ms = 0, 0.0
-        for lo in range(0, n_out, step):
-            hi = min(lo + step, n_out)
-            want, ms = _plain_ms(lambda: epi.plain(
-                engine._fill_plain(keys, streams, tot, hi - lo, inits, lo),
-                torch.arange(lo, hi, device=keys.device)[None, :],
-                scal.long()))
-            p_ms += ms
-            err = max(err, _max_err(
-                out[:, lo * num // den: hi * num // den], want))
-            del want
+        err, p_ms = _plain_emit(out, keys, pays, tot, scal, n_out, inits, epi)
+        run = lambda: fn(keys, pays, tot, scal, n_out, inits,  # noqa: E731
+                         epi)
         rec["K2"].append(dict(
             shape=f"{where} epilogue {_EPILOGUES[epi.kind]} "
                   f"rows={keys.shape[0]} n_out={n_out}",
-            err=err, plain_ms=p_ms, main=False,
-            ms=_timed(lambda: fn(keys, pays, tot, scal, n_out, inits, epi),
-                      reps),
+            err=err, plain_ms=p_ms, main=False, ms=_timed(run, reps),
             bytes=4 * (1 + len(pays)) * int(tot.sum())
-            + out.numel() * out.element_size()))
+            + out.numel() * out.element_size(), **_held(run, out, reps=reps)))
         return out
 
     def k3(fn, packed, n_valid, colch=3, init_prev=None, lc0=None):
@@ -1498,12 +1656,178 @@ def _qoi_images(images):
     ]
 
 
-def _counted(counters, run):
+# per kernel wrapper: (its kernel id from its bound arguments, the launch's
+# shape, the bytes its bound counts: an int plus 0-d tensors summed later)
+_CENSUS = {
+    "decode_front_compact": (
+        lambda a: "K1" if a["seg"] is None else "K1seg",
+        lambda a, o: (f"{tuple(a['data'].shape)} {a['mode']}"
+                      + (f" seg={a['seg']}" if a["seg"] else "")),
+        lambda a, o: (4 * a["chunks_len"].numel() + 8 * len(o[2]),
+                      [a["chunks_len"].sum(), 8 * o[2].sum()])),
+    "place_emit": (
+        lambda a: "K2",
+        lambda a, o: (f"epilogue {_EPILOGUES[a['epilogue'].kind]} "
+                      f"rows={a['keys'].shape[0]} n_out={a['n_out']}"),
+        lambda a, o: (o.numel() * o.element_size(),
+                      [4 * (1 + len(a["payloads"])) * a["totals"].sum()])),
+    "encode_front_compact": (
+        lambda a: "K3",
+        lambda a, o: f"{tuple(a['packed'].shape)} colch={a['colch']}",
+        lambda a, o: (4 * a["packed"].numel() + 24 * len(o[2]),
+                      [12 * o[2].sum()])),
+    "pack_words": (
+        lambda a: "K4",
+        lambda a, o: f"stride={a['stride']} {tuple(a['words'].shape)}",
+        lambda a, o: (4 * a["words"].numel() + 4 * o.numel(), [])),
+    "compact": (
+        lambda a: "K5",
+        lambda a, o: (f"{tuple(a['valid'].shape)} "
+                      f"payloads={len(a['payloads'])}"),
+        lambda a, o: (a["valid"].numel() + 4 * len(o[2]),
+                      [8 * (1 + len(a["payloads"])) * o[2].sum()])),
+    "place_fill": (
+        lambda a: "K6",
+        lambda a, o: (f"streams={len(o)} rows={a['keys'].shape[0]} "
+                      f"n_out={a['n_out']}"),
+        lambda a, o: (4 * len(o) * o[0].numel(),
+                      [4 * (1 + len(a["payloads"])) * a["totals"].sum()])),
+    "slot_last_writer": (
+        lambda a: "K7",
+        lambda a, o: f"{tuple(a['hashes'].shape)} slots={a['n_slots']}",
+        lambda a, o: (12 * a["hashes"].numel(), [4 * _queries(a)])),
+    "tile_scan": (
+        lambda a: "K8",
+        lambda a, o: f"{a['combine']} {tuple(a['arrays'][0].shape)}",
+        lambda a, o: (8 * len(a["arrays"]) * a["arrays"][0].numel(), [])),
+    "sequential_decode": (
+        lambda a: "K9",
+        lambda a, o: f"{tuple(a['lo'].shape)}",
+        lambda a, o: (4 * len(a["totals"]), [12 * a["totals"].sum()])),
+}
+
+
+def _queries(a):
+    """K7's live queries (the bytes of its answers), as a 0-d tensor."""
+    import torch
+
+    q = a["qslots"]
+    live = torch.ones_like(q, dtype=torch.bool)
+    if a["n_live"] is not None:
+        idx = torch.arange(q.shape[1], device=q.device)[None, :]
+        live = idx < a["n_live"].long()[:, None]
+    return ((q >= 0) & (q < a["n_slots"]) & live).sum()
+
+
+class _LibProxy:
+    """A kernel library whose C entry points record a pair of CUDA events
+    around each call, into ``pending``: the time of the launch's kernels on
+    the card, without the wrapper's host work (allocations) around it."""
+
+    def __init__(self, lib, pending):
+        self._lib, self._pending = lib, pending
+
+    def __getattr__(self, name):
+        import torch
+
+        fn = getattr(self._lib, name)
+
+        def call(*a):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            rc = fn(*a)
+            ev[1].record()
+            self._pending.append(ev)
+            return rc
+        return call
+
+
+class _Timed:
+    """A kernel wrapper that notes each of its launches: its shape, the
+    bytes its bound counts and the events its library recorded (_LibProxy).
+    The wrapper it replaces still counts its own launches: it increments
+    ``<its name>.launches``, which resolves to this object, whose counters
+    are the wrapped function's."""
+
+    launches = property(lambda s: s.fn.launches,
+                        lambda s, v: setattr(s.fn, "launches", v))
+    seg_launches = property(lambda s: s.fn.seg_launches,
+                            lambda s, v: setattr(s.fn, "seg_launches", v))
+
+    def __init__(self, fn, spec, log, pending):
+        import inspect
+
+        self.fn, self.spec, self.log, self.pending = fn, spec, log, pending
+        self.sig = inspect.signature(fn)
+
+    def __call__(self, *a, **k):
+        n0, p0 = self.fn.launches, len(self.pending)
+        out = self.fn(*a, **k)
+        ev = self.pending[p0:]
+        del self.pending[p0:]
+        if self.fn.launches != n0:
+            b = self.sig.bind(*a, **k)
+            b.apply_defaults()
+            kid_of, shape_of, bytes_of = self.spec
+            args = b.arguments
+            self.log.append((kid_of(args), shape_of(args, out),
+                             bytes_of(args, out), ev))
+        return out
+
+
+def _census(run):
+    """Run ``run()`` with every kernel wrapper noting its launches (_Timed)
+    and every kernel library timing its C entry points (_LibProxy). Returns
+    ({kernel: {shape: [launches, ms, bound ms]}}, run's result): each
+    launch's time on the card, in place, and its bound at its own shape."""
+    import torch
+
+    from seqoia_tpu_torch.ops import (_build, compact, encode_front, engine,
+                                      frontend, pack, scan, sequential, slots)
+
+    log, pending, saved = [], [], []
+    libs = {name: _build.load(name) for name in _build.KERNELS}
+    for mod in (frontend, engine, encode_front, pack, compact, slots, scan,
+                sequential):
+        for name, spec in _CENSUS.items():
+            fn = getattr(mod, name, None)
+            if fn is not None and getattr(fn, "__module__", "") == \
+                    mod.__name__:
+                saved.append((mod, name, fn))
+                setattr(mod, name, _Timed(fn, spec, log, pending))
+    _build._libs.update({n: _LibProxy(lib, pending)
+                         for n, lib in libs.items()})
+    try:
+        out = run()
+    finally:
+        _build._libs.update(libs)
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    torch.cuda.synchronize()
+    table = {}
+    for kid, shape, (nbytes, parts), evs in log:
+        nbytes += sum(int(p) for p in parts)
+        row = table.setdefault(kid, {}).setdefault(shape, [0, 0.0, 0.0])
+        row[0] += 1
+        row[1] += sum(e0.elapsed_time(e1) for e0, e1 in evs)
+        row[2] += nbytes / HBM_BYTES_PER_S * 1e3
+    return table, out
+
+
+def _counted(counters, run, gaps):
     """Launches of each kernel during run(), the counters ((function,
-    attribute) pairs) set to 0 just before it and read just after."""
+    attribute) pairs) set to 0 just before it and read just after; each
+    launch's time and bound are added to gaps ({kernel: {shape: [launches,
+    ms, bound ms]}}, _census)."""
     for fn, attr in counters.values():
         setattr(fn, attr, 0)
-    out = run()
+    table, out = _census(run)
+    for kid, shapes in table.items():
+        for shape, (n, ms, bound) in shapes.items():
+            row = gaps.setdefault(kid, {}).setdefault(shape, [0, 0.0, 0.0])
+            row[0] += n
+            row[1] += ms
+            row[2] += bound
     return {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}, out
 
 
@@ -1551,6 +1875,7 @@ def main() -> int:
     for k, rows in check_path_kernels(large, classes, mixed, dev).items():
         rec[k] += rows
     edges = check_edge_kernels(dev)
+    edges.update(check_edge_engine(dev))
     edges["K7"] = check_edge_slots(dev)
     edges["K1"] = check_edge_front(stages, dev)
     for k, rows in edges.items():
@@ -1567,7 +1892,12 @@ def main() -> int:
                     f" L2-flushed {r['cold_ms']:.4f} ms, "
                     f"{r['repeats_differ']}/{REPEATS} repeats differ")
             if "device_ms" in r:
-                cold += f", device {r['device_ms']:.4f} ms"
+                cold += (", device not measured (no event in the trace)"
+                         if r["device_ms"] is None
+                         else f", device {r['device_ms']:.4f} ms")
+            if "replaced_ms" in r:
+                cold += (f"; the K6 spread + torch bytes it replaced "
+                         f"{r['replaced_ms']:.4f} ms")
             print(f"{k} {r['shape']}: err {r['err']} kernel {r['ms']:.4f} ms "
                   f"plain {r['plain_ms']:.3f} ms bound "
                   f"{r['bytes'] / HBM_BYTES_PER_S * 1e3:.4f} ms{lib}{cold}")
@@ -1590,25 +1920,27 @@ def main() -> int:
         ("K9", sequential.sequential_decode))}
     counters["K1seg"] = (frontend.decode_front_compact, "seg_launches")
     torch.cuda.reset_peak_memory_stats()
-    sqoa_launches, rates = _counted(counters, lambda: main_path(stages, dev))
+    gaps = {}
+    sqoa_launches, rates = _counted(counters, lambda: main_path(stages, dev),
+                                    gaps)
     # the .qoi path must stay on the card: count the host decodes it makes
     dec_mod = importlib.import_module("seqoia_tpu_torch.codec.decode")
     host, host_calls = dec_mod._host, []
     dec_mod._host = lambda *a: host_calls.append(1) or host(*a)
     try:
         qoi_launches, (qoi_rates, fix) = _counted(
-            counters, lambda: qoi_path(qstages, dev))
+            counters, lambda: qoi_path(qstages, dev), gaps)
     finally:
         dec_mod._host = host
     if host_calls:
         raise AssertionError(f"{len(host_calls)} .qoi decodes went to the host")
     large_launches, (large_rates, rgb_stream) = _counted(
-        counters, lambda: large_path(large, dev))
+        counters, lambda: large_path(large, dev), gaps)
     if large_launches["K4"] != 3:
         raise AssertionError(f"K4 ran {large_launches['K4']} times, not once "
                              "per stride")
     icon_launches, (icon_rates, timings) = _counted(
-        counters, lambda: icon_path(classes, mixed, ref_stream, dev))
+        counters, lambda: icon_path(classes, mixed, ref_stream, dev), gaps)
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     steps = large_steps(large[0], rgb_stream, dev)
     paths = (("SQOA", sqoa_launches, SQOA_KERNELS),
@@ -1621,6 +1953,12 @@ def main() -> int:
             raise AssertionError(f"the {path} path launched no {missing}")
     launches = {k: sum(p[1][k] for p in paths) for k in counters}
     rates = rates + qoi_rates + large_rates + icon_rates
+    # the census saw every counted launch (K1's counter counts both modes)
+    seen = {k: sum(r[0] for r in gaps.get(k, {}).values()) for k in counters}
+    seen["K1"] += seen["K1seg"]
+    if seen != launches:
+        raise AssertionError(f"the census timed {seen}, the counters "
+                             f"counted {launches}")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1645,6 +1983,15 @@ def main() -> int:
     print(f"launches on the large-image path: {large_launches}")
     print(f"launches on the icon path: {icon_launches}")
     print(f"peak device memory of the main paths: {peak_gb:.2f} GiB")
+    gap_ms = {}
+    for k, shapes in sorted(gaps.items()):
+        rows = sorted(shapes.items(), key=lambda kv: kv[1][2] - kv[1][1])
+        n, ms, bound = (sum(r[i] for _, r in rows) for i in range(3))
+        gap_ms[k] = ms - bound
+        print(f"{k} summed gap over the main paths: {ms - bound:.4f} ms "
+              f"({n} launches, {ms:.4f} ms against a bound of {bound:.4f}); "
+              "largest: " + "; ".join(
+                  f"{sh} x{r[0]}: {r[1] - r[2]:.4f}" for sh, r in rows[:3]))
     kernels = []
     for k, (fname, src, repl) in KERNELS.items():
         main = [r for r in rec[k] if r.get("main", True)]
@@ -1657,7 +2004,7 @@ def main() -> int:
             ms=head["ms"], plain_ms=head["plain_ms"],
             bound_ms=head["bytes"] / HBM_BYTES_PER_S * 1e3,
             bound_by="bytes", library_ms=head.get("library_ms"),
-            shape=head["shape"]))
+            shape=head["shape"], gap_ms=gap_ms.get(k)))
     total_s = time.perf_counter() - t_start
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=smi, build_s=build_s, total_s=total_s,
@@ -1668,6 +2015,7 @@ def main() -> int:
                        large_rgb_steps_ms=steps,
                        batch_decoder=[dict(phase=p, timings=t, stats=s_)
                                       for p, t, s_ in timings],
+                       census=gaps,
                        peak_gib=peak_gb), f, indent=1)
     print(f"chip_smoke ran {total_s:.1f} s")
     print(smi)

@@ -12,9 +12,11 @@ seqoia.h:544-646). The meta word's layout (the JAX package's
 QOI-compat (``.qoi``, color only) runs the compat branch: the change and
 run segmentation (K8's running max of change positions), the index-table
 hit of each change pixel (``_compat_found``, K7), the op classes and byte
-counts as torch ops, K5 compaction of the emitting pixels, K6 spread of
-(pixel, meta, offset) over the output bytes, and the byte emission as int32
-torch ops (``_compat_bytes``), as the JAX package computes it in XLA.
+counts as torch ops, K5 compaction of the emitting pixels, then K2 with the
+compat epilogue (``EPI_ENCQ``): it spreads (pixel, meta, offset) over the
+output bytes and computes each byte in closed form, as the SQOA branch does.
+The JAX package spreads with K6 and emits the bytes in XLA instead; the
+bytes are the same. ``_compat_bytes`` is the epilogue's plain version.
 """
 
 from __future__ import annotations
@@ -165,6 +167,12 @@ def _compat_bytes(filled, t, scal):
     return (W(t < total, out, 0) & 255).to(torch.uint8)
 
 
+def _compat_epilogue() -> engine.Epilogue:
+    """QOI-compat emission in K2 (uint8 stream bytes), scalars
+    (chunk_total, has_trail, emit_tail) per row."""
+    return engine.Epilogue(engine.EPI_ENCQ, torch.uint8, _compat_bytes)
+
+
 def _encode_compat(packed, n_valid, out_cap: int):
     """The compat branch of encode_stream_batched (see the module
     docstring)."""
@@ -215,10 +223,8 @@ def _encode_compat(packed, n_valid, out_cap: int):
 
     keys_c, pays_c, n_entries = compact.compact(total_len > 0, offsets,
                                                 [packed, meta])
-    filled = engine.place_fill(keys_c, pays_c, n_entries, out_cap,
-                               _emit_inits(), fill_keys=True)
-    t = torch.arange(out_cap, **i32)[None, :]
-    return _compat_bytes(filled, t, scal), total
+    return engine.place_emit(keys_c, pays_c, n_entries, scal, out_cap,
+                             _emit_inits(), _compat_epilogue()), total
 
 
 def encode_stream_batched(packed, n_valid, *, colch: int, out_cap: int,

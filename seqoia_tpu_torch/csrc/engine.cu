@@ -15,19 +15,45 @@
 //   EPI_ENC3/1 encode, color/mono: the stream bytes, computed in closed
 //              form from the filled (pixel, meta word, entry offset) of each
 //              byte position, with the trailing BIGRUN and end marker
+//   EPI_ENCQ   QOI-compat encode: the same for the .qoi op set (one-byte
+//              run flush, INDEX, DIFF, LUMA, RGB, RGBA, the trailing run and
+//              the end marker)
 //
 // Bound on the H100: bytes. The output is written once and the entries are
-// read once; the binary searches touch only the keys, which stay in L2.
+// read once.
 //
 // Design: the TPU version DMAs one window of entries per output tile, moves
 // them into place with a butterfly network and forward-fills with a carry
-// from the previous tile, which bounds the fill to max_gap slots. Here each
-// thread owns 16 consecutive output units: it binary-searches keys[0,total)
-// once for its first slot and then advances its entry index as it walks, so
-// there are no windows, carries or gap bounds, and an output slot depends
-// only on the entries.
+// from the previous tile, which bounds the fill to max_gap slots. Here one
+// block fills one tile of TILE (4096) slots, so there are no carries or gap
+// bounds and a slot depends only on the entries:
+//   1. warp 0 finds the tile's entries [lo, hi) by 32-way searches of the
+//      keys (a ballot a step, about eight dependent loads a tile), while the
+//      block marks every slot of its shared-memory entry map empty;
+//   2. the slot of each entry's key gets the entry's index (only the last
+//      of equal keys writes, so no two threads write one slot) and slot 0
+//      the governing entry lo - 1;
+//   3. a block max-scan forward-fills the map: each thread folds its 16
+//      consecutive slots, lb::block_scan_warp scans the thread maxima;
+//   4. the epilogue writes the tile as lb::store_tile does: neighbouring
+//      threads store neighbouring 16-byte vectors at any row alignment, each
+//      vector reading its slots' entries from the map and their payloads
+//      from global memory by independent loads, all of a thread's vectors
+//      gathered before the first is stored (a warp's slots share a short
+//      run of entries, which meet in L1). The byte epilogues read three
+//      streams a byte: the block computes their bytes in slot order, lane by
+//      lane (a warp's gathers then read a few neighbouring entries), into
+//      shared memory, and stores those.
+// A tile wholly past the epilogue's live output (past n_pixels, or past an
+// encode's stream total, which sits well short of its worst-case cap)
+// stores zeros without a search.
+// EPI_DEC3 builds each 16-byte vector of the RGB stream from the six pixels
+// it touches (4 pixels make 3 words) with funnel shifts: 32-bit tile-local
+// indices and one division by 3 a vector, none a byte.
 
-#include "common.cuh"
+#include <climits>
+
+#include "lookback.cuh"
 
 namespace {
 
@@ -39,11 +65,24 @@ enum {
   EPI_MONO2 = 4,
   EPI_ENC3 = 5,
   EPI_ENC1 = 6,
+  EPI_ENCQ = 7,
 };
 
-constexpr int UPT = 16;  // output units per thread
+constexpr int TILE = lb::TILE;  // slots a block
+constexpr int SPT = lb::IPT;    // consecutive slots a thread scans
+using lb::pad;
 
-enum { CL_LUMA = 0, CL_RGB = 1, CL_MONO_GA = 2, CL_NONE = 7 };
+// meta word classes: K3's, then the QOI-compat ones (codec/encode_v2.py)
+enum {
+  CL_LUMA = 0,
+  CL_RGB = 1,
+  CL_MONO_GA = 2,
+  CL_INDEX = 3,
+  CL_RGBA5 = 4,
+  CL_DIFF = 5,
+  CL_RGB4 = 6,
+  CL_NONE = 7
+};
 
 struct Place {
   const int* keys;
@@ -57,145 +96,387 @@ struct Place {
   int ini0, ini1, ini2, ini_key;
 };
 
-// The entry governing each slot, for slots visited in increasing order.
-struct Cursor {
-  const int* keys;
-  int total;
-  int i;
-  __device__ void seek(int t) {
-    int lo = 0, hi = total;
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (keys[mid] <= t) lo = mid + 1; else hi = mid;
-    }
-    i = lo - 1;
+// a + #{i in [a, b): keys[i] <= v} for keys sorted on [a, b), by the whole
+// warp: each step the lanes probe 32 evenly spaced keys and the ballot's
+// count narrows the range 32-fold. On unsorted keys it still returns an
+// index in [a, b].
+__device__ int count_le(const int* keys, int a, int b, int v) {
+  const int lane = threadIdx.x & 31;
+  while (b - a > 32) {
+    const int step = (b - a + 31) >> 5;
+    const long long i = a + (long long)lane * step;
+    const bool le = i < b && __ldg(keys + i) <= v;
+    const int c = __popc(__ballot_sync(lb::FULL, le));
+    if (c == 0) return a;
+    const int na = a + (c - 1) * step + 1;
+    b = (int)min((long long)b, a + (long long)c * step);
+    a = na;
   }
-  __device__ void advance(int t) {
-    while (i + 1 < total && keys[i + 1] <= t) ++i;
+  const bool le = a + lane < b && __ldg(keys + a + lane) <= v;
+  return a + __popc(__ballot_sync(lb::FULL, le));
+}
+
+// Payload i of a stream, or its init before the first entry (i < 0). The
+// loads of a vector's slots are independent of each other, so a thread has
+// them all in flight at once (neighbouring slots mostly share an entry and
+// meet in L1).
+__device__ __forceinline__ int pick(const int* p, int i, int ini) {
+  return i >= 0 ? __ldg(p + i) : ini;
+}
+
+// The tile's forward-filled entry map in shared memory.
+struct Map {
+  const int* ent;
+  __device__ __forceinline__ int operator[](int s) const {
+    return ent[pad(s)];
   }
 };
 
-__device__ __forceinline__ int pick(const int* p, int i, int ini) {
-  return i >= 0 ? p[i] : ini;
-}
+// int32 outputs (EPI_FILL, EPI_DEC4): slot s of the tile is element s;
+// slots at and past lim are zero (EPI_DEC4's n_pixels; EPI_FILL: TILE).
+struct GetWords {
+  Map m;
+  const int* p;
+  int ini, lim;
+  __device__ int one(int s) const { return s < lim ? pick(p, m[s], ini) : 0; }
+  __device__ uint4 vec(int s) const {
+    unsigned w[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      w[c] = s + c < lim ? (unsigned)pick(p, m[s + c], ini) : 0u;
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  }
+};
 
-// One stream byte at position t (encode_v2._emit_epilogue's closed form).
-__device__ int enc_byte(int colch, int t, int cur, int meta, int off,
-                        int chunk_total, int trail, int emit_tail) {
-  const int k = t - off;
+// EPI_DEC3: element e is word e of the tile's RGB stream (bytes 4e..4e+3;
+// byte q is channel q % 3 of pixel q / 3).
+struct GetRgb {
+  Map m;
+  const int* p;
+  int ini, lim;
+  // the rgb words of pixels px[0..5]: w[0..2] hold pixels 0-3, w[3..4]
+  // pixels 4-5
+  __device__ static void words(const unsigned* px, unsigned* w) {
+    w[0] = (px[0] & 0xFFFFFFu) | (px[1] << 24);
+    w[1] = ((px[1] >> 8) & 0xFFFFu) | (px[2] << 16);
+    w[2] = ((px[2] >> 16) & 0xFFu) | (px[3] << 8);
+    w[3] = (px[4] & 0xFFFFFFu) | (px[5] << 24);
+    w[4] = (px[5] >> 8) & 0xFFFFu;
+  }
+  // pixels q .. q+n-1 (zero at and past lim)
+  template <int N>
+  __device__ void pixels(int q, unsigned* px) const {
+#pragma unroll
+    for (int k = 0; k < 6; ++k)
+      px[k] = k < N && q + k < lim ? (unsigned)pick(p, m[q + k], ini) : 0u;
+  }
+  __device__ uint4 vec(int e) const {
+    const int q = (4 * e) / 3, sh = 8 * (4 * e - 3 * q);
+    unsigned px[6], w[5];
+    pixels<6>(q, px);
+    words(px, w);
+    return make_uint4(__funnelshift_r(w[0], w[1], sh),
+                      __funnelshift_r(w[1], w[2], sh),
+                      __funnelshift_r(w[2], w[3], sh),
+                      __funnelshift_r(w[3], w[4], sh));
+  }
+  __device__ int one(int e) const {
+    const int q = (4 * e) / 3, sh = 8 * (4 * e - 3 * q);
+    unsigned px[6], w[5];
+    pixels<3>(q, px);
+    words(px, w);
+    return (int)__funnelshift_r(w[0], w[1], sh);
+  }
+};
+
+// The encode epilogues' closed forms (encode_v2._emit_bytes and
+// _compat_bytes), from the filled (pixel, meta word, entry offset) of each
+// byte position. The meta word's fields are the op bytes' own bits
+// (ops/encode_front.pack_meta): vg + 32 in bits 12-17, vg_r + 8 in 18-21,
+// vg_b + 8 in 22-25, va + 16 in 26-30, the alpha flag in bit 31.
+
+// Byte k of an entry's chunk (SQOA, colch 3 or 1): its run flush (chunks of
+// 61, the last one the remainder), then its op; 0xFD for a BIGRUN.
+template <int COLCH>
+__device__ __forceinline__ int enc_chunk_byte(int k, int cur, int meta) {
   const int pend = meta & 0x1FF;
   const int cls = (meta >> 9) & 7;
   const int n_full = (max(pend - 1, 0) * 538) >> 15;  // (pend-1) // 61
   const int flush = pend > 0 ? n_full + 1 : 0;
+  const int j = min(k - flush, 4);
+  const int ch = (int)(((unsigned)cur >> (8 * max(j - 1, 0))) & 255u);
+  const int tag = 0xFE | ((meta >> 31) & 1);
+  int op;
+  if (COLCH == 3) {
+    const int luma = j == 0   ? 0x80 | ((meta >> 12) & 63)
+                     : j == 1 ? ((meta >> 14) & 0xF0) | ((meta >> 22) & 15)
+                              : 0x60 | ((meta >> 26) & 31);
+    op = cls == CL_LUMA ? luma : (j == 0 ? tag : ch);
+  } else {
+    const int ga = j == 1 ? (cur >> 8) & 255 : (cur >> 24) & 255;
+    op = cls == CL_LUMA ? 0x80 | ((meta >> 12) & 63)
+                        : (j == 0 ? (cls == CL_MONO_GA ? 0xFF : tag) : ga);
+  }
+  const int run = k >= n_full ? 0xC0 | (pend - 61 * n_full - 1) : 0xFC;
+  return cls == CL_NONE ? 0xFD : (k < flush ? run : op);
+}
+
+__device__ __forceinline__ int wrap8(int x) { return ((x + 128) & 255) - 128; }
+
+// Byte k of an entry's chunk (QOI-compat): a compat run is cut at 62, so a
+// pending run flushes as one RUN byte; then INDEX, DIFF, LUMA, RGB or RGBA.
+__device__ __forceinline__ int encq_chunk_byte(int k, int cur, int meta) {
+  const int pend = meta & 0x1FF;
+  const int cls = (meta >> 9) & 7;
+  const int flush = pend > 0 ? 1 : 0;
+  const int j = min(k - flush, 4);
   const int ocr = cur & 255, ocg = (cur >> 8) & 255, ocb = (cur >> 16) & 255,
             oca = (cur >> 24) & 255;
   const int ovg = ((meta >> 12) & 63) - 32;
   const int ovg_r = ((meta >> 18) & 15) - 8;
   const int ovg_b = ((meta >> 22) & 15) - 8;
-  const int ova = ((meta >> 26) & 31) - 16;
-  const int oalpha = (meta >> 31) & 1;
-  const int j = k - flush;
-  int op;
-  if (colch == 3) {
-    if (cls == CL_LUMA)
-      op = j == 0 ? (0x80 | (ovg + 32))
-                  : (j == 1 ? (((ovg_r + 8) << 4) | (ovg_b + 8))
-                            : (0x60 | (ova + 16)));
-    else
-      op = j == 0 ? (0xFE | oalpha)
-                  : (j == 1 ? ocr : (j == 2 ? ocg : (j == 3 ? ocb : oca)));
-  } else {
-    if (cls == CL_MONO_GA)
-      op = j == 0 ? 0xFF : (j == 1 ? ocg : oca);
-    else if (cls == CL_LUMA)
-      op = 0x80 | (ovg + 32);
-    else
-      op = j == 0 ? (0xFE | oalpha) : (j == 1 ? ocg : oca);
+  const int ch = (int)(((unsigned)cur >> (8 * max(j - 1, 0))) & 255u);
+  // every class's byte, then a select: no divergent branch in the warp
+  const int index = (ocr * 3 + ocg * 5 + ocb * 7 + oca * 11) & 63;
+  const int diff = 0x40 | (int)((unsigned)(wrap8(ovg + ovg_r) + 2) << 4) |
+                   (int)((unsigned)(ovg + 2) << 2) | (wrap8(ovg + ovg_b) + 2);
+  const int luma = j == 0 ? 0x80 | ((meta >> 12) & 63)
+                          : ((meta >> 14) & 0xF0) | ((meta >> 22) & 15);
+  const int absolute = j == 0 ? 0xFE | (cls == CL_RGBA5 ? 1 : 0) : ch;
+  const int op = cls == CL_INDEX  ? index
+                 : cls == CL_DIFF ? diff
+                 : cls == CL_LUMA ? luma
+                                  : absolute;
+  return cls == CL_NONE ? 0xFD : (k < flush ? 0xC0 | (pend - 1) : op);
+}
+
+// byte outputs (EPI_MONO1, EPI_ENC3/1/Q): byte s of the tile, s its slot;
+// t0 the tile's first slot. Slots at and past lim are zero (n_pixels, or
+// the stream's total); an encode's slots from chunk_total on hold the
+// trailing BIGRUN and the end marker (seqoia.h:640-646). The block computes
+// the bytes in slot order, lane by lane, so a warp's gathers read a short
+// run of neighbouring entries, and stages them in shared memory for the
+// 16-byte stores (StagedBytes).
+template <int EPI>
+struct Bytes {
+  Map m;
+  Place P;
+  const int* keys;  // the row's
+  const int* scal;  // the row's
+  long long ro;
+  int t0, lim;
+
+  __device__ int byte_at(int s) const {
+    if (s >= lim) return 0;
+    const int i = m[s];
+    if (EPI == EPI_MONO1) return pick(P.p0 + ro, i, P.ini0) & 255;
+    const int t = t0 + s;
+    const int tail_pos = t - scal[0];
+    if (tail_pos >= 0) {  // only where the row ends its image (lim)
+      const int trail = scal[1];
+      return tail_pos == (trail ? 0 : -1) ? 0xFD
+             : (tail_pos == (trail ? 8 : 7) ? 1 : 0);
+    }
+    const int cur = pick(P.p0 + ro, i, P.ini0);
+    const int meta = pick(P.p1 + ro, i, P.ini1);
+    const int k = t - pick(keys, i, P.ini_key);
+    const int b = EPI == EPI_ENCQ ? encq_chunk_byte(k, cur, meta)
+                  : EPI == EPI_ENC3 ? enc_chunk_byte<3>(k, cur, meta)
+                                    : enc_chunk_byte<1>(k, cur, meta);
+    return b & 255;
   }
-  int byte;
-  if (k < flush)
-    byte = k >= n_full ? (0xC0 | (pend - 61 * n_full - 1)) : (0xC0 | 60);
-  else
-    byte = op;
-  if (cls == CL_NONE) byte = 0xFD;
-  const int total = chunk_total + (emit_tail ? 8 + trail : 0);
-  const int tail_pos = t - chunk_total;
-  const bool in_tail = tail_pos >= 0 && t < total && emit_tail;
-  const int tb = tail_pos == (trail ? 0 : -1) ? 0xFD
-                 : (tail_pos == (trail ? 8 : 7) ? 1 : 0);
-  const int out = in_tail ? tb : byte;
-  return t < total ? (out & 255) : 0;
+};
+
+// The tile's bytes staged in 16-byte aligned shared memory.
+struct StagedBytes {
+  const uint8_t* b;
+  __device__ uint8_t one(int e) const { return b[e]; }
+  __device__ uint4 vec(int e) const {
+    if ((e & 15) == 0) return *reinterpret_cast<const uint4*>(b + e);
+    unsigned w[4] = {0, 0, 0, 0};
+#pragma unroll
+    for (int c = 0; c < 16; ++c) w[c >> 2] |= (unsigned)b[e + c] << (8 * (c & 3));
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  }
+};
+
+// EPI_MONO2: uint16 gray | alpha << 8, zero at and past lim.
+struct GetGrayAlpha {
+  Map m;
+  const int* p;
+  int ini, lim;
+  __device__ static unsigned ga(int v) {
+    return (unsigned)((v & 255) | (((v >> 24) & 255) << 8));
+  }
+  __device__ uint16_t one(int s) const {
+    return s < lim ? (uint16_t)ga(pick(p, m[s], ini)) : 0;
+  }
+  __device__ uint4 vec(int s) const {
+    unsigned w[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int a = s + 2 * c;
+      w[c] = (a < lim ? ga(pick(p, m[a], ini)) : 0u) |
+             ((a + 1 < lim ? ga(pick(p, m[a + 1], ini)) : 0u) << 16);
+    }
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  }
+};
+
+// A tile past the row's live output: zeros.
+struct GetZero {
+  __device__ int one(int) const { return 0; }
+  __device__ uint4 vec(int) const { return make_uint4(0, 0, 0, 0); }
+};
+
+// lb::store_tile with every vector of a thread gathered before the first is
+// stored, so the gathers of all of them are in flight together (a store
+// could alias a later gather's address, so the compiler would not hoist
+// them itself). PER: vectors a thread, TILE * sizeof(output) / 16 / NT.
+template <int PER, class E, class Get>
+__device__ __forceinline__ void store_all(E* dst, int len, const Get& g) {
+  constexpr int V = 16 / sizeof(E);
+  const lb::Span sp = lb::span16(dst, len);
+  uint4* vd = reinterpret_cast<uint4*>(dst + sp.head);
+  uint4 q[PER];
+#pragma unroll
+  for (int u = 0; u < PER; ++u) {
+    const int i = threadIdx.x + u * NT;
+    if (i < sp.nvec) q[u] = g.vec(sp.head + i * V);
+  }
+#pragma unroll
+  for (int u = 0; u < PER; ++u) {
+    const int i = threadIdx.x + u * NT;
+    if (i < sp.nvec) __stcs(vd + i, q[u]);
+  }
+  const int t = threadIdx.x;
+  if (t < sp.head) dst[t] = g.one(t);
+  if (t < len - sp.tail) dst[sp.tail + t] = g.one(sp.tail + t);
 }
 
 template <int EPI>
-__global__ void place_kernel(Place P, long long units, void* out0,
-                             int* out1, int* out2, int* out_keys) {
+__global__ void __launch_bounds__(NT)
+    place_kernel(Place P, int n_out, long long units, void* out0, int* out1,
+                 int* out2, int* out_keys) {
+  __shared__ int ent[lb::PAD_TILE];
+  __shared__ int wtot[lb::NW + 1];
+  __shared__ int range[2];
+  const int tid = threadIdx.x;
   const long long row = blockIdx.y;
-  const long long u0 = ((long long)blockIdx.x * NT + threadIdx.x) * UPT;
-  if (u0 >= units) return;
-  const int un = (int)min((long long)UPT, units - u0);
+  const int t0 = blockIdx.x * TILE;
   const long long ro = row * P.mc;
-  Cursor c;
-  c.keys = P.keys + ro;
-  c.total = P.totals[row];
-  const int* p0 = P.p0 + ro;
+  const int* keys = P.keys + ro;
+  const int total = (int)max(0LL, min((long long)P.totals[row], P.mc));
   const int* scal = P.scal + row * P.n_scal;
-  if (EPI == EPI_DEC3) {
-    // word w holds stream bytes 4w..4w+3 of the RGB stream: byte q is
-    // channel q % 3 of pixel q / 3
-    const int npx = scal[0];
-    int* o = (int*)out0 + row * units;
-    c.seek((int)(4 * u0 / 3));
-    for (int k = 0; k < un; ++k) {
-      const long long w = u0 + k;
-      uint32_t word = 0;
-      for (int b = 0; b < 4; ++b) {
-        const long long q = 4 * w + b;
-        const int p = (int)(q / 3), ch = (int)(q % 3);
-        c.advance(p);
-        const int v = p < npx ? pick(p0, c.i, P.ini0) : 0;
-        word |= (uint32_t)((v >> (8 * ch)) & 255) << (8 * b);
-      }
-      o[w] = (int)word;
-    }
+  // the epilogue's output is zero from slot `end` on: lim live slots here
+  long long end = LLONG_MAX;
+  if (EPI == EPI_DEC4 || EPI == EPI_DEC3 || EPI == EPI_MONO1 ||
+      EPI == EPI_MONO2)
+    end = scal[0];
+  else if (EPI == EPI_ENC3 || EPI == EPI_ENC1)
+    end = (long long)scal[0] + (scal[2] ? 8 + scal[1] : 0);
+  else if (EPI == EPI_ENCQ)
+    end = (long long)scal[0] + 8 + scal[1];
+  const int lim = (int)max(0LL, min((long long)TILE, end - t0));
+  const long long u0 =
+      EPI == EPI_DEC3 ? (long long)t0 / 4 * 3 : (long long)t0;
+  const int per_tile = EPI == EPI_DEC3 ? TILE / 4 * 3 : TILE;
+  const int len = (int)min((long long)per_tile, units - u0);
+  const long long base = row * units + u0;
+  constexpr int W4 = TILE * 4 / 16 / NT;  // int32 vectors a thread
+  if (lim == 0) {  // a tile past the live output (encode caps): no search
+    if constexpr (EPI == EPI_MONO2)
+      store_all<W4 / 2>((uint16_t*)out0 + base, len, GetZero{});
+    else if constexpr (EPI == EPI_MONO1 || EPI == EPI_ENC3 ||
+                       EPI == EPI_ENC1 || EPI == EPI_ENCQ)
+      store_all<W4 / 4>((uint8_t*)out0 + base, len, GetZero{});
+    else
+      store_all<W4>((int*)out0 + base, len, GetZero{});
     return;
   }
-  c.seek((int)u0);
-  for (int k = 0; k < un; ++k) {
-    const int t = (int)(u0 + k);
-    c.advance(t);
-    const long long ot = row * units + t;
-    if (EPI == EPI_FILL) {
-      ((int*)out0)[ot] = pick(p0, c.i, P.ini0);
-      if (out1) out1[ot] = pick(P.p1 + ro, c.i, P.ini1);
-      if (out2) out2[ot] = pick(P.p2 + ro, c.i, P.ini2);
-      if (out_keys) out_keys[ot] = pick(c.keys, c.i, P.ini_key);
-    } else if (EPI == EPI_DEC4) {
-      ((int*)out0)[ot] = t < scal[0] ? pick(p0, c.i, P.ini0) : 0;
-    } else if (EPI == EPI_MONO1) {
-      ((uint8_t*)out0)[ot] =
-          t < scal[0] ? (uint8_t)(pick(p0, c.i, P.ini0) & 255) : 0;
-    } else if (EPI == EPI_MONO2) {
-      const int v = pick(p0, c.i, P.ini0);
-      ((uint16_t*)out0)[ot] =
-          t < scal[0] ? (uint16_t)((v & 255) | (((v >> 24) & 255) << 8)) : 0;
-    } else {  // EPI_ENC3 / EPI_ENC1
-      const int cur = pick(p0, c.i, P.ini0);
-      const int meta = pick(P.p1 + ro, c.i, P.ini1);
-      const int off = pick(c.keys, c.i, P.ini_key);
-      ((uint8_t*)out0)[ot] = (uint8_t)enc_byte(
-          EPI == EPI_ENC3 ? 3 : 1, t, cur, meta, off, scal[0], scal[1],
-          scal[2]);
+
+  // 1. the tile's entries: lo = #{keys <= t0}, hi = #{keys <= t0 + TILE-1}
+#pragma unroll
+  for (int k = 0; k < SPT; ++k) ent[pad(tid * SPT + k)] = -1;
+  if (tid < 32) {
+    const int t1 = (int)min((long long)t0 + TILE - 1, (long long)INT_MAX);
+    const int lo = count_le(keys, 0, total, t0);
+    // strictly increasing keys put at most TILE - 1 in the tile
+    const int hb = (int)min((long long)total, (long long)lo + TILE);
+    int hi = count_le(keys, lo, hb, t1);
+    if (hi == hb && hb < total) hi = count_le(keys, hb, total, t1);
+    if (tid == 0) {
+      range[0] = lo;
+      range[1] = hi;
     }
+  }
+  __syncthreads();
+  // 2. each entry marks its key's slot; slot 0 takes the governing entry
+  const int lo = range[0], hi = range[1];
+  if (tid == 0) ent[0] = lo - 1;
+  for (int j0 = lo; j0 < hi; j0 += NT) {
+    const int j = j0 + tid;
+    const int key = j < hi ? __ldg(keys + j) : 0;
+    int next = lb::shfl_down(key, 1);
+    if ((tid & 31) == 31 && j + 1 < hi) next = __ldg(keys + j + 1);
+    const long long s = (long long)key - t0;
+    if (j < hi && (j + 1 >= hi || next != key) && s > 0 && s < TILE)
+      ent[pad((int)s)] = j;
+  }
+  __syncthreads();
+  // 3. forward fill: entry indices grow with the slot, so a max-scan
+  int v[SPT];
+  int run = -1;
+#pragma unroll
+  for (int k = 0; k < SPT; ++k) {
+    v[k] = ent[pad(tid * SPT + k)];
+    run = max(run, v[k]);
+  }
+  int agg;
+  int ex = lb::block_scan_warp(run, -1, wtot, &agg, MaxOp());
+#pragma unroll
+  for (int k = 0; k < SPT; ++k) {
+    ex = max(ex, v[k]);
+    ent[pad(tid * SPT + k)] = ex;
+  }
+  __syncthreads();
+
+  // 4. the epilogue, coalesced
+  const Map m{ent};
+  if constexpr (EPI == EPI_FILL) {
+    store_all<W4>((int*)out0 + base, len, GetWords{m, P.p0 + ro, P.ini0, lim});
+    if (out1)
+      store_all<W4>(out1 + base, len, GetWords{m, P.p1 + ro, P.ini1, lim});
+    if (out2)
+      store_all<W4>(out2 + base, len, GetWords{m, P.p2 + ro, P.ini2, lim});
+    if (out_keys)
+      store_all<W4>(out_keys + base, len, GetWords{m, keys, P.ini_key, lim});
+  } else if constexpr (EPI == EPI_DEC4) {
+    store_all<W4>((int*)out0 + base, len, GetWords{m, P.p0 + ro, P.ini0, lim});
+  } else if constexpr (EPI == EPI_DEC3) {
+    store_all<W4 * 3 / 4>((int*)out0 + base, len,
+                          GetRgb{m, P.p0 + ro, P.ini0, lim});
+  } else if constexpr (EPI == EPI_MONO2) {
+    store_all<W4 / 2>((uint16_t*)out0 + base, len,
+                      GetGrayAlpha{m, P.p0 + ro, P.ini0, lim});
+  } else {
+    __shared__ __align__(16) uint8_t staged[TILE];
+    const Bytes<EPI> g{m, P, keys, scal, ro, t0, lim};
+#pragma unroll 4
+    for (int u = 0; u < SPT; ++u) {
+      const int s = tid + u * NT;
+      staged[s] = (uint8_t)g.byte_at(s);
+    }
+    __syncthreads();
+    store_all<W4 / 4>((uint8_t*)out0 + base, len, StagedBytes{staged});
   }
 }
 
 template <int EPI>
-void launch(const Place& P, int B, long long units, void* out0,
+void launch(const Place& P, int B, int n_out, long long units, void* out0,
             int* out1, int* out2, int* out_keys, cudaStream_t st) {
-  const long long per_blk = (long long)NT * UPT;
-  const dim3 grid((unsigned)((units + per_blk - 1) / per_blk), B);
-  place_kernel<EPI><<<grid, NT, 0, st>>>(P, units, out0, out1, out2,
+  const dim3 grid((unsigned)((n_out + TILE - 1) / TILE), B);
+  place_kernel<EPI><<<grid, NT, 0, st>>>(P, n_out, units, out0, out1, out2,
                                          out_keys);
 }
 
@@ -218,25 +499,28 @@ extern "C" int k2_place(int epi, const int* keys, const int* p0,
       epi == EPI_DEC3 ? (long long)n_out * 3 / 4 : (long long)n_out;
   switch (epi) {
     case EPI_FILL:
-      launch<EPI_FILL>(P, B, units, out0, out1, out2, out_keys, st);
+      launch<EPI_FILL>(P, B, n_out, units, out0, out1, out2, out_keys, st);
       break;
     case EPI_DEC4:
-      launch<EPI_DEC4>(P, B, units, out0, out1, out2, out_keys, st);
+      launch<EPI_DEC4>(P, B, n_out, units, out0, out1, out2, out_keys, st);
       break;
     case EPI_DEC3:
-      launch<EPI_DEC3>(P, B, units, out0, out1, out2, out_keys, st);
+      launch<EPI_DEC3>(P, B, n_out, units, out0, out1, out2, out_keys, st);
       break;
     case EPI_MONO1:
-      launch<EPI_MONO1>(P, B, units, out0, out1, out2, out_keys, st);
+      launch<EPI_MONO1>(P, B, n_out, units, out0, out1, out2, out_keys, st);
       break;
     case EPI_MONO2:
-      launch<EPI_MONO2>(P, B, units, out0, out1, out2, out_keys, st);
+      launch<EPI_MONO2>(P, B, n_out, units, out0, out1, out2, out_keys, st);
       break;
     case EPI_ENC3:
-      launch<EPI_ENC3>(P, B, units, out0, out1, out2, out_keys, st);
+      launch<EPI_ENC3>(P, B, n_out, units, out0, out1, out2, out_keys, st);
       break;
     case EPI_ENC1:
-      launch<EPI_ENC1>(P, B, units, out0, out1, out2, out_keys, st);
+      launch<EPI_ENC1>(P, B, n_out, units, out0, out1, out2, out_keys, st);
+      break;
+    case EPI_ENCQ:
+      launch<EPI_ENCQ>(P, B, n_out, units, out0, out1, out2, out_keys, st);
       break;
     default:
       return (int)cudaErrorInvalidValue;

@@ -6,8 +6,10 @@ Output slot t of row b takes the payloads of the last entry i < totals[b]
 with keys[i] <= t, or ``inits`` before the first entry. ``place_fill``
 returns the filled int32 streams; ``place_emit`` runs an ``Epilogue`` on
 them instead (the codec modules define theirs). Both are one kernel,
-``csrc/engine.cu``, with an epilogue selector; the plain versions below
-find each slot's entry with ``torch.searchsorted``.
+``csrc/engine.cu``, with an epilogue selector: one block fills one tile of
+4096 slots from the entries a warp's search finds for it, and stores it as
+16-byte vectors. The plain versions below find each slot's entry with
+``torch.searchsorted``.
 
 The TPU kernels bound their fill to ``max_gap`` slots past an entry (the
 codec's gaps are bounded wherever the output is live); the port fills
@@ -26,7 +28,10 @@ from . import _build
 from ._plain import to_i32
 
 # epilogue selectors of csrc/engine.cu
-EPI_FILL, EPI_DEC4, EPI_DEC3, EPI_MONO1, EPI_MONO2, EPI_ENC3, EPI_ENC1 = range(7)
+(EPI_FILL, EPI_DEC4, EPI_DEC3, EPI_MONO1, EPI_MONO2, EPI_ENC3, EPI_ENC1,
+ EPI_ENCQ) = range(8)
+# the encode epilogues read the filled keys (each entry's byte offset)
+_KEYED = (EPI_ENC3, EPI_ENC1, EPI_ENCQ)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,7 +136,7 @@ def place_emit(keys, payloads, totals, scalars, n_out: int, inits,
     the filled keys too (their last init is the keys')."""
     payloads = list(payloads)
     _check(keys, payloads, totals, n_out)
-    fill_keys = epilogue.kind in (EPI_ENC3, EPI_ENC1)
+    fill_keys = epilogue.kind in _KEYED
     streams = payloads + ([keys] if fill_keys else [])
     if len(inits) != len(streams) or len(payloads) > 3:
         raise ValueError("one init per filled stream, at most 3 payloads")

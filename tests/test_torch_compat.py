@@ -375,3 +375,46 @@ def test_rate_estimate_is_kept_per_compat(monkeypatch):
                                                                4, 0, 0)
     assert set(encode_mod._RATE_EST) == {(3, True, True), (3, True, False)}
     assert encode_mod.first_cap(sqoa, n_pad) < worst
+
+
+@pytest.mark.parametrize("ch", [3, 4])
+def test_qoi_encode_emits_through_k2(ch, monkeypatch):
+    """The .qoi encode's bytes come from one place_emit with the compat
+    epilogue (EPI_ENCQ's plain version on the CPU), with no K6 spread: one
+    row per conftest kind in one batched call, its bytes equal to the JAX
+    package's encode_stream_batched(compat=True) and to native.encode.
+    Integer codec: exact."""
+    import jax.numpy as jnp
+
+    from seqoia_tpu.codec import encode_v2 as jax_encode_v2
+    from seqoia_tpu_torch.ops import engine
+
+    rng = np.random.default_rng(900 + ch)
+    n = 4096
+    shapes = [(64, 64), (50, 41), (33, 17), (64, 63), (1, 1), (40, 40)]
+    rows, nv, streams = [], [], []
+    for kind, (w, h) in zip(KINDS, shapes):
+        pix = gen_pixels(rng, w * h, _stride(ch), kind)
+        rows.append(np.pad(normalize_pixels_packed(
+            pix, spec.SqoaDesc(w, h, ch, 0, 1)), (0, n - w * h)))
+        nv.append(w * h)
+        streams.append(native.encode(pix, w, h, ch, 0, 1))
+    packed, nv = np.stack(rows), np.array(nv, np.int32)
+    cap = spec.cap_bucket(n * 5 + 9)
+
+    kinds = []
+    emit = engine.place_emit
+    monkeypatch.setattr(engine, "place_emit", lambda *a: kinds.append(
+        a[-1].kind) or emit(*a))
+    monkeypatch.setattr(engine, "place_fill", None)  # no spread may remain
+    out, total = encode_stream_batched(
+        convert.tensor(packed), convert.tensor(nv), colch=3, out_cap=cap,
+        compat=True)
+    assert kinds == [engine.EPI_ENCQ]
+    want, want_total = jax_encode_v2.encode_stream_batched(
+        jnp.asarray(packed), jnp.asarray(nv), colch=3, has_alpha=ch == 4,
+        compat=True, out_cap=cap)
+    assert total.tolist() == np.asarray(want_total).tolist()
+    assert np.array_equal(out.numpy(), np.asarray(want))
+    for i, (kind, stream) in enumerate(zip(KINDS, streams)):
+        assert out[i, : total[i]].numpy().tobytes() == stream[14:], kind
