@@ -21,22 +21,27 @@
    launch of every distinct shape that encode_large, decode_large, the two
    shard forms (K3's carries, rows as shards) and BatchDecoder give them,
    checked on the arguments of that launch in one uncounted pass over
-   those calls; K1 on a stream whose pixel counts pass 2**31. K1, K5, K7
-   and K8 (single-pass look-back kernels, whose faults are races) also at
-   edge shapes (EDGE_SHAPES: every K8 combine, K5 with all-0, all-1, 35%
+   those calls; K1 on a stream whose pixel counts pass 2**31. K1, K3, K5,
+   K7 and K8 (single-pass look-back kernels, whose faults are races) also
+   at edge shapes (EDGE_SHAPES: K3 in colch 1 and 3 with and without shard
+   carries, pixels that change often, rarely and never, n_valid varied by
+   row; every K8 combine, K5 with all-0, all-1, 35%
    and last-only masks, K7 with 64 and 128 slots, four n_live, three kinds
    of hashes, dense and sparse queries; K1 in its three modes on rows
    around its 4096-byte tile, tokens across tile edges, padding far past
-   the stream, an n_max that cuts the last op, 37 short rows; inputs off
+   the stream, an n_max that cuts the last op, 37 short rows; K1's segment
+   mode in its three modes at every seg from 128 to 32768 with empty
+   segments, cuts at seg_px and a length to the segment's end; inputs off
    16-byte boundaries; K2 with every epilogue and K6 at _engine_edge_cases:
    an entry on a tile's first slot, a tile with no entry, tiles of 4096
    entries, totals of 0, rows of different totals, n_out not a multiple of
    the tile, RGB words across a tile edge, on fresh storage and 4 bytes past
    a 16-byte boundary), and every recorded .qoi launch of K2, K5, K6, K7
-   and K8, every SQOA launch of K2 and K6 and every SQOA and large-image
-   launch of K1 and K2 re-launched REPEATS times, each output bitwise equal
-   to the first; their times also with the L2 flushed before each launch,
-   K1's, K2's, K6's and K7's also as device time from a torch.profiler trace
+   and K8, every SQOA launch of K2, K3 and K6 and every SQOA, large-image
+   and icon launch of K1 (both modes), K2 and K3 re-launched REPEATS times,
+   each output bitwise equal to the first; their times also with the L2
+   flushed before each launch, K1's, K2's, K3's, K6's and K7's also as
+   device time from a torch.profiler trace
    (without the host's launch overhead), and K8 sum's beside torch.cumsum
    at one row and at 32.
 3. Resets the kernels' launch counters and drives the SQOA path through the
@@ -62,7 +67,8 @@
    held byte-exact against the port's native C codec. Fails if a kernel of
    a path was not launched on it, if a .qoi stream or an icon went to the
    host decoder, if the shard forms differ from the unsharded ones, or if
-   an encode's cap is not the one its kernels were checked at.
+   an encode call ran more than one K2 (or, SQOA, more than one K3) or ran
+   K2 at another length than the exact one its kernels were checked at.
 4. Prints the card's name and power limit, each phase's Mpx/s, each .qoi
    workload's fixpoint (converged rows and passes, the rows settled after
    it and the resolutions that took) beside the INDEX-chain depth that
@@ -94,7 +100,7 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM peak memory rate (NVIDIA data sheet)
 OUT_DIR = "chiprun_out"
 REPS = 10  # timed launches per kernel and shape
-REPEATS = 50  # re-launches of K1, K2, K5, K6, K7, K8 held bitwise to the first
+REPEATS = 50  # re-launches of K1-K3 and K5-K8 held bitwise to the first
 
 KERNELS = {
     "K1": ("decode_front_compact", "seqoia_tpu_torch/csrc/frontend.cu",
@@ -286,6 +292,13 @@ def _front_view(out):
     return [tot, ref, _live(keys, tot), _live(pays, tot)]
 
 
+def _encode_front_view(out):
+    """K3's outputs that its contract defines: the three scalars, and the
+    offsets, pixels and metas below the entry totals."""
+    keys, (cur, meta), et, ct, lc = out
+    return [et, ct, lc, _live(keys, et), _live(cur, et), _live(meta, et)]
+
+
 def _plain_ms(fn):
     import torch
 
@@ -330,8 +343,8 @@ class Stages:
 
         import seqoia_tpu_torch as st
         from seqoia_tpu_torch import native, spec
-        from seqoia_tpu_torch.codec import normalize_pixels_packed
-        from seqoia_tpu_torch.codec.encode import first_cap, pixel_bucket
+        from seqoia_tpu_torch.codec import encode_v2, normalize_pixels_packed
+        from seqoia_tpu_torch.codec.encode import pixel_bucket
 
         self.name, self.w, self.h, self.ch = name, w, h, ch
         self.pixels = pixels
@@ -354,16 +367,19 @@ class Stages:
                                  device=dev)
         self.npx = torch.full((len(pixels),), self.n, dtype=torch.int32,
                               device=dev)
-        # the encode's power-of-two pixel bucket and the output cap its
-        # first call per (colch, has_alpha, compat) uses: the shape of K2's
-        # encode epilogue, or of the .qoi encode's K6 spread
+        # the encode's power-of-two pixel bucket and K2's output length in
+        # an encode, sized from the exact stream totals (the native
+        # streams' bodies: SQOA after its header and start byte, .qoi after
+        # its header)
         n_pad = pixel_bucket(self.n)
         packed = np.zeros((len(pixels), n_pad), np.int32)
         for i, p in enumerate(pixels):
             packed[i, : self.n] = normalize_pixels_packed(p, self.desc)
         self.packed_host = packed
         self.packed = torch.from_numpy(packed).to(dev)
-        self.out_cap = first_cap(self.desc, n_pad)
+        body = spec.HEADER_SIZE + (0 if compat else 1)
+        self.out_cap = encode_v2.exact_cap(torch.tensor(
+            [len(x) - body for x in self.streams]))
         self.probe = ([native.compat_probe(x) for x in self.streams]
                       if compat else None)
         self.fix = None
@@ -459,7 +475,8 @@ def check_kernels(stages, dev):
         rec["K3"].append(dict(
             shape=f"{s.name} {tuple(s.packed.shape)} colch={s.colch}",
             err=err, ms=_timed(k3), plain_ms=p_ms,
-            bytes=4 * s.packed.numel() + 12 * n_ent + 24 * bsz))
+            bytes=4 * s.packed.numel() + 12 * n_ent + 24 * bsz,
+            **_held(k3, (ek, (ec, em), et, ect, elc), _encode_front_view)))
         del pk, pc, pm
         # --- K2 encode epilogue, at the main path's output cap -------------
         scal, _ = encode_v2.emit_scalars(s.npx, ect, elc)
@@ -485,16 +502,16 @@ def check_kernels(stages, dev):
 
 def main_path(stages, dev):
     """Decode and encode every workload through the public entry points,
-    byte-exact against the native codec. Returns [(phase, Mpx/s)]."""
+    byte-exact against the native codec. Returns ([(phase, Mpx/s)], [(rows,
+    K2's cap, SQOA) per encode call])."""
     import torch
 
     import seqoia_tpu_torch as st
     from seqoia_tpu_torch import native
     from seqoia_tpu_torch.codec import decode_stream_batched
     from seqoia_tpu_torch.codec import encode_stream_batched
-    from seqoia_tpu_torch.codec.encode import first_cap
 
-    rates = []
+    rates, calls = [], []
 
     clock = functools.partial(_clock, rates)
 
@@ -517,8 +534,11 @@ def main_path(stages, dev):
             out, total = clock(
                 "batch encode (encode_stream_batched)", bsz * s.n,
                 lambda: encode_stream_batched(
-                    torch.from_numpy(s.packed_host).to(dev), s.npx, colch=3,
-                    out_cap=s.out_cap))
+                    torch.from_numpy(s.packed_host).to(dev), s.npx, colch=3))
+            calls.append((bsz, s.out_cap, True))
+            if out.shape[1] != s.out_cap:
+                raise AssertionError(f"batch encode: K2 ran at {out.shape[1]} "
+                                     f"bytes, not the checked {s.out_cap}")
             out, total = out.cpu().numpy(), total.cpu().numpy()
             for i, stream in enumerate(s.streams):
                 if out[i, : total[i]].tobytes() != stream[15:]:
@@ -535,15 +555,12 @@ def main_path(stages, dev):
             want4, _ = native.decode(stream, 4)
             if not np.array_equal(got4, want4):
                 raise AssertionError(f"{s.name}: 4-channel decode differs")
-        cap = first_cap(s.desc, s.packed.shape[1])
-        if cap != s.out_cap:
-            raise AssertionError(f"{s.name}: encode cap {cap} is not the "
-                                 f"checked {s.out_cap}")
         enc = clock(f"{s.name} encode (seqoia_tpu_torch.encode)", s.n,
                     lambda: st.encode(pixels, s.desc, device=dev))
+        calls.append((1, s.out_cap, True))
         if enc != stream:
             raise AssertionError(f"{s.name}: encode differs")
-    return rates
+    return rates, calls
 
 
 def _chain():
@@ -1010,6 +1027,90 @@ def check_edge_front(stages, dev):
     return rows
 
 
+def _edge_pixels(gen, shape, p_change, dev):
+    """(B, M) packed pixels made on the card from a seed: a smooth walk
+    (LUMA deltas, a few alpha steps) with 20% noise pixels, held in runs
+    whose pixels change with probability p_change (0: one color a row)."""
+    import torch
+
+    def rnd(lo, hi, sh):
+        return torch.randint(lo, hi, sh, generator=gen, device=dev)
+
+    bsz, m = shape
+    d = rnd(-3, 4, (bsz, m, 4))
+    d[..., 3] *= (rnd(0, 10, (bsz, m)) == 0)
+    lev = torch.where(rnd(0, 5, (bsz, m, 1)) == 0, rnd(0, 256, (bsz, m, 4)),
+                      torch.cumsum(d, dim=1)) & 255
+    px = (lev[..., 0] | (lev[..., 1] << 8) | (lev[..., 2] << 16)
+          | (lev[..., 3] << 24))
+    keep = torch.rand((bsz, m), generator=gen, device=dev) < p_change
+    keep[:, 0] = True
+    idx = torch.cumsum(keep.to(torch.int64), dim=1) - 1
+    px = torch.gather(px, 1, idx)
+    return (((px + 2**31) % 2**32) - 2**31).to(torch.int32)
+
+
+def check_edge_encode_front(dev):
+    """K3 against its plain version, bit-exact, at EDGE_SHAPES: colch 1 and
+    3, without carries and with them (init_prev and run_in from a seed,
+    run_in 0, 1 and 511 among them), pixels that change often, rarely
+    (BIGRUNs across tiles) and never, n_valid at M and varied by row (0,
+    1, mid-tile); the smaller shapes also on storage 4 bytes past a
+    16-byte boundary. Returns [records]."""
+    import torch
+
+    from seqoia_tpu_torch.ops import encode_front
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    i32 = dict(dtype=torch.int32, device=dev)
+    rows = []
+    for shape in EDGE_SHAPES:
+        bsz, m = shape
+        big = bsz * m > 1 << 20
+        # the plain version compacts row by row: many rows, fewer cases
+        few = big or bsz > 64
+        for kind, p in (("often", 0.6), ("rarely", 0.0005), ("never", 0.0)):
+            if few and kind != "often":
+                continue
+            px = _edge_pixels(gen, shape, p, dev)
+            r = torch.arange(bsz, device=dev)
+            nvs = {"M": torch.full((bsz,), m, **i32)}
+            if not big:
+                varied = torch.tensor([0, 1, m // 2 + 1, m], **i32)
+                nvs["varied"] = varied[r % 4].clamp(max=m)
+            for colch in (3, 1):
+                x = px if colch == 3 else px & ~0x00FF00FF
+                carries = {"": (None, None)}
+                if not big or colch == 3:
+                    run_in = torch.tensor([0, 1, 511], **i32)[r % 3]
+                    carries[" carries"] = (
+                        x[(r + 1) % bsz, -1].contiguous(), -(run_in + 1))
+                for cname, (ip, l0) in carries.items():
+                    for nname, nv in nvs.items():
+                        for where in ("", " offset"):
+                            if where and few:
+                                continue
+                            xs = _offset(x) if where else x
+                            got = encode_front.encode_front_compact(
+                                xs, nv, colch, ip, l0)
+                            want = encode_front.encode_front_plain(
+                                xs, nv, colch,
+                                torch.full((bsz,), encode_front.INIT_PACKED,
+                                           **i32) if ip is None else ip,
+                                torch.full((bsz,), -1, **i32)
+                                if l0 is None else l0)
+                            rows.append(dict(
+                                shape=f"edge {shape} {kind} colch={colch}"
+                                      f"{cname} n_valid={nname}{where}",
+                                err=max(_max_err(a, b) for a, b in zip(
+                                    _encode_front_view(got),
+                                    _encode_front_view(want))),
+                                main=False))
+        torch.cuda.empty_cache()
+    return rows
+
+
 def _engine_edge_cases():
     """K2 and K6 at the edges of their tiling (4096 slots a block): (name,
     [keys per row], n_out), keys strictly increasing, made from a seed."""
@@ -1129,16 +1230,16 @@ def _fix_row(s, conv, rows, stats):
 def qoi_path(qstages, dev):
     """Encode and decode every .qoi workload through the public entry
     points, byte-exact against the native codec. Returns ([(phase, Mpx/s)],
-    [fixpoint record per workload])."""
+    [fixpoint record per workload], [(rows, K2's cap, SQOA) per encode
+    call])."""
     import torch
 
     import seqoia_tpu_torch as st
     from seqoia_tpu_torch import native
     from seqoia_tpu_torch.codec import (decode_stream_compat_batched,
                                         encode_stream_batched)
-    from seqoia_tpu_torch.codec.encode import first_cap
 
-    rates, fix = [], []
+    rates, fix, calls = [], [], []
 
     clock = functools.partial(_clock, rates)
 
@@ -1149,7 +1250,12 @@ def qoi_path(qstages, dev):
                 "batch .qoi encode (encode_stream_batched, compat)", bsz * s.n,
                 lambda: encode_stream_batched(
                     torch.from_numpy(s.packed_host).to(dev), s.npx, colch=3,
-                    out_cap=s.out_cap, compat=True))
+                    compat=True))
+            calls.append((bsz, s.out_cap, False))
+            if out.shape[1] != s.out_cap:
+                raise AssertionError(f"batch .qoi encode: K2 ran at "
+                                     f"{out.shape[1]} bytes, not the checked "
+                                     f"{s.out_cap}")
             out, total = out.cpu().numpy(), total.cpu().numpy()
             for i, stream in enumerate(s.streams):
                 if out[i, : total[i]].tobytes() != stream[14:]:
@@ -1185,19 +1291,16 @@ def qoi_path(qstages, dev):
             fix.append(_fix_row(s, 0, 1, stats))
         else:
             fix.append(_fix_row(s, s.fix["converged"], 1, s.fix))
-            cap = first_cap(s.desc, s.packed_host.shape[1])
-            if cap != s.out_cap:
-                raise AssertionError(f"{s.name}: encode cap {cap} is not the "
-                                     f"checked {s.out_cap}")
         enc = clock(f"{s.name} encode (seqoia_tpu_torch.encode)", s.n,
                     lambda: st.encode(pixels, s.desc, device=dev))
+        calls.append((1, s.out_cap, False))
         if enc != stream:
             raise AssertionError(f"{s.name}: encode differs")
         got, desc = clock(f"{s.name} decode (seqoia_tpu_torch.decode)", s.n,
                           lambda: st.decode(stream, device=dev))
         if not np.array_equal(got, pixels) or desc.qoi_compat != 1:
             raise AssertionError(f"{s.name}: decode differs")
-    return rates, fix
+    return rates, fix, calls
 
 
 def check_pack_kernel(large, dev):
@@ -1276,7 +1379,75 @@ def check_segment_kernel(classes, dev):
                   f"images={len(bucket)}",
             err=err, ms=_timed(run), plain_ms=p_ms,
             bytes=sum(len(x) for x in bucket) + 4 * slens.numel()
-            + 8 * int(tot.sum()) + 8 * len(tot)))
+            + 8 * int(tot.sum()) + 8 * len(tot),
+            **_held(run, (keys, pays, tot, ref), _front_view)))
+    return rows
+
+
+def check_edge_segments(dev):
+    """K1 in segment mode against its plain version, bit-exact, in its
+    three modes at every seg from 128 to 32768: three packed rows of
+    native streams (icons, and images half noise, half one color, long
+    enough to cross the 4096-byte tiles where the segment allows), with
+    empty segments, 72x64 images whose ops pass seg_px (cut there),
+    streams of very different lengths side by side, and one segment whose
+    length runs to its end. Returns [records]."""
+    import torch
+
+    from seqoia_tpu_torch import native
+    from seqoia_tpu_torch.ops import frontend
+    from seqoia_tpu_torch.utils import corpus
+
+    rng = np.random.default_rng(9)
+    rows = []
+    for ch, mode in ((4, "alpha"), (3, "noalpha"), (1, "mono")):
+        pool = []
+        for w in (64, 72):
+            for _ in range(3):
+                icon = corpus._icon(rng, w, 5)[:64]
+                px = icon[..., :ch] if ch > 1 else icon[..., 1:2]
+                pool.append(native.encode(np.ascontiguousarray(px).reshape(-1),
+                                          w, 64, ch, 0, 0))
+            half = np.full((64, w, ch), 77, np.uint8)
+            pool.append(native.encode(half.reshape(-1), w, 64, ch, 0, 0))
+            for n_rows in (4, 16, 64):  # stripes: short streams
+                stripes = np.repeat(rng.integers(0, 256, (n_rows, 1, ch)),
+                                    64 // n_rows, axis=0).repeat(w, axis=1)
+                pool.append(native.encode(stripes.astype(np.uint8).reshape(-1),
+                                          w, 64, ch, 0, 0))
+            half[:32] = rng.integers(0, 256, (32, w, ch))
+            pool.append(native.encode(half.reshape(-1), w, 64, ch, 0, 0))
+        for seg in (128 << e for e in range(9)):
+            fit = sorted((x for x in pool if len(x) <= seg), key=len)
+            if not fit:
+                continue
+            k = max(8192, 4 * seg) // seg
+            data = np.zeros((3, k * seg), np.uint8)
+            slens = np.zeros((3, k), np.int32)
+            for r in range(3):
+                for j in range(k):
+                    pick = rng.integers(-1, len(fit))  # -1: an empty segment
+                    x = fit[-1] if j == r else (b"" if pick < 0 else fit[pick])
+                    data[r, j * seg: j * seg + len(x)] = np.frombuffer(x,
+                                                                     np.uint8)
+                    slens[r, j] = max(len(x) - 8, 0)
+            # a length past the stream: ops to the segment's very end, whose
+            # operands past it read as 0
+            slens[2, 1] = seg
+            d = torch.from_numpy(data).to(dev)
+            sl = torch.from_numpy(slens).to(dev)
+            kw = dict(mode=mode, seg=seg, seg_px=4096)
+            got = frontend.decode_front_compact(d, sl, k * 4096, **kw)
+            want = frontend.decode_front_plain_seg(d, sl, k * 4096, mode,
+                                                   seg, 4096)
+            rows.append(dict(
+                shape=f"edge {mode} seg={seg} {tuple(data.shape)}",
+                err=max(_max_err(a, b) for a, b in zip(
+                    _front_view(got), _front_view(want))), main=False,
+                repeats_differ=_repeats_differ(
+                    lambda: frontend.decode_front_compact(d, sl, k * 4096,
+                                                          **kw),
+                    _front_view, got, 5)))
     return rows
 
 
@@ -1360,10 +1531,10 @@ def _checked(run, where, rec):
             err=err, plain_ms=p_ms, main=False, ms=_timed(run, reps),
             bytes=int(clen.sum()) + 4 * clen.numel() + 8 * int(tot.sum())
             + 8 * len(tot))
-        if seg is None:  # the look-back kernel: the repeats must agree
-            r.update(repeats_differ=_repeats_differ(run, _front_view, out),
-                     cold_ms=_timed_cold(run, reps),
-                     device_ms=_device_ms(run, reps))
+        # look-back kernels: the repeats must agree
+        r.update(repeats_differ=_repeats_differ(run, _front_view, out),
+                 cold_ms=_timed_cold(run, reps),
+                 device_ms=_device_ms(run, reps))
         rec["K1" if seg is None else "K1seg"].append(r)
         return out
 
@@ -1401,13 +1572,13 @@ def _checked(run, where, rec):
                   _max_err(_live(ek, et), pk), _max_err(_live(ec, et), pc),
                   _max_err(_live(em, et), pm))
         del pk, pc, pm
+        run = lambda: fn(packed, n_valid, colch, init_prev, lc0)  # noqa: E731
         rec["K3"].append(dict(
             shape=f"{where} {tuple(packed.shape)} colch={colch}"
                   + (" carries" if carried else ""),
-            err=err, plain_ms=p_ms, main=False,
-            ms=_timed(lambda: fn(packed, n_valid, colch, init_prev, lc0),
-                      reps),
-            bytes=4 * packed.numel() + 12 * int(et.sum()) + 24 * bsz))
+            err=err, plain_ms=p_ms, main=False, ms=_timed(run, reps),
+            bytes=4 * packed.numel() + 12 * int(et.sum()) + 24 * bsz,
+            **_held(run, out, _encode_front_view, reps)))
         return out
 
     for mod, name, check in ((frontend, "decode_front_compact", k1),
@@ -1487,11 +1658,15 @@ def check_saturation(dev):
 def large_path(large, dev):
     """encode_large, decode_large and (for the RGB image) both shard forms at
     4 shards, byte-exact against the native codec. Returns ([(phase,
-    Mpx/s)], the RGB image's stream)."""
+    Mpx/s)], the RGB image's stream, [(rows, K2's cap or None: any, SQOA)
+    per encode call])."""
+    import torch
+
     import seqoia_tpu_torch as st
     from seqoia_tpu_torch import native
+    from seqoia_tpu_torch.codec import encode_v2
 
-    rates, rgb_stream = [], None
+    rates, rgb_stream, calls = [], None, []
     clock = functools.partial(_clock, rates)
     for name, pixels, w, h, ch in large:
         n = w * h
@@ -1503,6 +1678,8 @@ def large_path(large, dev):
         del oracle
         enc = clock(f"{name} encode_large", n,
                     lambda: st.encode_large(pixels, desc, device=dev))
+        calls.append((1, encode_v2.exact_cap(torch.tensor([len(stream) - 15])),
+                      True))
         if enc != stream:
             raise AssertionError(f"{name}: encode_large differs")
         got, d = clock(f"{name} decode_large", n,
@@ -1515,6 +1692,7 @@ def large_path(large, dev):
         enc4 = clock(f"{name} encode_large_shardmap (4 shards)", n,
                      lambda: st.encode_large_shardmap(pixels, desc, n_shards=4,
                                                       device=dev))
+        calls.append((4, None, True))
         if enc4 != enc:
             raise AssertionError(f"{name}: the sharded encode differs")
         got4, _ = clock(f"{name} decode_large_shardmap (4 shards)", n,
@@ -1522,7 +1700,7 @@ def large_path(large, dev):
                                                          device=dev))
         if not np.array_equal(got4, got):
             raise AssertionError(f"{name}: the sharded decode differs")
-    return rates, rgb_stream
+    return rates, rgb_stream, calls
 
 
 def large_steps(image, stream, dev):
@@ -1550,10 +1728,9 @@ def large_steps(image, stream, dev):
 
     packed = step("encode: pad, pin, copy up, K4",
                   lambda: pack.normalize_pixels_device(pixels, desc, dev))
-    cap = -(-(len(stream) - 15) // 32768) * 32768
     out, total = step(
-        "encode: K3 + K2 at the exact cap",
-        lambda: encode_v2.encode_stream_flat(packed, n, colch=3, out_cap=cap))
+        "encode: K3 + K2 (K2 sized from K3's total)",
+        lambda: encode_v2.encode_stream_flat(packed, n, colch=3))
     body = step("encode: copy down",
                 lambda: transfer.fetch_flat(out, int(total)))
     step("encode: header + bytes", lambda: tiled._file_bytes(desc, body))
@@ -1818,7 +1995,8 @@ def _counted(counters, run, gaps):
     """Launches of each kernel during run(), the counters ((function,
     attribute) pairs) set to 0 just before it and read just after; each
     launch's time and bound are added to gaps ({kernel: {shape: [launches,
-    ms, bound ms]}}, _census)."""
+    ms, bound ms]}}, _census). Returns (launches, run's result, the run's
+    own census table)."""
     for fn, attr in counters.values():
         setattr(fn, attr, 0)
     table, out = _census(run)
@@ -1828,7 +2006,37 @@ def _counted(counters, run, gaps):
             row[0] += n
             row[1] += ms
             row[2] += bound
-    return {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}, out
+    return ({k: getattr(fn, attr) for k, (fn, attr) in counters.items()},
+            out, table)
+
+
+def _one_front_one_k2(path, table, calls):
+    """Fails unless every encode call of a path (``calls``: (rows, K2's
+    cap or None for any, SQOA) each) ran exactly one K2 with an encode
+    epilogue, at its cap, and the SQOA calls one K3 each: no retry at a
+    larger cap, no second front."""
+    import re
+
+    got = []
+    for shape, (n, _, _) in table.get("K2", {}).items():
+        m = re.match(r"epilogue encode \w+ rows=(\d+) n_out=(\d+)$", shape)
+        if m:
+            got += [(int(m[1]), int(m[2]))] * n
+    left = list(got)
+    for rows, cap, _ in sorted(calls, key=lambda c: c[1] is None):
+        hit = next((g for g in left if g[0] == rows
+                    and (cap is None or g[1] == cap)), None)
+        if hit is None:
+            raise AssertionError(f"the {path} path: no K2 encode launch at "
+                                 f"rows={rows} cap={cap}; launched {got}")
+        left.remove(hit)
+    if left:
+        raise AssertionError(f"the {path} path launched K2's encode {len(got)} "
+                             f"times in {len(calls)} encode calls: {got}")
+    k3 = sum(r[0] for r in table.get("K3", {}).values())
+    if k3 != sum(sqoa for _, _, sqoa in calls):
+        raise AssertionError(f"the {path} path launched K3 {k3} times in "
+                             f"{sum(c[2] for c in calls)} SQOA encode calls")
 
 
 def main() -> int:
@@ -1866,18 +2074,34 @@ def main() -> int:
     print(f"made and encoded (native) the inputs in "
           f"{time.perf_counter() - t0:.1f} s")
 
-    rec = check_kernels(stages, dev)
-    for k, rows in check_qoi_kernels(qstages, dev).items():
+    phase_s = {}
+
+    def timed(name, fn, *a):
+        t = time.perf_counter()
+        out = fn(*a)
+        phase_s[name] = time.perf_counter() - t
+        return out
+
+    rec = timed("check_kernels", check_kernels, stages, dev)
+    for k, rows in timed("check_qoi_kernels", check_qoi_kernels, qstages,
+                         dev).items():
         rec[k] += rows
-    rec["K4"] = check_pack_kernel(large, dev)
-    rec["K1seg"] = check_segment_kernel(classes, dev)
-    rec["K1"].append(check_saturation(dev))
-    for k, rows in check_path_kernels(large, classes, mixed, dev).items():
+    rec["K4"] = timed("check_pack_kernel", check_pack_kernel, large, dev)
+    rec["K1seg"] = timed("check_segment_kernel", check_segment_kernel,
+                         classes, dev)
+    rec["K1"].append(timed("check_saturation", check_saturation, dev))
+    for k, rows in timed("check_path_kernels", check_path_kernels, large,
+                         classes, mixed, dev).items():
         rec[k] += rows
-    edges = check_edge_kernels(dev)
-    edges.update(check_edge_engine(dev))
-    edges["K7"] = check_edge_slots(dev)
-    edges["K1"] = check_edge_front(stages, dev)
+    edges = timed("check_edge_kernels", check_edge_kernels, dev)
+    edges.update(timed("check_edge_engine", check_edge_engine, dev))
+    edges["K7"] = timed("check_edge_slots", check_edge_slots, dev)
+    edges["K1"] = timed("check_edge_front", check_edge_front, stages, dev)
+    edges["K3"] = timed("check_edge_encode_front", check_edge_encode_front,
+                        dev)
+    edges["K1seg"] = timed("check_edge_segments", check_edge_segments, dev)
+    print("seconds a check: " + ", ".join(f"{k} {v:.1f}"
+                                          for k, v in phase_s.items()))
     for k, rows in edges.items():
         print(f"{k} at {len(rows)} edge shapes: max err "
               f"{max(r['err'] for r in rows)}")
@@ -1921,25 +2145,28 @@ def main() -> int:
     counters["K1seg"] = (frontend.decode_front_compact, "seg_launches")
     torch.cuda.reset_peak_memory_stats()
     gaps = {}
-    sqoa_launches, rates = _counted(counters, lambda: main_path(stages, dev),
-                                    gaps)
+    sqoa_launches, (rates, calls), table = _counted(
+        counters, lambda: main_path(stages, dev), gaps)
+    _one_front_one_k2("SQOA", table, calls)
     # the .qoi path must stay on the card: count the host decodes it makes
     dec_mod = importlib.import_module("seqoia_tpu_torch.codec.decode")
     host, host_calls = dec_mod._host, []
     dec_mod._host = lambda *a: host_calls.append(1) or host(*a)
     try:
-        qoi_launches, (qoi_rates, fix) = _counted(
+        qoi_launches, (qoi_rates, fix, calls), table = _counted(
             counters, lambda: qoi_path(qstages, dev), gaps)
     finally:
         dec_mod._host = host
     if host_calls:
         raise AssertionError(f"{len(host_calls)} .qoi decodes went to the host")
-    large_launches, (large_rates, rgb_stream) = _counted(
+    _one_front_one_k2(".qoi", table, calls)
+    large_launches, (large_rates, rgb_stream, calls), table = _counted(
         counters, lambda: large_path(large, dev), gaps)
+    _one_front_one_k2("large-image", table, calls)
     if large_launches["K4"] != 3:
         raise AssertionError(f"K4 ran {large_launches['K4']} times, not once "
                              "per stride")
-    icon_launches, (icon_rates, timings) = _counted(
+    icon_launches, (icon_rates, timings), _ = _counted(
         counters, lambda: icon_path(classes, mixed, ref_stream, dev), gaps)
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     steps = large_steps(large[0], rgb_stream, dev)

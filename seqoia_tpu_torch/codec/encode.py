@@ -1,10 +1,10 @@
 """Full-file encode through the port (``seqoia_tpu/codec/encode_jax.py``).
 
 Pixel normalization to the encoder's initial-state conventions, a
-power-of-two pixel bucket, and the output cap: an optimistic cap from the
-bytes per pixel seen so far for the same (colch, has_alpha, compat), with
-one exact retry when a stream overflows it (the card returns the exact
-total even then). SQOA and QOI-compat (``.qoi``) streams alike.
+power-of-two pixel bucket, and one encode: the front (K3, or the ``.qoi``
+front) computes the exact stream total before K2 runs, and K2's output is
+sized from it, so a call runs one front and one K2 and never retries.
+SQOA and QOI-compat (``.qoi``) streams alike.
 """
 
 from __future__ import annotations
@@ -34,28 +34,9 @@ def normalize_pixels_packed(pixels, desc: spec.SqoaDesc) -> np.ndarray:
     return out.reshape(-1).view("<u4").view(np.int32)
 
 
-#: observed bytes per pixel per (colch, has_alpha, compat): sizes the
-#: optimistic cap
-_RATE_EST: dict = {}
-
-
 def pixel_bucket(n: int) -> int:
     """Power-of-two pixel bucket the encode runs at."""
     return 1 << max(n - 1, 1).bit_length()
-
-
-def _rate_key(desc: spec.SqoaDesc) -> tuple:
-    return desc.col_channels, desc.has_alpha, bool(desc.qoi_compat)
-
-
-def first_cap(desc: spec.SqoaDesc, n_pad: int) -> int:
-    """Output cap of the next encode of this (colch, has_alpha, compat):
-    the worst case until a rate was observed, then the optimistic
-    estimate."""
-    worst = n_pad * (desc.norm_channels + 1) + spec.PADDING_SIZE + 1
-    est = _RATE_EST.get(_rate_key(desc))
-    cap = worst if est is None else int(n_pad * est * 1.25) + 64
-    return min(spec.cap_bucket(cap), spec.cap_bucket(worst))
 
 
 def encode(pixels, desc: spec.SqoaDesc, device="cuda") -> bytes | None:
@@ -70,18 +51,8 @@ def encode(pixels, desc: spec.SqoaDesc, device="cuda") -> bytes | None:
     n_pad = pixel_bucket(n)
     if n_pad > n:
         rgba_np = np.concatenate([rgba_np, np.zeros(n_pad - n, np.int32)])
-    key = _rate_key(desc)
-    est = _RATE_EST.get(key)
-    cap = first_cap(desc, n_pad)
     rgba = torch.from_numpy(rgba_np).to(dev)
-    while True:
-        out, total = encode_stream(rgba, n, colch=desc.col_channels,
-                                   out_cap=int(cap),
-                                   compat=bool(desc.qoi_compat))
-        total = int(total)
-        if total <= cap:
-            break
-        cap = spec.cap_bucket(total)
-    peak = total / n_pad
-    _RATE_EST[key] = peak if est is None else 0.5 * est + 0.5 * peak
-    return spec.pack_header(desc) + out[:total].cpu().numpy().tobytes()
+    out, total = encode_stream(rgba, n, colch=desc.col_channels,
+                               compat=bool(desc.qoi_compat))
+    return (spec.pack_header(desc)
+            + out[: int(total)].cpu().numpy().tobytes())

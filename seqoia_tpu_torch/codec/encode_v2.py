@@ -17,6 +17,12 @@ compat epilogue (``EPI_ENCQ``): it spreads (pixel, meta, offset) over the
 output bytes and computes each byte in closed form, as the SQOA branch does.
 The JAX package spreads with K6 and emits the bytes in XLA instead; the
 bytes are the same. ``_compat_bytes`` is the epilogue's plain version.
+
+Both branches know each row's exact stream total before K2 runs (the
+front's byte totals and last changes give it, ``emit_scalars``), so
+without an explicit ``out_cap`` K2's output is sized from the batch's
+largest total (``exact_cap``, one device-to-host read): one front and one
+K2 per call, never a retry at a larger cap.
 """
 
 from __future__ import annotations
@@ -117,6 +123,12 @@ def emit_scalars(n_valid, chunk_totals, last_c, maxrun=spec.SQOA_MAXRUN,
     return scal, total
 
 
+def exact_cap(total) -> int:
+    """K2's output length for exact stream totals ``total`` (B,): the
+    largest, rounded up to K2's multiple of 4 (one device-to-host read)."""
+    return max(-(-int(total.max()) // 4) * 4, 4)
+
+
 def _channels(px):
     return px & 255, (px >> 8) & 255, (px >> 16) & 255, (px >> 24) & 255
 
@@ -173,7 +185,7 @@ def _compat_epilogue() -> engine.Epilogue:
     return engine.Epilogue(engine.EPI_ENCQ, torch.uint8, _compat_bytes)
 
 
-def _encode_compat(packed, n_valid, out_cap: int):
+def _encode_compat(packed, n_valid, out_cap: int | None):
     """The compat branch of encode_stream_batched (see the module
     docstring)."""
     bsz, n = packed.shape
@@ -223,19 +235,21 @@ def _encode_compat(packed, n_valid, out_cap: int):
 
     keys_c, pays_c, n_entries = compact.compact(total_len > 0, offsets,
                                                 [packed, meta])
-    return engine.place_emit(keys_c, pays_c, n_entries, scal, out_cap,
+    cap = exact_cap(total) if out_cap is None else out_cap
+    return engine.place_emit(keys_c, pays_c, n_entries, scal, cap,
                              _emit_inits(), _compat_epilogue()), total
 
 
-def encode_stream_batched(packed, n_valid, *, colch: int, out_cap: int,
-                          compat: bool = False, init_prev=None, run_in=None,
-                          emit_tail=None):
+def encode_stream_batched(packed, n_valid, *, colch: int,
+                          out_cap: int | None = None, compat: bool = False,
+                          init_prev=None, run_in=None, emit_tail=None):
     """Encode a batch of packed (B, N) int32 pixel rows (r|g<<8|b<<16|a<<24,
     normalized per encode.normalize_pixels_packed), n_valid (B,) pixels
     each, as SQOA or (``compat``, colch 3 only) QOI-compat streams.
-    Returns ((B, out_cap) uint8 chunk bytes + trailing run + end marker,
-    (B,) int32 exact totals — a total above out_cap means the output was
-    cut and the caller must retry with a larger cap).
+    Returns ((B, cap) uint8 chunk bytes + trailing run + end marker, (B,)
+    int32 exact totals). cap is ``out_cap`` if given (a total above it
+    means that row's output was cut), else ``exact_cap(totals)``: every
+    row whole.
 
     The three carries, (B,) each and SQOA only, make a row a SHARD of a
     larger image (``parallel/tiled.py``): ``init_prev`` the packed pixel
@@ -257,14 +271,15 @@ def encode_stream_batched(packed, n_valid, *, colch: int, out_cap: int,
                                           init_prev=init_prev, lc0=lc0))
     scal, total = emit_scalars(n_valid, chunk_totals, last_c,
                                emit_tail=emit_tail)
-    out = engine.place_emit(keys, pays, n_entries, scal, out_cap,
+    cap = exact_cap(total) if out_cap is None else out_cap
+    out = engine.place_emit(keys, pays, n_entries, scal, cap,
                             _emit_inits(), _emit_epilogue(colch))
     return out, total
 
 
-def encode_stream(packed, n_valid: int, *, colch: int, out_cap: int,
-                  compat: bool = False):
-    """Single-image encode: packed (N,) int32 -> ((out_cap,) uint8, total)."""
+def encode_stream(packed, n_valid: int, *, colch: int,
+                  out_cap: int | None = None, compat: bool = False):
+    """Single-image encode: packed (N,) int32 -> ((cap,) uint8, total)."""
     out, total = encode_stream_batched(
         packed[None],
         torch.tensor([n_valid], dtype=torch.int32, device=packed.device),
@@ -273,11 +288,12 @@ def encode_stream(packed, n_valid: int, *, colch: int, out_cap: int,
     return out[0], total[0]
 
 
-def encode_stream_flat(packed, n_valid: int, *, colch: int, out_cap: int,
+def encode_stream_flat(packed, n_valid: int, *, colch: int,
+                       out_cap: int | None = None,
                        init_prev: int | None = None, run_in: int = 0,
                        emit_tail: int = 1):
-    """Single large-image SQOA encode: packed (N,) int32 -> ((out_cap,)
-    uint8, total), with the shard carries of encode_stream_batched as
+    """Single large-image SQOA encode: packed (N,) int32 -> ((cap,) uint8,
+    total), with the shard carries of encode_stream_batched as
     scalars. The JAX package keeps rank-1 internals here because a (1, N)
     buffer pads 8x in the TPU's layout; a card has no such padding, so this
     is the batched function at one row."""

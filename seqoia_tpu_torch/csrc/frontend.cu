@@ -45,27 +45,18 @@
 //      tile with bytes before the stream's end, writes totals[row]: no
 //      atomic.
 //
-// Segment mode (k > 1) keeps the passes of its first port, in their own
-// section below: a row of M bytes packs k small images, image j in bytes
-// [j*seg, (j+1)*seg) with its header, each decoding to exactly seg_px
-// pixels. The TPU kernel restarts its carried scans there with a reset map,
-// an injected anchor and a flagged in-tile prefix. Here the segments are
-// independent: every segment is a scan row of its own (the grid runs over
-// B*k rows of seg bytes, so no scan needs a reset), keys come out global
-// (j*seg_px + offset), ops whose offset reaches seg_px are dropped (a
-// suffix of their segment), and the scans run reduce-then-scan across
-// blocks:
-//   k1_maps      per block: composed automaton map of its 4096 bytes
-//   scan         per segment: exclusive composition of the block maps
-//   k1_chan      per block: entry state -> token walk -> block aggregate of
-//                (SWAR channel sum + flags, op count, pixel count); REF flag
-//   scan         per segment: exclusive scan of the channel aggregates
-//   k1_segcount  per block: the segment's ops below seg_px (from the block
-//                aggregates; only a block that straddles seg_px walks)
-//   scan         per packed row: exclusive sum of its segments' counts
-//   k1_emit      per block: redo the walk with its prefix and write each op
-//                at its rank.
-// A segment below 4096 bytes leaves its block underfilled.
+// Segment mode (k > 1) is one launch too, in its own section below: a row
+// of M bytes packs k small images, image j in bytes [j*seg, (j+1)*seg)
+// with its header, each decoding to exactly seg_px pixels. The TPU kernel
+// restarts its carried scans there with a reset map, an injected anchor
+// and a flagged in-tile prefix. Here a 4096-byte tile holds 4096/seg whole
+// segments (segmented block scans, a flag at each segment start, no
+// look-back of their own) or lies inside one (its maps and channel sums
+// look back over that segment's tiles only); keys come out global (j *
+// seg_px + offset), ops whose offset reaches seg_px are dropped (a suffix
+// of their segment), and the kept ops of a packed row are ranked by one
+// look-back over all its tiles. A segment's zero padding past its stream
+// is neither read nor walked for ops.
 
 #include <climits>
 
@@ -314,15 +305,21 @@ __device__ __forceinline__ uint32_t lens4(const Run& r, int q) {
 
 // The channel element and foreign flag of the op at byte p of the staged
 // tile: its bytes p..p+7 from three words of shared memory (funnel
-// shifts), its alpha modifier found again from its length.
+// shifts), its alpha modifier found again from its length. In segment
+// mode the bytes from `room` on lie past the op's segment and read as 0.
 template <int MODE>
-__device__ __forceinline__ Chan elem_at(const uint8_t* s, int p, bool* f) {
+__device__ __forceinline__ Chan elem_at(const uint8_t* s, int p, bool* f,
+                                        int room = 8) {
   const uint32_t* sw = reinterpret_cast<const uint32_t*>(s);
   const int q = p >> 2, sh = 8 * (p & 3);
   const uint32_t w0 = sw[q], w1 = sw[q + 1], w2 = sw[q + 2];
   Run r;
   r.w[0] = __funnelshift_r(w0, w1, sh);
   r.w[1] = __funnelshift_r(w1, w2, sh);
+  if (room < 8) {
+    if (room < 4) r.w[0] &= (1u << (8 * room)) - 1u;
+    r.w[1] &= room <= 4 ? 0u : (1u << (8 * (room - 4))) - 1u;
+  }
   int att;
   tok_len<MODE>(r, 0, &att);
   return op_elem_b(r.b(0), r.b(1), r.b(2), r.b(3), r.b(4), att, MODE, f);
@@ -521,233 +518,357 @@ int front_rows(const uint8_t* data, const int* clen, int B, long long M,
   return (int)cudaGetLastError();
 }
 
-// ===== segment mode (k > 1): reduce-then-scan over every segment =====
+// ===== segment mode (k > 1): one launch over the packed rows' tiles =====
 
-__device__ void load_chunk(const uint8_t* row, long long M, long long base,
-                           uint8_t* s) {
-  for (int i = threadIdx.x; i < CHUNK + HALO; i += NT) {
-    const long long p = base + i;
-    s[i] = p < M ? row[p] : 0;
+// The segmented form of a scan: a flag on the element that starts a
+// segment, and op(l, r) = r where r holds a start. The map's flag rides
+// bit 31 (a map takes 18 bits).
+constexpr uint32_t SEG_START = 1u << 31;
+
+struct SegMap {
+  __device__ uint32_t operator()(uint32_t l, uint32_t r) const {
+    if (r & SEG_START) return r;
+    return (l & SEG_START) | Compose6()(l & ~SEG_START, r);
   }
-  __syncthreads();
-}
-
-// Token length at local byte i (the length the automaton skips): in mode
-// alpha an op absorbs a following alpha-range byte (the reference's one
-// alpha peek after every op); *att is that modifier's delta.
-__device__ __forceinline__ int eff_len(const uint8_t* s, int i, long long pos,
-                                       int mode, int* att) {
-  const int b = s[i];
-  const int luma = (b & 0xC0) == 0x80, rgb = b == 0xFE, rgba = b == 0xFF;
-  int len;
-  *att = 0;
-  if (mode == MODE_MONO) {
-    len = 1 + rgb + 2 * rgba;
-  } else if (mode == MODE_NOALPHA) {
-    len = 1 + luma + 3 * rgb;  // RGBA is foreign here: parsed as 1 byte
-  } else {
-    len = 1 + luma + 3 * rgb + 4 * rgba;
-    const int nx = s[i + len];
-    if (nx >= 0x60 && nx < 0x80) {
-      *att = (nx & 31) - 16;
-      len += 1;
-    }
-  }
-  return pos >= HDR1 ? len : 1;
-}
-
-__device__ uint32_t thread_map(const uint8_t* s, long long base, int mode) {
-  Compose6 c;
-  uint32_t m = IDENT6;
-  const int i0 = threadIdx.x * IPT;
-  for (int j = 0; j < IPT; ++j) {
-    int att;
-    const int L = eff_len(s, i0 + j, base + i0 + j, mode, &att);
-    m = c(m, (uint32_t)(L - 1) + BASE6);
-  }
-  return m;
-}
-
-// Channel element, pixel count and foreign flag of the op at local byte i.
-__device__ __forceinline__ Chan op_elem(const uint8_t* s, int i, int att,
-                                        int mode, bool* foreign) {
-  return op_elem_b(s[i], s[i + 1], s[i + 2], s[i + 3], s[i + 4], att, mode,
-                   foreign);
-}
-
-// Walk the thread's 16 bytes from automaton state `state`, calling
-// f(i, att) at every token (op) position.
-template <class F>
-__device__ __forceinline__ void walk(const uint8_t* s, long long base,
-                                     int state, int mode, long long clen,
-                                     F f) {
-  const int i0 = threadIdx.x * IPT;
-  for (int j = 0; j < IPT; ++j) {
-    const int i = i0 + j;
-    const long long pos = base + i;
-    int att;
-    const int L = eff_len(s, i, pos, mode, &att);
-    if (state == 0 && pos >= HDR1 && pos < clen) f(i, att);
-    state = state == 0 ? L - 1 : state - 1;
-  }
-}
-
-// Automaton state at the thread's first byte.
-__device__ int entry_state(const uint8_t* s, long long base, int mode,
-                           uint32_t blk_prefix, uint32_t* mbuf) {
-  uint32_t tot;
-  const uint32_t ex =
-      block_scan_excl(thread_map(s, base, mode), IDENT6, mbuf, &tot,
-                      Compose6());
-  return (int)(Compose6()(blk_prefix, ex) & 7u);
-}
-
-// Block (x, y, z) of the grid works on bytes [base, base + CHUNK) of scan
-// row z * gridDim.y + y, base = x * CHUNK: the rows fold over y and z (at
-// most 65535 each), so no thread divides. g indexes the block aggregates.
-struct Blk {
-  unsigned row;
-  long long g, base;
 };
 
-__device__ __forceinline__ Blk k1_block(int nblk) {
-  Blk b;
-  b.row = blockIdx.z * gridDim.y + blockIdx.y;
-  b.g = (long long)b.row * nblk + blockIdx.x;
-  b.base = (long long)blockIdx.x * CHUNK;
-  return b;
+// A segment's channel element: (val, flg bits 0-1) as in Chan, flg bit 2
+// the start flag, npix the saturating pixel count since the segment start.
+struct SChan {
+  uint32_t val, flg;
+  int npix;
+};
+
+constexpr uint32_t SCHAN_START = 4u;
+
+__host__ __device__ __forceinline__ SChan schan_ident() {
+  SChan c;
+  c.val = 0;
+  c.flg = 0;
+  c.npix = 0;
+  return c;
 }
 
-__global__ void k1_maps(const uint8_t* data, long long M, unsigned R,
-                        int nblk, int mode, uint32_t* blk_maps) {
-  __shared__ uint8_t s[CHUNK + HALO];
-  __shared__ uint32_t mbuf[NT];
-  const Blk blk = k1_block(nblk);
-  if (blk.row >= R) return;  // the fold's last z plane may be short
-  const long long g = blk.g, row = blk.row, base = blk.base;
-  load_chunk(data + row * M, M, base, s);
-  uint32_t tot;
-  block_scan_excl(thread_map(s, base, mode), IDENT6, mbuf, &tot, Compose6());
-  if (threadIdx.x == 0) blk_maps[g] = tot;
+struct SChanOp {
+  __device__ SChan operator()(const SChan& l, const SChan& r) const {
+    if (r.flg & SCHAN_START) return r;
+    SChan o;
+    val_op(l.val, l.flg, r.val, r.flg, &o.val, &o.flg);
+    o.flg |= l.flg & SCHAN_START;
+    o.npix = sat_add(l.npix, r.npix);
+    return o;
+  }
+};
+
+__device__ __forceinline__ SChan shfl_up(SChan c, int d) {
+  SChan o;
+  o.val = (uint32_t)lb::shfl_up((int)c.val, d);
+  o.flg = (uint32_t)lb::shfl_up((int)c.flg, d);
+  o.npix = lb::shfl_up(c.npix, d);
+  return o;
 }
 
-__global__ void k1_chan(const uint8_t* data, long long M, unsigned R,
-                        int nblk, int mode, const int* clen, const uint32_t* blk_map_ex, int k,
-                        Chan* blk_chan, int* has_ref) {
-  __shared__ uint8_t s[CHUNK + HALO];
-  __shared__ uint32_t mbuf[NT];
-  __shared__ Chan cbuf[NT];
-  const Blk blk = k1_block(nblk);
-  if (blk.row >= R) return;  // the fold's last z plane may be short
-  const long long g = blk.g, row = blk.row, base = blk.base;
-  load_chunk(data + row * M, M, base, s);
-  const int st = entry_state(s, base, mode, blk_map_ex[g], mbuf);
-  ChanOp op;
-  Chan acc = chan_ident();
-  bool fr = false;
-  walk(s, base, st, mode, clen[row], [&](int i, int att) {
-    bool f;
-    acc = op(acc, op_elem(s, i, att, mode, &f));
-    fr |= f;
-  });
-  Chan tot;
-  block_scan_excl(acc, chan_ident(), cbuf, &tot, op);
-  if (threadIdx.x == 0) blk_chan[g] = tot;
-  if (fr) atomicOr(has_ref + blk.row / (unsigned)k, 1);  // per packed row
-}
+struct NpixC {  // a segment's saturating pixel count across its tiles
+  using T = int;
+  __host__ __device__ static T ident() { return 0; }
+  __device__ T operator()(T l, T r) const { return sat_add(l, r); }
+  __device__ static u64 pack(T v) { return (u64)(unsigned)v; }
+  __device__ static T unpack(u64 w) { return (int)(w & 0x7FFFFFFFu); }
+};
 
-// Segment mode: seg_cnt[segment] += the block's ops whose offset in the
-// segment is below seg_px. Offsets grow with rank, so a block wholly below
-// seg_px counts its aggregate, one wholly past it counts nothing, and only a
-// block that straddles seg_px walks its bytes.
-__global__ void k1_segcount(const uint8_t* data, long long M, unsigned R,
-                            int nblk, int mode, const int* clen,
-                            const uint32_t* blk_map_ex, const Chan* blk_chan,
-                            const Chan* blk_chan_ex, int seg_px,
-                            int* seg_cnt) {
-  __shared__ uint8_t s[CHUNK + HALO];
-  __shared__ uint32_t mbuf[NT];
-  __shared__ Chan cbuf[NT];
-  const Blk blk = k1_block(nblk);
-  if (blk.row >= R) return;  // the fold's last z plane may be short
-  const long long g = blk.g, row = blk.row, base = blk.base;
-  const Chan pre = blk_chan_ex[g], agg = blk_chan[g];
-  if (pre.npix >= seg_px || agg.cnt == 0) return;
-  if ((long long)pre.npix + agg.npix <= seg_px) {
-    if (threadIdx.x == 0) atomicAdd(seg_cnt + row, agg.cnt);
+// A staged op between the two folds: its element (val in stage_k; npix,
+// flg and its segment, counted from the tile's first, in stage_p).
+constexpr int SP_FLG = 10, SP_SEG = 13;  // npix <= 512 takes bits 0-9
+
+// Six blocks an SM, as k1_tiles. Row `row` packs k = M / seg segments of
+// seg bytes (seg a power of two, 2^lg); its tiles of 4096 bytes hold
+// 4096 / seg whole segments each (seg <= 4096), or a segment spans seg /
+// 4096 tiles (seg > 4096). Per tile:
+//   1. the live bytes of its segments (up to clen + HALO, in 16-byte
+//      vectors) come into shared memory, zeros elsewhere; a tile with no
+//      op position publishes an empty rank aggregate and returns (the
+//      row's last tile still looks back, for totals);
+//   2. the automaton maps restart at each segment start (a segmented block
+//      scan); a tile inside a segment longer than a tile takes its entry
+//      map by look-back over that segment's earlier tiles only;
+//   3. the tile's ops are listed and dealt out as equal runs (k1_tiles' step
+//      3); their channel elements and pixel counts are folded by a
+//      segmented scan (a start flag on each segment's first op) and, in a
+//      segment longer than a tile, by two look-backs over its tiles ((val,
+//      flg) by warp 0, the pixel count by warp 1);
+//   4. each op's key (its segment's first pixel j * seg_px plus its offset)
+//      and payload replace its element in place; ops whose offset reaches
+//      seg_px are dropped (a suffix of their segment). The kept ops are
+//      ranked by a block scan and a look-back over the whole packed row
+//      (segment restarts do not reset it), and leave as one contiguous run
+//      of vector stores when the tile dropped none, else op by op. The
+//      row's last tile writes totals[row]: no atomic.
+template <int MODE>
+__global__ void __launch_bounds__(NT, 6)
+    k1_segs(const uint8_t* data, long long M, int nt, int k, int lg,
+            const int* clen, int seg_px, u64* st_rank, u64* st_map,
+            u64* st_val, u64* st_npix, unsigned* counter, int* keys,
+            int* pays, int* totals, int* has_ref) {
+  __shared__ __align__(16) uint8_t s[CHUNK + 16];
+  __shared__ __align__(16) int stage_k[CHUNK];
+  __shared__ __align__(16) int stage_p[CHUNK];
+  __shared__ uint32_t mtot[lb::NW + 1];
+  __shared__ int itot[lb::NW + 1];
+  __shared__ SChan ctot[lb::NW + 1];
+  __shared__ uint32_t s_map;
+  __shared__ Val s_val;
+  __shared__ int s_npix, s_rank, s_id;
+  const int id = lb::next_tile(counter, &s_id);
+  const int row = id / nt, tile = id - row * nt;
+  const long long base = (long long)tile * CHUNK;
+  const long long seg = 1LL << lg;
+  const int* crow = clen + (long long)row * k;
+  const int j0 = (int)(base >> lg);  // the segment of the tile's first byte
+  // a segment longer than a tile: the tile's index inside it, else -1
+  const int tis = seg > CHUNK ? (int)((base & (seg - 1)) / CHUNK) : -1;
+  const auto live_end = [&](int j) {  // op positions end here in segment j
+    return (int)min(max((long long)crow[j], 0LL), seg);
+  };
+  u64* const rk = st_rank + (long long)row * nt;
+
+  // --- does any segment of the tile start an op in it? -------------------
+  bool any = false;
+  if (tis >= 0) {
+    any = threadIdx.x == 0 &&
+          live_end(j0) > max((int)(base & (seg - 1)), (int)HDR1);
+  } else {
+    const int nseg = (int)(min((long long)CHUNK, M - base) >> lg);
+    any = (int)threadIdx.x < nseg && live_end(j0 + threadIdx.x) > HDR1;
+  }
+  if (!__syncthreads_or(any)) {
+    if (tile == nt - 1) {
+      if (threadIdx.x < 32) {
+        const int r = lb::tile_prefix<lb::WordSum>(rk, tile, 0);
+        if (threadIdx.x == 0) totals[row] = r;
+      }
+    } else if (threadIdx.x == 0) {
+      lb::st_status(rk + tile, tile == 0 ? lb::ST_PREFIX : lb::ST_AGG);
+    }
     return;
   }
-  load_chunk(data + row * M, M, base, s);
-  const int st = entry_state(s, base, mode, blk_map_ex[g], mbuf);
-  ChanOp op;
-  Chan acc = chan_ident();
-  walk(s, base, st, mode, clen[row], [&](int i, int att) {
-    bool unused;
-    acc = op(acc, op_elem(s, i, att, mode, &unused));
-  });
-  Chan tot;
-  const Chan ex = block_scan_excl(acc, chan_ident(), cbuf, &tot, op);
-  Chan run = op(pre, ex);
-  int here = 0;
-  walk(s, base, st, mode, clen[row], [&](int i, int att) {
-    bool unused;
-    here += run.npix < seg_px;
-    run = op(run, op_elem(s, i, att, mode, &unused));
-  });
-  if (here) atomicAdd(seg_cnt + row, here);
+
+  // --- stage the live bytes ------------------------------------------------
+  const uint8_t* drow = data + (long long)row * M;
+  for (int v = threadIdx.x; v <= CHUNK / 16; v += NT) {
+    const long long p = base + 16 * v;
+    uint4 q = make_uint4(0u, 0u, 0u, 0u);
+    if (p < M && (p & (seg - 1)) < live_end((int)(p >> lg)) + HALO)
+      q = __ldcs(reinterpret_cast<const uint4*>(drow + p));
+    *reinterpret_cast<uint4*>(s + 16 * v) = q;
+  }
+  __syncthreads();
+
+  // --- the thread's bytes, token lengths and automaton map --------------
+  const int i0 = threadIdx.x * IPT;
+  const long long p0 = base + i0;
+  const int jt = (int)(p0 >> lg);          // the thread's segment
+  const int loc0 = (int)(p0 & (seg - 1));  // its first byte in it
+  Run r;
+  {
+    const uint4 a = *reinterpret_cast<const uint4*>(s + i0);
+    const uint2 h = *reinterpret_cast<const uint2*>(s + i0 + IPT);
+    r.w[0] = a.x, r.w[1] = a.y, r.w[2] = a.z, r.w[3] = a.w;
+    // the bytes after a segment's end read as 0
+    const bool last = ((loc0 + IPT) & (seg - 1)) == 0;
+    r.w[4] = last ? 0u : h.x;
+    r.w[5] = last ? 0u : h.y;
+  }
+  const int lo = min(max((int)HDR1 - loc0, 0), IPT);
+  const int hi = p0 < M ? min(max(live_end(jt) - loc0, 0), IPT) : 0;
+  uint32_t lm1[IPT / 4];
+#pragma unroll
+  for (int q = 0; q < IPT / 4; ++q) lm1[q] = lens4<MODE>(r, q);
+  if (lo > 0) {  // the header: one byte a step
+#pragma unroll
+    for (int j = 0; j < IPT; ++j)
+      if (j < lo) lm1[j >> 2] &= ~(0xFFu << (8 * (j & 3)));
+  }
+  uint32_t map = IDENT6;
+#pragma unroll
+  for (int j = 0; j < IPT; ++j)
+    map = step6(map, (lm1[j >> 2] >> (8 * (j & 3))) & 7u);
+  const bool starts = loc0 == 0;
+  uint32_t agg_map;
+  const uint32_t ex_map = lb::block_scan_warp(
+      map | (starts ? SEG_START : 0u), IDENT6, mtot, &agg_map, SegMap());
+  if (tis >= 0 && threadIdx.x < 32) {
+    const uint32_t t = lb::tile_prefix<MapC>(st_map + (id - tis), tis,
+                                             agg_map & ~SEG_START);
+    if (threadIdx.x == 0) s_map = t;
+  }
+  __syncthreads();
+  int state = 0;
+  if (!starts) {
+    const uint32_t pm = tis > 0 ? s_map : IDENT6;
+    state = (ex_map & SEG_START)
+                ? (int)(ex_map & 7u)
+                : (int)((ex_map >> (3 * (pm & 7u))) & 7u);
+  }
+
+  // --- the tile's ops in order: their bytes, listed in shared memory ----
+  uint32_t tm = 0;  // bit j: byte j starts an op
+#pragma unroll
+  for (int j = 0; j < IPT; ++j) {
+    if (state == 0 && j >= lo && j < hi) tm |= 1u << j;
+    state = state == 0 ? (int)((lm1[j >> 2] >> (8 * (j & 3))) & 7u)
+                       : state - 1;
+  }
+  int n_ops;
+  int o = lb::block_scan_warp(__popc(tm), 0, itot, &n_ops, lb::WordSum());
+  for (; tm; tm &= tm - 1) stage_p[o++] = i0 + __ffs(tm) - 1;
+  __syncthreads();
+
+  // --- each thread's run of consecutive ops: its segmented aggregate; in a
+  // long segment, the tile's prefix by look-back -----------------------------
+  const int per = (n_ops + NT - 1) / NT;
+  const int o0 = min((int)threadIdx.x * per, n_ops);
+  const int o1 = min(o0 + per, n_ops);
+  // the segment (counted from the tile's first) of the op before the run;
+  // -1 before the tile's first segment start. Read before any run
+  // overwrites its ops' byte positions.
+  const auto seg_of = [&](int p) { return (int)((base + p) >> lg) - j0; };
+  int prev = o0 > 0 ? seg_of(stage_p[o0 - 1]) : (tis > 0 ? 0 : -1);
+  __syncthreads();
+  SChan acc = schan_ident();
+  bool fr = false;
+  for (int q = o0; q < o1; ++q) {
+    const int p = stage_p[q];
+    const int sg = seg_of(p);
+    bool f;
+    // bytes left in the op's segment: those past its end read as 0
+    const int room = (int)(seg - ((base + p) & (seg - 1)));
+    const Chan e = elem_at<MODE>(s, p, &f, room);
+    SChan se;
+    se.val = e.val;
+    se.flg = e.flg | (sg != prev ? SCHAN_START : 0u);
+    se.npix = e.npix;
+    prev = sg;
+    acc = SChanOp()(acc, se);
+    fr |= f;
+    stage_k[q] = (int)e.val;
+    stage_p[q] = e.npix | (int)(se.flg << SP_FLG) | (sg << SP_SEG);
+  }
+  SChan agg;
+  const SChan ex = lb::block_scan_warp(acc, schan_ident(), ctot, &agg,
+                                       SChanOp());
+  if (tis >= 0) {
+    if (threadIdx.x < 32) {
+      const Val v = lb::tile_prefix<ValC>(st_val + (id - tis), tis,
+                                          Val{agg.val, agg.flg & 3u});
+      if (threadIdx.x == 0) s_val = v;
+    } else if (threadIdx.x < 64) {
+      const int c = lb::tile_prefix<NpixC>(st_npix + (id - tis), tis,
+                                           agg.npix);
+      if (threadIdx.x == 32) s_npix = c;
+    }
+  }
+  if (__syncthreads_or(fr) && threadIdx.x == 0) atomicOr(has_ref + row, 1);
+
+  // --- every op's key and payload in place; the kept ops' ranks ----------
+  SChan run = schan_ident();
+  if (tis > 0) {
+    run.val = s_val.val;
+    run.flg = s_val.flg;
+    run.npix = s_npix;
+  }
+  run = SChanOp()(run, ex);
+  int kept = 0;
+  for (int q = o0; q < o1; ++q) {
+    const int sp = stage_p[q];
+    SChan e;
+    e.val = (uint32_t)stage_k[q];
+    e.flg = (uint32_t)(sp >> SP_FLG) & 7u;
+    e.npix = sp & 1023;
+    if (e.flg & SCHAN_START) run = schan_ident();
+    const int key = run.npix;
+    run = SChanOp()(run, e);
+    // offsets grow with rank: the kept ops are a prefix of their segment
+    const bool keep = key < seg_px;
+    stage_k[q] = keep ? (j0 + (sp >> SP_SEG)) * seg_px + key : -1;
+    stage_p[q] = payload(Chan{run.val, run.flg & 3u, 0, 0});
+    kept += keep;
+  }
+  int n_kept;
+  const int ex_r = lb::block_scan_warp(kept, 0, itot, &n_kept, lb::WordSum());
+  if (threadIdx.x < 32) {
+    const int rp = lb::tile_prefix<lb::WordSum>(rk, tile, n_kept);
+    if (threadIdx.x == 0) s_rank = rp;
+  }
+  __syncthreads();
+  const int rank = s_rank;
+  const long long out = (long long)row * M + rank;
+  if (n_kept == n_ops) {
+    lb::store_tile(keys + out, n_ops, lb::Linear{stage_k});
+    lb::store_tile(pays + out, n_ops, lb::Linear{stage_p});
+  } else {
+    int w = ex_r;
+    for (int q = o0; q < o1; ++q)
+      if (stage_k[q] >= 0) {
+        keys[out + w] = stage_k[q];
+        pays[out + w] = stage_p[q];
+        ++w;
+      }
+  }
+  if (threadIdx.x == 0 && tile == nt - 1) totals[row] = rank + n_kept;
 }
 
-// Scan row `row` is segment row % k of output row row / k: its keys start
-// at (row % k) * seg_px and its ops rank after seg_base[row].
-__global__ void k1_emit(const uint8_t* data, long long M, unsigned R,
-                        int nblk, int mode, const int* clen, const uint32_t* blk_map_ex,
-                        const Chan* blk_chan_ex, int seg_px, int k,
-                        const int* seg_base, int* keys, int* pays,
-                        int* totals) {
-  __shared__ uint8_t s[CHUNK + HALO];
-  __shared__ uint32_t mbuf[NT];
-  __shared__ Chan cbuf[NT];
-  const Blk blk = k1_block(nblk);
-  if (blk.row >= R) return;  // the fold's last z plane may be short
-  const long long g = blk.g, row = blk.row, base = blk.base;
-  load_chunk(data + row * M, M, base, s);
-  const int st = entry_state(s, base, mode, blk_map_ex[g], mbuf);
-  ChanOp op;
-  Chan acc = chan_ident();
-  walk(s, base, st, mode, clen[row], [&](int i, int att) {
-    bool unused;
-    acc = op(acc, op_elem(s, i, att, mode, &unused));
-  });
-  Chan tot;
-  const Chan ex = block_scan_excl(acc, chan_ident(), cbuf, &tot, op);
-  Chan run = op(blk_chan_ex[g], ex);
-  const unsigned orow = blk.row / (unsigned)k;
-  const int kbase = (int)(blk.row - orow * (unsigned)k) * seg_px;
-  const long long rbase = (long long)orow * (M * k) + seg_base[row];
-  int* krow = keys + rbase;
-  int* prow = pays + rbase;
-  int here = 0;
-  walk(s, base, st, mode, clen[row], [&](int i, int att) {
-    bool f;
-    const int key = run.npix;
-    run = op(run, op_elem(s, i, att, mode, &f));
-    if (key < seg_px) {  // offsets grow with rank: in-range ops are a prefix
-      krow[run.cnt - 1] = kbase + key;
-      prow[run.cnt - 1] = payload(run);
-      ++here;
-    }
-  });
-  if (here) atomicAdd(totals + orow, here);
+int front_segs(const uint8_t* data, const int* clen, int B, long long M,
+               int k, int seg_px, int mode, uint32_t* scratch, int* keys,
+               int* pays, int* totals, int* has_ref, cudaStream_t st) {
+  if (B <= 0 || M <= 0) return 0;
+  const long long seg = M / k;
+  int lg = 0;
+  while ((1LL << lg) < seg) ++lg;
+  if ((1LL << lg) != seg || seg < 128 || M % 16 ||
+      ((uintptr_t)data & 15) || M >= INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  const long long nt = (M + CHUNK - 1) / CHUNK;
+  const long long tiles = B * nt;
+  if (tiles > INT_MAX) return (int)cudaErrorInvalidValue;
+  u64* words = reinterpret_cast<u64*>(scratch);
+  const cudaError_t e =
+      lb::lb_scratch(words, (seg > CHUNK ? 4 : 1) * tiles, st);
+  if (e != cudaSuccess) return (int)e;
+  unsigned* counter = reinterpret_cast<unsigned*>(words);
+  u64* st_rank = words + 1;
+  u64* st_map = st_rank + tiles;
+  u64* st_val = st_map + tiles;
+  u64* st_npix = st_val + tiles;
+#define K1S_LAUNCH(MODE)                                                     \
+  k1_segs<MODE><<<(unsigned)tiles, NT, 0, st>>>(                             \
+      data, M, (int)nt, k, lg, clen, seg_px, st_rank, st_map, st_val,        \
+      st_npix, counter, keys, pays, totals, has_ref)
+  switch (mode) {
+    case MODE_ALPHA:
+      K1S_LAUNCH(MODE_ALPHA);
+      break;
+    case MODE_NOALPHA:
+      K1S_LAUNCH(MODE_NOALPHA);
+      break;
+    case MODE_MONO:
+      K1S_LAUNCH(MODE_MONO);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef K1S_LAUNCH
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// data (B, M) u8, any row length and alignment. k = 1: clen (B,) i32 =
+// data (B, M) u8. k = 1: any row length and alignment; clen (B,) i32 =
 // stream length minus the end marker; scratch 2 * (3 * B * ceil(M / 4096)
 // + 1) u32, zeroed here (one launch). k > 1 (segment mode): a row packs k
-// images of seg = M / k bytes, clen is (B, k), relative to the segment,
-// every image decodes to seg_px pixels and n_max = k * seg_px; scratch
-// 10 * B * k * nblk + 2 * B * k u32 (nblk = ceil(seg / 4096)). Both sizes:
+// images of seg = M / k bytes (a power of two, at least 128; data 16-byte
+// aligned), clen is (B, k), relative to the segment, every image decodes
+// to seg_px pixels and n_max = k * seg_px; scratch 2 * (4 * B *
+// ceil(M / 4096) + 1) u32, zeroed here (one launch). Both sizes:
 // ops/frontend.py:scratch_words. keys/pays (B, M) i32; totals, has_ref (B,)
 // i32, zeroed by the caller. Returns cudaGetLastError.
 extern "C" int k1_decode_front(const uint8_t* data, const int* clen, int B,
@@ -759,35 +880,6 @@ extern "C" int k1_decode_front(const uint8_t* data, const int* clen, int B,
   if (k == 1)
     return front_rows(data, clen, B, M, n_max, mode, scratch, keys, pays,
                       totals, has_ref, st);
-  const long long seg = M / k;
-  const long long R = (long long)B * k;  // scan rows
-  const int nblk = (int)((seg + CHUNK - 1) / CHUNK);
-  const long long nb = R * nblk;
-  if (nb > INT_MAX) return (int)cudaErrorInvalidValue;  // scratch indices
-  if (nb == 0) return 0;
-  uint32_t* blk_maps = scratch;
-  uint32_t* blk_map_ex = scratch + nb;
-  Chan* blk_chan = reinterpret_cast<Chan*>(scratch + 2 * nb);
-  Chan* blk_chan_ex = reinterpret_cast<Chan*>(scratch + 6 * nb);
-  int* seg_cnt = reinterpret_cast<int*>(scratch + 10 * nb);
-  int* seg_base = seg_cnt + R;
-  const unsigned rows = (unsigned)R, ry = rows < 65535u ? rows : 65535u;
-  const dim3 grid(nblk, ry, (rows + ry - 1) / ry);
-  k1_maps<<<grid, NT, 0, st>>>(data, seg, rows, nblk, mode, blk_maps);
-  scan_blocks_kernel<uint32_t, Compose6><<<rows, NT, 0, st>>>(
-      blk_maps, blk_map_ex, nullptr, nblk, IDENT6, Compose6());
-  k1_chan<<<grid, NT, 0, st>>>(data, seg, rows, nblk, mode, clen, blk_map_ex,
-                               k, blk_chan, has_ref);
-  scan_blocks_kernel<Chan, ChanOp><<<rows, NT, 0, st>>>(
-      blk_chan, blk_chan_ex, nullptr, nblk, chan_ident(), ChanOp());
-  cudaMemsetAsync(seg_cnt, 0, R * sizeof(int), st);
-  k1_segcount<<<grid, NT, 0, st>>>(data, seg, rows, nblk, mode, clen,
-                                   blk_map_ex, blk_chan, blk_chan_ex, seg_px,
-                                   seg_cnt);
-  scan_blocks_kernel<int, SumOp><<<B, NT, 0, st>>>(seg_cnt, seg_base, nullptr,
-                                                   k, 0, SumOp());
-  k1_emit<<<grid, NT, 0, st>>>(data, seg, rows, nblk, mode, clen, blk_map_ex,
-                               blk_chan_ex, seg_px, k, seg_base, keys, pays,
-                               totals);
-  return (int)cudaGetLastError();
+  return front_segs(data, clen, B, M, k, seg_px, mode, scratch, keys, pays,
+                    totals, has_ref, st);
 }

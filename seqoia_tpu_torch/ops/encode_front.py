@@ -1,10 +1,12 @@
 """K3: SQOA encode front-end, packed pixels -> compacted emission stream.
 
 Port of ``seqoia_tpu/ops/pallas_encode.py:encode_front_compact``. The kernel
-is ``csrc/encode_front.cu`` (reduce-then-scan across blocks; see its header
-for the design and what bounds it on the H100); ``encode_front_plain`` is
-the same function in plain PyTorch, in the form of the JAX package's XLA
-path (``encode_v2.encode_stream_batched``, non-compat branch).
+is ``csrc/encode_front.cu``: one launch whose 4096-pixel tiles are chained
+by two decoupled look-backs (the last change, then the entry and byte
+counts); see its header for the design and what bounds it on the H100.
+``encode_front_plain`` is the same function in plain PyTorch, in the form
+of the JAX package's XLA path (``encode_v2.encode_stream_batched``,
+non-compat branch).
 
 Per pixel: the change/run segmentation against the previous pixel
 (``init_prev`` before the first), the pending run flushed by a change and
@@ -25,6 +27,16 @@ from ._plain import compact_rows, hillis_steele
 INIT_PACKED = -16777216  # (0, 0, 0, 255): the codec's initial pixel
 
 CL_LUMA, CL_RGB, CL_MONO_GA, CL_NONE = 0, 1, 2, 7
+
+
+TILE = 4096  # pixels a tile (a block) of the kernel
+
+
+def scratch_words(bsz: int, n: int) -> int:
+    """int32 words of a K3 launch's scratch over (bsz, n) pixels: a 64-bit
+    tile counter and two 64-bit status words per tile (the last change,
+    the entry and byte counts)."""
+    return 2 * (2 * bsz * -(-n // TILE) + 1)
 
 
 def _wrap8(x):
@@ -94,7 +106,8 @@ def encode_front_plain(packed, n_valid, colch: int, init_prev, lc0):
 
     emit = total_len > 0
     keys_c, cur_c, meta_c = compact_rows(emit, offsets, px, meta)
-    last_c = torch.where(change, idx, -1).amax(dim=1)
+    # a row without a change keeps the run carried in: lc0, not -1
+    last_c = torch.where(change, idx, -(2**40)).amax(dim=1)
     return (
         keys_c, [cur_c, meta_c],
         emit.sum(dim=1).to(torch.int32),
@@ -105,7 +118,8 @@ def encode_front_plain(packed, n_valid, colch: int, init_prev, lc0):
 
 def encode_front_compact(packed, n_valid, colch: int = 3, init_prev=None,
                          lc0=None):
-    """K3. packed: (B, N) int32 normalized pixels; n_valid (B,) <= N;
+    """K3. packed: (B, N) int32 normalized pixels; n_valid (B,) (read as
+    clamped to [0, N], as the plain version's mask reads it);
     init_prev: the pixel before each row (default: the initial pixel);
     lc0: -(run_in + 1) per row (default -1). Returns (keys = byte offsets,
     [cur, meta] (B, N) int32 valid below entry_totals, entry_totals (B,),
@@ -126,17 +140,17 @@ def encode_front_compact(packed, n_valid, colch: int = 3, init_prev=None,
     for v in (n_valid, init_prev, lc0):
         if v.shape != (bsz,):
             raise ValueError("n_valid, init_prev and lc0 must be (B,)")
-    if int(n_valid.max()) > n:
-        raise ValueError("n_valid exceeds the row length")
     if not packed.is_cuda:
         if dev.type != "cpu":
             raise ValueError(f"unsupported device {dev}")
         return encode_front_plain(packed, n_valid, colch, init_prev, lc0)
+    if n >= 2**30:
+        raise ValueError("rows must be below 2**30 pixels (30-bit entry "
+                         "counts)")
     i32 = dict(dtype=torch.int32, device=dev)
     packed = packed.contiguous()
     nv, ip, l0 = (v.to(**i32).contiguous() for v in (n_valid, init_prev, lc0))
-    nblk = -(-n // 4096)
-    scratch = torch.empty(6 * bsz * nblk + 3 * bsz, **i32)
+    scratch = torch.empty(scratch_words(bsz, n), **i32)
     keys, curs, metas = (torch.empty((bsz, n), **i32) for _ in range(3))
     et, ct, lc = (torch.empty(bsz, **i32) for _ in range(3))
     lib = _build.load("encode_front")

@@ -3,12 +3,13 @@
 Port of ``seqoia_tpu/ops/pallas_frontend.py:decode_front_compact``. The
 kernel is ``csrc/frontend.cu``: one launch whose 4096-byte tiles are chained
 by three decoupled look-backs (automaton map, channel sum, op and pixel
-counts), and in segment mode its first port's reduce-then-scan passes; see
-its header for the design and what bounds it on the H100.
-``decode_front_plain``
-is the same function in plain PyTorch, in the form of the JAX package's
-XLA path (``decode_v2._tokenize`` / ``_npix_table`` / ``_reconstruct``),
-with the fused front's mode semantics:
+counts); in segment mode one launch whose tiles scan their segments with
+segmented block scans (or look back over a long segment's tiles) and rank
+the kept ops by a look-back over the packed row. See its header for the
+design and what bounds it on the H100. ``decode_front_plain`` is the same
+function in plain PyTorch, in the form of the JAX package's XLA path
+(``decode_v2._tokenize`` / ``_npix_table`` / ``_reconstruct``), with the
+fused front's mode semantics:
 
 * ``"alpha"``: an op absorbs one following alpha-range byte (the
   reference's alpha peek, seqoia.h:777-783) into its token length;
@@ -30,8 +31,8 @@ global (j*seg_px + the offset in the image), an op whose offset reaches
 ``seg_px`` is dropped, the ops of a row's segments are compacted together,
 and ``totals`` and ``has_ref`` stay per packed row. ``seg`` is a power of
 two with ``32768 % seg == 0`` and ``seg % 128 == 0`` (the JAX package's
-contract); below the kernel's 4096-byte block a segment leaves its block
-underfilled.
+contract); a 4096-byte tile of the kernel holds 4096/seg whole segments,
+or a longer segment spans seg/4096 tiles.
 """
 
 from __future__ import annotations
@@ -74,15 +75,12 @@ TILE = 4096  # bytes a tile (a block) of the kernel
 
 
 def scratch_words(bsz: int, m: int, k: int = 1) -> int:
-    """int32 words of a K1 launch's scratch over (bsz, m) bytes. One row a
-    scan (k = 1): a 64-bit tile counter and three 64-bit status words per
-    tile. Segment mode (k segments a row): per block of every segment its
-    map, composed map and two 4-word channel aggregates, and per segment
-    its op count and rank base."""
-    if k == 1:
-        return 2 * (3 * bsz * -(-m // TILE) + 1)
-    rows = bsz * k
-    return 10 * rows * -(-(m // k) // TILE) + 2 * rows
+    """int32 words of a K1 launch's scratch over (bsz, m) bytes: a 64-bit
+    tile counter and, per tile, three 64-bit status words (k = 1: map,
+    channel sum, op and pixel counts) or four (segment mode, k segments a
+    row: the kept ops' rank, and a long segment's map, channel sum and
+    pixel count)."""
+    return 2 * ((3 if k == 1 else 4) * bsz * -(-m // TILE) + 1)
 
 
 #: positions (rows x bytes) the plain version evaluates at once: it walks a
@@ -260,10 +258,12 @@ def decode_front_compact(data, chunks_len, n_max: int, mode: str = "alpha",
         return decode_front_plain(data, chunks_len, n_max, mode)
     dev = data.device
     data = data.contiguous()
+    if seg is not None and data.data_ptr() % 16:
+        data = data.clone()  # segment mode loads 16-byte vectors
     clen = chunks_len.to(device=dev, dtype=torch.int32).contiguous()
     if m >= 2**31 - 1:
         raise ValueError("M must be below 2**31 - 1 (31-bit op counts)")
-    if bsz * k * -(-(m // k) // TILE) >= 2**31:
+    if bsz * -(-m // TILE) >= 2**31:
         raise ValueError("B * M passes the kernel's 2**31 - 1 blocks")
     scratch = torch.empty(scratch_words(bsz, m, k), dtype=torch.int32,
                           device=dev)

@@ -106,19 +106,10 @@ def encode_large(pixels, desc: spec.SqoaDesc, device="cuda") -> bytes | None:
                     4096)
     _require_int32("the worst-case stream size", worst)
     packed = pack.normalize_pixels_device(pixels, desc, device=dev)
-    # optimistic cap with one exact retry: K2 walks the whole cap, and K3's
-    # byte total is exact even when the output is cut, so an overflowing
-    # first attempt gives the cap the retry needs
-    cap = min(_pad_to(n_pad * 5 // 4, 4096), worst)
-    while True:
-        out, total = encode_v2.encode_stream_flat(
-            packed, n, colch=desc.col_channels, out_cap=int(cap))
-        total = int(total)
-        if total <= cap:
-            break
-        del out
-        cap = min(_pad_to(total, _TILE), worst)
-    return _file_bytes(desc, transfer.fetch_flat(out, total))
+    # one K3 and one K2: K2's output is sized from K3's exact total
+    out, total = encode_v2.encode_stream_flat(packed, n,
+                                              colch=desc.col_channels)
+    return _file_bytes(desc, transfer.fetch_flat(out, int(total)))
 
 
 def _last_anchor(packed: np.ndarray, end: int) -> int:
@@ -183,16 +174,10 @@ def encode_large_shardmap(pixels, desc: spec.SqoaDesc, n_shards: int = 4,
     rows = host.to(dev, non_blocking=True).view(n_shards, chunk)
     ip, ri, nv, et = (_i32(a, dev)
                       for a in (init_prev, run_in, n_local, emit_tail))
-    ladder = sorted({min(_pad_to(chunk * 5 // 4, 4096), worst),
-                     min(_pad_to(chunk * 9 // 4, 4096), worst), worst})
-    for cap in ladder:
-        outs, tots = encode_v2.encode_stream_batched(
-            rows, nv, colch=desc.col_channels, out_cap=int(cap),
-            init_prev=ip, run_in=ri, emit_tail=et)
-        tots = tots.tolist()
-        if max(tots) <= cap:
-            break
-        del outs
+    outs, tots = encode_v2.encode_stream_batched(
+        rows, nv, colch=desc.col_channels, init_prev=ip, run_in=ri,
+        emit_tail=et)
+    tots = tots.tolist()
     body = torch.cat([outs[s, : tots[s]] for s in range(n_shards)])
     return _file_bytes(desc, transfer.fetch_flat(body))
 

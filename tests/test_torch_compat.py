@@ -33,8 +33,6 @@ from seqoia_tpu_torch.codec import decode_compat
 from seqoia_tpu_torch.codec.encode import normalize_pixels_packed
 from seqoia_tpu_torch.utils import corpus
 
-encode_mod = importlib.import_module("seqoia_tpu_torch.codec.encode")
-
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _M = 32768
 
@@ -358,23 +356,44 @@ def test_compat_probe_matches_jax():
     assert st.native.compat_probe(mono) is None
 
 
-def test_rate_estimate_is_kept_per_compat(monkeypatch):
-    """A .qoi encode sizes no SQOA cap: after it, a SQOA image of the same
-    channels still starts from its own (here: the worst-case) cap."""
-    monkeypatch.setattr(encode_mod, "_RATE_EST", {})
-    rng = np.random.default_rng(62)
-    pix = gen_pixels(rng, 48 * 48, 4, "long_runs")
-    sqoa = st.SqoaDesc(48, 48, 4, 0, 0)
-    n_pad = encode_mod.pixel_bucket(48 * 48)
-    worst = encode_mod.first_cap(sqoa, n_pad)
-    qoi = st.encode(pix, st.SqoaDesc(48, 48, 4, 0, 1), device="cpu")
-    assert qoi == native.encode(pix, 48, 48, 4, 0, 1)
-    assert list(encode_mod._RATE_EST) == [(3, True, True)]
-    assert encode_mod.first_cap(sqoa, n_pad) == worst
-    assert st.encode(pix, sqoa, device="cpu") == native.encode(pix, 48, 48,
-                                                               4, 0, 0)
-    assert set(encode_mod._RATE_EST) == {(3, True, True), (3, True, False)}
-    assert encode_mod.first_cap(sqoa, n_pad) < worst
+@pytest.mark.parametrize("call,ch", [
+    ("encode", 3), ("encode", 4), ("encode qoi", 3), ("encode qoi", 4),
+    ("encode_large", 3), ("encode_large", 4),
+    ("encode_large_shardmap 1", 3), ("encode_large_shardmap 4", 3)])
+def test_one_front_and_one_k2_per_encode(call, ch, monkeypatch):
+    """Every encode call runs K2 once, sized from the exact totals its front
+    computes before it (no retry at a larger cap), and a SQOA call runs K3
+    once (a .qoi call none: its front is torch ops, K5, K7 and K8); the
+    bytes equal native.encode. Integer codec: exact."""
+    from seqoia_tpu_torch.ops import encode_front, engine
+
+    calls = {"K2": 0, "K3": 0}
+
+    def counted(key, fn):
+        def run(*a, **k):
+            calls[key] += 1
+            return fn(*a, **k)
+        return run
+
+    monkeypatch.setattr(engine, "place_emit",
+                        counted("K2", engine.place_emit))
+    monkeypatch.setattr(encode_front, "encode_front_compact",
+                        counted("K3", encode_front.encode_front_compact))
+    rng = np.random.default_rng(62 + ch)
+    w, h = 61, 37  # off every tile and bucket
+    qoi = call == "encode qoi"
+    pix = gen_pixels(rng, w * h, _stride(ch), "long_runs" if ch == 4
+                     else "noise")
+    desc = st.SqoaDesc(w, h, ch, 0, int(qoi))
+    if call.startswith("encode_large_shardmap"):
+        got = st.encode_large_shardmap(pix, desc, n_shards=int(call[-1]),
+                                       device="cpu")
+    elif call == "encode_large":
+        got = st.encode_large(pix, desc, device="cpu")
+    else:
+        got = st.encode(pix, desc, device="cpu")
+    assert got == native.encode(pix, w, h, ch, 0, int(qoi))
+    assert calls == {"K2": 1, "K3": 0 if qoi else 1}
 
 
 @pytest.mark.parametrize("ch", [3, 4])

@@ -498,7 +498,7 @@ def test_step6_is_compose6():
     (1, 4096, 1, 2 * (3 + 1)), (1, 4097, 1, 2 * (6 + 1)),
     (32, 2097152, 1, 2 * (3 * 32 * 512 + 1)),
     (1, 227180544, 1, 2 * (3 * 55464 + 1)),
-    (4, 32768, 4, 10 * 16 * 2 + 2 * 16)])
+    (4, 32768, 4, 2 * (4 * 4 * 8 + 1)), (3, 2048, 16, 2 * (4 * 3 + 1))])
 def test_front_scratch(bsz, m, k, words):
     assert frontend.scratch_words(bsz, m, k) == words
 

@@ -268,3 +268,277 @@ def test_decode_stream_packed_flags_the_ref_row():
     for j, s in enumerate(good[:8]):
         assert np.array_equal(ob[0, j * N * 4: (j + 1) * N * 4],
                               native.decode(s, 4)[0])
+
+
+# --- the single-launch segment mode's design (csrc/frontend.cu, k > 1) -----
+
+from test_torch_frontend import (HALO, HDR1, I32MAX, IDENT6, IPT, NT, PACK,  # noqa: E402
+                                 TILE, _elem, _tok, compose6, step6, val_op)
+
+SEG_START = 4  # the start flag of a segmented channel element
+
+
+def seg_chan_op(left, right):
+    """SChanOp on (val, flg, npix): right wins where it starts a segment."""
+    if right[1] & SEG_START:
+        return right
+    v, f = val_op(left[:2], right[:2])
+    return v, f | (left[1] & SEG_START), min(left[2] + right[2], I32MAX)
+
+
+def seg_map_op(left, right):
+    """SegMap on (flag, map)."""
+    return right if right[0] else (left[0], compose6(left[1], right[1]))
+
+
+def _fold_back(status, tile, op, ident, pack, unpack, rng, p_prefix):
+    """tile_prefix: predecessors in random published states (aggregate or
+    inclusive prefix), each through its status word, folded with the
+    farthest on the left until an inclusive prefix; a tile published only
+    as an aggregate (None for its prefix) is read as one."""
+    vals = []
+    for k in range(tile - 1, -1, -1):
+        agg, incl = status[k]
+        prefix = incl is not None and (k == 0 or rng.random() < p_prefix)
+        word = pack(incl if prefix else agg)
+        assert 0 <= word < 1 << 62
+        vals.append(unpack(word))
+        if prefix:
+            break
+    ex = ident
+    for v in reversed(vals):
+        ex = op(ex, v)
+    return ex
+
+
+def _excl(vals, op, ident):
+    out, run = [], ident
+    for v in vals:
+        out.append(run)
+        run = op(run, v)
+    return out, run
+
+
+FOLDS = {
+    "map": (compose6, IDENT6, *PACK["map"]),
+    "val": (val_op, (0, 0), *PACK["val"]),
+    "npix": (lambda a, b: min(a + b, I32MAX), 0, lambda x: x,
+             lambda w: w & 0x7FFFFFFF),
+    "rank": (lambda a, b: a + b, 0, lambda x: x, lambda w: w & 0xFFFFFFFF),
+}
+
+
+def lookback_front_seg(data, slens, mode, seg, seg_px, seed=0, p_prefix=0.2):
+    """csrc/frontend.cu's segment mode in Python, tile by tile in the
+    counter's order: dead tiles, the live bytes staged by 16-byte vectors,
+    the segmented map scan (a long segment's look-back over its tiles),
+    the op list dealt out as equal runs, the segmented channel fold and the
+    long segment's (val, flg) and pixel-count look-backs, keys and payloads
+    in place with the ops past seg_px dropped, and the kept ops ranked by
+    a look-back over the packed row. Returns (keys, payloads, totals,
+    has_ref) as numpy arrays, the entries past totals 0."""
+    rng = np.random.default_rng(seed)
+    bsz, m = data.shape
+    k = m // seg
+    nt = -(-m // TILE)
+    keys = np.zeros((bsz, m), np.int64)
+    pays = np.zeros((bsz, m), np.int64)
+    totals = np.zeros(bsz, np.int64)
+    has_ref = np.zeros(bsz, np.int64)
+
+    def fold(kind, status, tile):
+        return _fold_back(status, tile, *FOLDS[kind], rng, p_prefix)
+
+    for row in range(bsz):
+        live = [min(max(int(c), 0), seg) for c in slens[row]]
+        st_rank, st_seg = {}, {}  # st_seg: {segment: {kind: status}}
+        for tile in range(nt):
+            base = tile * TILE
+            j0 = base // seg
+            tis = (base % seg) // TILE if seg > TILE else -1
+            if tis >= 0:
+                alive = live[j0] > max(base % seg, HDR1)
+            else:
+                nseg = min(TILE, m - base) // seg
+                alive = any(live[j0 + t] > HDR1 for t in range(nseg))
+            if not alive:
+                if tile == nt - 1:
+                    totals[row] = 0 if tile == 0 else fold("rank", st_rank,
+                                                           tile)
+                st_rank[tile] = (0, 0 if tile == 0 else None)
+                continue
+            t = np.zeros(TILE + 16, np.int64)
+            for v in range(TILE // 16 + 1):
+                p = base + 16 * v
+                if p < m and p % seg < live[p // seg] + HALO:
+                    t[16 * v: 16 * v + 16] = data[row, p: p + 16]
+
+            def masked(i):  # the staged bytes with those past i's segment 0
+                u = t.copy()
+                end = i - (base + i) % seg + seg
+                u[max(end, 0):] = 0
+                return u
+            lens, atts = [], []
+            views = {}
+            for i in range(TILE):
+                end = i - (base + i) % seg + seg
+                u = views.setdefault(end, masked(i))
+                n_, a_ = _tok(u, i, mode)
+                lens.append(1 if (base + i) % seg < HDR1 else n_)
+                atts.append(a_)
+            maps = []
+            for th in range(NT):
+                mp = IDENT6
+                for j in range(IPT):
+                    mp = step6(mp, lens[th * IPT + j] - 1)
+                maps.append(((base + th * IPT) % seg == 0, mp))
+            ex_map, agg_map = _excl(maps, seg_map_op, (False, IDENT6))
+            st_s = st_seg.setdefault(j0, {"map": {}, "val": {}, "npix": {}})
+            pm = IDENT6
+            if tis >= 0:
+                pm = IDENT6 if tis == 0 else fold("map", st_s["map"], tis)
+                st_s["map"][tis] = (agg_map[1], compose6(pm, agg_map[1]))
+
+            ops = []  # the tile's ops in order: their staged bytes
+            for th in range(NT):
+                p0 = base + th * IPT
+                if maps[th][0]:
+                    state = 0
+                elif ex_map[th][0]:
+                    state = ex_map[th][1] & 7
+                else:
+                    state = (ex_map[th][1] >> (3 * (pm & 7))) & 7
+                lo = min(max(HDR1 - p0 % seg, 0), IPT)
+                hi = min(max(live[p0 // seg] - p0 % seg, 0), IPT) \
+                    if p0 < m else 0
+                for j in range(IPT):
+                    i = th * IPT + j
+                    if state == 0 and lo <= j < hi:
+                        ops.append(i)
+                    state = lens[i] - 1 if state == 0 else state - 1
+            elems, prev = [], -1 if tis <= 0 else 0
+            for i in ops:
+                sg = (base + i) // seg - j0
+                (v, f, _, npix), foreign = _elem(views[
+                    i - (base + i) % seg + seg], i, atts[i], mode)
+                elems.append((v, f | (SEG_START if sg != prev else 0), npix,
+                              sg))
+                prev = sg
+                has_ref[row] |= foreign
+            per = -(-len(ops) // NT)
+            runs = [range(min(th * per, len(ops)),
+                          min(th * per + per, len(ops))) for th in range(NT)]
+            accs = []
+            for rn in runs:
+                acc = (0, 0, 0)
+                for q in rn:
+                    acc = seg_chan_op(acc, elems[q][:3])
+                accs.append(acc)
+            ex_c, agg = _excl(accs, seg_chan_op, (0, 0, 0))
+            pre = (0, 0, 0)
+            if tis >= 0:
+                pv = (0, 0) if tis == 0 else fold("val", st_s["val"], tis)
+                pn = 0 if tis == 0 else fold("npix", st_s["npix"], tis)
+                st_s["val"][tis] = ((agg[0], agg[1] & 3),
+                                    val_op(pv, (agg[0], agg[1] & 3)))
+                st_s["npix"][tis] = (agg[2], min(pn + agg[2], I32MAX))
+                if tis > 0:
+                    pre = (*pv, pn)
+            out = []  # per op: global key or -1, payload
+            kept = []
+            for th, rn in enumerate(runs):
+                run = seg_chan_op(pre, ex_c[th])
+                kc = 0
+                for q in rn:
+                    v, f, npix, sg = elems[q]
+                    if f & SEG_START:
+                        run = (0, 0, 0)
+                    key = run[2]
+                    run = seg_chan_op(run, (v, f, npix))
+                    a = (run[0] >> 24) & 255
+                    a = a if run[1] & 2 else (a + 255) & 255
+                    pay = (run[0] & 0xFFFFFF) | (a << 24)
+                    keep = key < seg_px
+                    out.append(((j0 + sg) * seg_px + key if keep else -1,
+                                pay))
+                    kc += keep
+                kept.append(kc)
+            n_kept = sum(kept)
+            rank = 0 if tile == 0 else fold("rank", st_rank, tile)
+            st_rank[tile] = (n_kept, rank + n_kept)
+            r = rank
+            for key, pay in out:
+                if key >= 0:
+                    keys[row, r], pays[row, r] = key, pay
+                    r += 1
+            if tile == nt - 1:
+                totals[row] = rank + n_kept
+    for row in range(bsz):
+        keys[row, totals[row]:] = 0
+        pays[row, totals[row]:] = 0
+    return (keys.astype(np.int32), pays.astype(np.uint32).view(np.int32),
+            totals.astype(np.int32), has_ref.astype(np.int32))
+
+
+def _seg_model_cases():
+    """{name: (data, slens, mode, seg)}: every seg from 128 to 32768, empty
+    segments, images whose ops pass seg_px, streams ending mid-tile, and
+    rows whose segments hold very different op counts."""
+    rng = np.random.default_rng(21)
+    modes = {4: "alpha", 3: "noalpha", 1: "mono", 2: "mono"}
+    cases = {}
+    for i, seg in enumerate([128 << e for e in range(9)]):
+        ch = (4, 3, 1, 2)[i % 4]
+        m = max(8192, 4 * seg)
+        k = m // seg
+        pool = {}
+        for kind in ("solid", "runs", "palette", "luma", "alpha_churn",
+                     "noise"):
+            for w in (64, 72):  # 72x64: the ops past seg_px are dropped
+                if kind == "noise":  # noise, then a solid half: long streams
+                    px = gen(rng, "solid", _stride(ch), w * 64)
+                    px[: len(px) // 2] = rng.integers(0, 256, len(px) // 2)
+                else:
+                    px = gen(rng, kind, _stride(ch), w * 64)
+                s = native.encode(px, w, 64, ch, 0, 0)
+                if len(s) <= seg:
+                    pool[(kind, w)] = s
+        by_len = sorted(pool.values(), key=len)
+        streams = [by_len[rng.integers(len(by_len))] for _ in range(k)]
+        streams[0] = by_len[-1]  # the longest: across tile edges
+        streams[1] = b""  # an empty segment
+        streams[2] = max((v for (_, w), v in pool.items() if w == 72),
+                         key=len)
+        data = np.zeros((1, m), np.uint8)
+        slens = np.zeros((1, k), np.int32)
+        for j, s in enumerate(streams):
+            data[0, j * seg: j * seg + len(s)] = np.frombuffer(s, np.uint8)
+            slens[0, j] = max(len(s) - spec.PADDING_SIZE, 0)
+        cases[f"seg {seg} {modes[ch]}"] = (data, slens, modes[ch], seg)
+    # a length past the stream: ops to the segment's end, operands past it 0
+    data, slens, mode, seg = cases["seg 512 mono"]
+    slens = slens.copy()
+    slens[0, 3] = seg
+    cases["seg 512 mono to the segment's end"] = (data, slens, mode, seg)
+    # rows of one class: very different op counts side by side
+    data, slens = pack_rows([native.encode(gen(rng, k_, 4), 64, 64, 4, 0, 0)
+                             for k_ in ("solid", "luma", "solid", "alpha_churn",
+                                        "runs", "luma", "solid")], 4096)
+    cases["seg 4096 alpha mixed"] = (data, slens, "alpha", 4096)
+    return cases
+
+
+SEG_MODEL_CASES = _seg_model_cases()
+
+
+@pytest.mark.parametrize("name", list(SEG_MODEL_CASES))
+def test_segment_front_model_matches_plain(name):
+    data, slens, mode, seg = SEG_MODEL_CASES[name]
+    k = data.shape[1] // seg
+    want = frontend.decode_front_plain_seg(
+        torch.from_numpy(data), torch.from_numpy(slens), k * N, mode, seg, N)
+    assert int(want[2][0]) > 0
+    for seed, p_prefix in ((0, 0.2), (1, 0.9)):
+        got = lookback_front_seg(data, slens, mode, seg, N, seed, p_prefix)
+        for g, w in zip(got, want):
+            assert np.array_equal(g, w.numpy())

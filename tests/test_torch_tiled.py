@@ -123,6 +123,21 @@ def test_encode_large_shardmap_modes(ch, kind):
                                         device="cpu") == oracle
 
 
+@pytest.mark.parametrize("w,h,ch", [(16384, 3, 3), (4096, 9, 1)])
+def test_encode_large_shardmap_flat_shards(w, h, ch):
+    """One color over the whole image: every shard after the first holds no
+    change, so its trailing run must count the run carried into it (the
+    plain K3 once reported -1 there, not the carried anchor)."""
+    pix = np.full(w * h * _stride(ch), 5, np.uint8)
+    oracle = native.encode(pix, w, h, ch, 0, 0)
+    for shards in (2, 4):
+        assert st.encode_large_shardmap(pix, st.SqoaDesc(w, h, ch),
+                                        n_shards=shards,
+                                        device="cpu") == oracle
+    assert jtiled.encode_large_shardmap(pix, sq.SqoaDesc(w, h, ch),
+                                        _mesh(4)) == oracle
+
+
 @pytest.mark.parametrize("kind,ch", [
     ("luma", 3), ("long_runs", 3), ("alpha_churn", 4), ("sparse_delta", 4),
     ("luma", 1), ("noise", 2)])
