@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-1. Builds every kernel of the port from ``seqoia_tpu_torch/csrc`` (one
-   nvcc per source, all at once).
+1. Builds every kernel of the port from ``seqoia_tpu_torch/csrc`` (one nvcc
+   per source, all at once).
 2. Holds each kernel against its plain PyTorch version on the card, on the
    inputs the main paths give it: integer data, so the comparison is
    bit-exact (tolerance 0). SQOA: K1 decode front, K2 placement with its
@@ -14,71 +14,85 @@
    decode_stream_compat_batched / encode_stream_batched(compat=True) call
    per photo workload (K2's EPI_ENCQ launch also beside the K6 spread and
    torch byte emission it replaced), and of K9 (the sequential decoder) in
-   the value
-   chain's decode; K8 sum and K7 at 128 slots (not on the path) at the
-   decode's op shape. Large images and icons: K4 at the three strides, K1
-   in segment mode in its three modes, and K1, K2 and K3 at the first
-   launch of every distinct shape that encode_large, decode_large, the two
-   shard forms (K3's carries, rows as shards) and BatchDecoder give them,
-   checked on the arguments of that launch in one uncounted pass over
-   those calls; K1 on a stream whose pixel counts pass 2**31. K1, K3, K5,
-   K7 and K8 (single-pass look-back kernels, whose faults are races) also
-   at edge shapes (EDGE_SHAPES: K3 in colch 1 and 3 with and without shard
-   carries, pixels that change often, rarely and never, n_valid varied by
-   row; every K8 combine, K5 with all-0, all-1, 35%
-   and last-only masks, K7 with 64 and 128 slots, four n_live, three kinds
-   of hashes, dense and sparse queries; K1 in its three modes on rows
-   around its 4096-byte tile, tokens across tile edges, padding far past
-   the stream, an n_max that cuts the last op, 37 short rows; K1's segment
-   mode in its three modes at every seg from 128 to 32768 with empty
+   the value chain's decode; K9's mono step at the mono path's full-size
+   launches against native.decode's pixels at every op, and at the
+   BatchDecoder list's two mono classes (32 rows of 1024x1024 each) also
+   against its plain version, as at edge rows (no op, one op, all 128
+   slots, runs to the row's end) and 64 short rows of generated mono .qoi
+   ops; K8 sum and K7 at 128
+   slots (not on the path) at the decode's op shape. Large images and icons:
+   K4 at the three strides, K1 in segment mode in its three modes, and K1,
+   K2 and K3 at the first launch of every distinct shape that encode_large,
+   decode_large, the two shard forms (K3's carries, rows as shards) and
+   BatchDecoder give them, checked on the arguments of that launch in one
+   uncounted pass over those calls, and K2, K3 and K4 at every distinct
+   launch of BatchEncoder on the batch-encode lists; K1 on a stream whose
+   pixel counts pass 2**31. K1, K3, K5, K7 and K8 (single-pass look-back
+   kernels, whose faults are races) also at edge shapes (EDGE_SHAPES: K3 in
+   colch 1 and 3 with and without shard carries, pixels that change often,
+   rarely and never, n_valid varied by row; every K8 combine, K5 with all-0,
+   all-1, 35% and last-only masks, K7 with 64 and 128 slots, four n_live,
+   three kinds of hashes, dense and sparse queries; K1 in its three modes on
+   rows around its 4096-byte tile, tokens across tile edges, padding far
+   past the stream, an n_max that cuts the last op, 37 short rows; K1's
+   segment mode in its three modes at every seg from 128 to 32768 with empty
    segments, cuts at seg_px and a length to the segment's end; inputs off
    16-byte boundaries; K2 with every epilogue and K6 at _engine_edge_cases:
    an entry on a tile's first slot, a tile with no entry, tiles of 4096
    entries, totals of 0, rows of different totals, n_out not a multiple of
    the tile, RGB words across a tile edge, on fresh storage and 4 bytes past
-   a 16-byte boundary), and every recorded .qoi launch of K2, K5, K6, K7
-   and K8, every SQOA launch of K2, K3 and K6 and every SQOA, large-image
-   and icon launch of K1 (both modes), K2 and K3 re-launched REPEATS times,
-   each output bitwise equal to the first; their times also with the L2
-   flushed before each launch, K1's, K2's, K3's, K6's and K7's also as
-   device time from a torch.profiler trace
-   (without the host's launch overhead), and K8 sum's beside torch.cumsum
-   at one row and at 32.
+   a 16-byte boundary), and every recorded .qoi launch of K2, K5, K6, K7 and
+   K8, every SQOA launch of K2, K3 and K6, every SQOA, large-image, icon and
+   batch-encode launch of K1 (both modes), K2 and K3 and every K9 mono
+   launch re-launched REPEATS times, each output bitwise equal to the first;
+   their times also with the L2 flushed before each launch, K1's, K2's,
+   K3's, K6's and K7's also as device time from a torch.profiler trace
+   (without the host's launch overhead), and K8 sum's beside torch.cumsum at
+   one row and at 32.
 3. Resets the kernels' launch counters and drives the SQOA path through the
-   public entry points: one 4096x4096 RGBA photo-class image, a batch of
-   32 1024x1024 RGB photos (decode_stream_batched / encode_stream_batched)
-   and one 2048x2048 gray+alpha image (decoded as stored and with 4 forced
+   public entry points: one 4096x4096 RGBA photo-class image, a batch of 32
+   1024x1024 RGB photos (decode_stream_batched / encode_stream_batched) and
+   one 2048x2048 gray+alpha image (decoded as stored and with 4 forced
    channels); reads the counters; resets them again and drives the .qoi
    path: the same RGBA photo (seqoia_tpu_torch.encode / decode with
    qoi_compat=1), the same 32 photos as .qoi (encode_stream_batched with
-   compat=True, decode_stream_compat_batched), the 61-link INDEX chain
-   that the fixpoint cannot settle in its 12 passes, and a 2000-link chain
-   of INDEX reads of DIFF-derived values, which its alpha-speculated
-   restart cannot settle either (one resolution per link), so K9 decodes
-   it. Resets them again and drives the large-image path:
-   one 16384x8192 RGB photo-class image (134 Mpx, assembled from two seeded
-   4096x4096 tiles and their flips) through encode_large, decode_large and
-   both shard forms at 4 shards, one 8192x8192 gray image and the 2048x2048
-   gray+alpha image through encode_large and decode_large. Resets them
-   again and drives the icon path: 4096 RGBA and 4096 RGB 64x64 icons and
-   2048 gray 64x64 tiles through BatchDecoder, then one mixed call (icons
-   of two sizes, four 1024x1024 photos as SQOA and as .qoi, a stream with a
-   REF op, a bad header). Every stream and every pixel the card returns is
-   held byte-exact against the port's native C codec. Fails if a kernel of
-   a path was not launched on it, if a .qoi stream or an icon went to the
-   host decoder, if the shard forms differ from the unsharded ones, or if
-   an encode call ran more than one K2 (or, SQOA, more than one K3) or ran
-   K2 at another length than the exact one its kernels were checked at.
+   compat=True, decode_stream_compat_batched), the 61-link INDEX chain that
+   the fixpoint cannot settle in its 12 passes, and a 2000-link chain of
+   INDEX reads of DIFF-derived values, which its alpha-speculated restart
+   cannot settle either (one resolution per link), so K9 decodes it. Resets
+   them again and drives the large-image path: one 16384x8192 RGB
+   photo-class image (134 Mpx, assembled from two seeded 4096x4096 tiles and
+   their flips) through encode_large, decode_large and both shard forms at 4
+   shards, one 8192x8192 gray image and the 2048x2048 gray+alpha image
+   through encode_large and decode_large. Resets them again and drives the
+   icon path: 4096 RGBA and 4096 RGB 64x64 icons and 2048 gray 64x64 tiles
+   through BatchDecoder, then one mixed call (icons of two sizes, four
+   1024x1024 photos as SQOA and as .qoi, a stream with a REF op, a bad
+   header). Resets them again and drives the batch-encode path: BatchEncoder
+   on the icon classes' pixels, the 32 photos, the RGBA photo with the
+   gray+alpha scan, the photos as .qoi and a mixed list with an image
+   without pixels and an invalid desc, each list cold and warm. Resets
+   them again and drives the mono
+   .qoi path: one 4096x4096 generated gray+alpha stream through
+   seqoia_tpu_torch.decode and 64 1024x1024 ones with the 32 photos as .qoi
+   through BatchDecoder. Every stream and every pixel the card returns is
+   held byte-exact against the port's native C codec. Fails if a kernel of a
+   path was not launched on it, if a .qoi stream or an icon went to the host
+   decoder, if the shard forms differ from the unsharded ones, if an encode
+   call or a BatchEncoder class ran more than one K2 (or, SQOA, more than
+   one K3) or ran K2 at another length than the exact one, or if
+   BatchEncoder ran K4 other than once a class of stride 1-3.
 4. Prints the card's name and power limit, each phase's Mpx/s, each .qoi
-   workload's fixpoint (converged rows and passes, the rows settled after
-   it and the resolutions that took) beside the INDEX-chain depth that
-   ``native.compat_probe`` measures on its streams, the BatchDecoder's
-   ``last_timings``, the steps of the 134 Mpx encode and decode one by
-   one, the peak device memory, each kernel's time beside its bound, each
-   kernel's summed gap over the four paths' launches (Σ(ms − bound), every
-   launch timed in place by CUDA events around its C entry point and
-   bounded at its own shape: _census), a JSON ``kernels`` line and, last,
-   ``{"ok": true, "device": {...}}``.
+   workload's fixpoint (converged rows and passes, the rows settled after it
+   and the resolutions that took) beside the INDEX-chain depth that
+   ``native.compat_probe`` measures on its streams, the BatchDecoder's and
+   BatchEncoder's ``last_timings``, K9's ns an op of the longest row, the
+   steps of the 134 Mpx encode and decode one by one, the peak device
+   memory, each kernel's time beside its bound, each kernel's summed gap
+   over the six paths' launches (Σ(ms − bound), every launch timed in place
+   by CUDA events around its C entry point and bounded at its own shape:
+   _census), a JSON ``kernels`` line and, last, ``{"ok": true, "device":
+   {...}}``.
 
 Any failure exits non-zero; without a CUDA device it exits 2 and prints
 no result. Images are synthetic and made from a fixed seed. Details go to
@@ -125,11 +139,16 @@ KERNELS = {
     # no Pallas kernel: the lax.scan of the JAX sequential compat decoder
     "K9": ("sequential_decode", "seqoia_tpu_torch/csrc/sequential.cu",
            "seqoia_tpu/codec/decode_jax.py:93"),
+    "K9mono": ("sequential_decode (mono step)",
+               "seqoia_tpu_torch/csrc/sequential.cu",
+               "seqoia_tpu/codec/decode_jax.py:93"),
 }
 SQOA_KERNELS = ("K1", "K2", "K3", "K6")
 QOI_KERNELS = ("K2", "K5", "K6", "K7", "K8", "K9")
 LARGE_KERNELS = ("K1", "K2", "K3", "K4")
 ICON_KERNELS = ("K1seg", "K2")
+ENCODE_KERNELS = ("K2", "K3", "K4", "K5", "K7", "K8")
+MONO_KERNELS = ("K5", "K6", "K8", "K9mono")
 
 
 def _images(seed: int = 0):
@@ -182,23 +201,24 @@ def _large_images(images, seed: int = 1):
 def _icon_streams(images, qstages, seed: int = 2):
     """The icon path's streams (native encodes): {class: [streams]} for 4096
     RGBA icons, the same icons without alpha and 2048 gray tiles, all
-    64x64, and the mixed list: icons of two sizes, four 1024x1024 photos as
-    SQOA and as .qoi, a stream with a REF op and a bad header."""
+    64x64, the mixed list: icons of two sizes, four 1024x1024 photos as
+    SQOA and as .qoi, a stream with a REF op and a bad header; and {class:
+    ([flat pixels], channels)} of the three classes."""
     from seqoia_tpu_torch import native
     from seqoia_tpu_torch.utils import corpus
 
     rng = np.random.default_rng(seed)
     icons = [corpus._icon(rng, 64, 5, glow_w=0.6, glow_peak=0.5)
              for _ in range(4096)]
-    classes = {
-        "icons_rgba": [native.encode(i.reshape(-1), 64, 64, 4, 0, 0)
-                       for i in icons],
-        "icons_rgb": [native.encode(i[..., :3].reshape(-1), 64, 64, 3, 0, 0)
-                      for i in icons],
-        "tiles_gray": [native.encode(
-            corpus._mono_doc(rng, 64, 64).reshape(-1), 64, 64, 1, 0, 0)
-            for _ in range(2048)],
+    pixels = {
+        "icons_rgba": ([i.reshape(-1) for i in icons], 4),
+        "icons_rgb": ([np.ascontiguousarray(i[..., :3]).reshape(-1)
+                       for i in icons], 3),
+        "tiles_gray": ([corpus._mono_doc(rng, 64, 64).reshape(-1)
+                        for _ in range(2048)], 1),
     }
+    classes = {name: [native.encode(p, 64, 64, ch, 0, 0) for p in px]
+               for name, (px, ch) in pixels.items()}
     photos = next(px for name, px, *_ in images if name == "batch_rgb")[:4]
     qoi = next(s for s in qstages if s.name == "batch_rgb_qoi").streams[:4]
     ref = bytearray(classes["icons_rgba"][0])
@@ -208,7 +228,7 @@ def _icon_streams(images, qstages, seed: int = 2):
                               0, 0) for _ in range(64)]
              + [native.encode(p, 1024, 1024, 3, 0, 0) for p in photos]
              + list(qoi) + [bytes(ref), b"Sqoa" + bytes(40)])
-    return classes, mixed, bytes(ref)
+    return classes, mixed, bytes(ref), pixels
 
 
 def _pow2(x: int) -> int:
@@ -299,10 +319,12 @@ def _encode_front_view(out):
     return [et, ct, lc, _live(keys, et), _live(cur, et), _live(meta, et)]
 
 
-def _plain_ms(fn):
+def _plain_ms(fn, warm: bool = True):
+    """(fn(), its ms on the host clock), after one warm-up call (``warm``)."""
     import torch
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     t = time.perf_counter()
     out = fn()
@@ -617,7 +639,7 @@ def _capture(run):
 
         # the wrapper counts its launches under its module name: while
         # recording, that name is rec
-        rec.launches = 0
+        rec.launches = rec.mono_launches = 0
         saved.append((mod, name, fn))
         setattr(mod, name, rec)
     try:
@@ -1068,10 +1090,8 @@ def check_edge_encode_front(dev):
     for shape in EDGE_SHAPES:
         bsz, m = shape
         big = bsz * m > 1 << 20
-        # the plain version compacts row by row: many rows, fewer cases
-        few = big or bsz > 64
         for kind, p in (("often", 0.6), ("rarely", 0.0005), ("never", 0.0)):
-            if few and kind != "often":
+            if big and kind != "often":
                 continue
             px = _edge_pixels(gen, shape, p, dev)
             r = torch.arange(bsz, device=dev)
@@ -1089,7 +1109,7 @@ def check_edge_encode_front(dev):
                 for cname, (ip, l0) in carries.items():
                     for nname, nv in nvs.items():
                         for where in ("", " offset"):
-                            if where and few:
+                            if where and big:
                                 continue
                             xs = _offset(x) if where else x
                             got = encode_front.encode_front_compact(
@@ -1489,7 +1509,7 @@ def _live(rows, totals):
 
 
 def _checked(run, where, rec):
-    """Run ``run()`` with the K1, K2 and K3 wrappers replaced by ones that,
+    """Run ``run()`` with the K1, K2, K3 and K4 wrappers replaced by ones that,
     at the first launch of each distinct shape and mode, hold the kernel's
     result against its plain version on the very arguments of that launch
     and append a record to rec[kernel]. A 134 Mpx row does not fit the
@@ -1499,7 +1519,7 @@ def _checked(run, where, rec):
     replacement, not under the wrappers' own counters."""
     import torch
 
-    from seqoia_tpu_torch.ops import encode_front, engine, frontend
+    from seqoia_tpu_torch.ops import encode_front, engine, frontend, pack
 
     seen, saved = set(), []
     reps = 3
@@ -1581,9 +1601,22 @@ def _checked(run, where, rec):
             **_held(run, out, _encode_front_view, reps)))
         return out
 
+    def k4(fn, words, stride):
+        out = fn(words, stride)
+        if not fresh("K4", tuple(words.shape), stride):
+            return out
+        want, p_ms = _plain_ms(lambda: pack.pack_words_plain(words, stride))
+        rec["K4"].append(dict(
+            shape=f"{where} stride={stride} {tuple(words.shape)}",
+            err=_max_err(out, want), plain_ms=p_ms, main=False,
+            ms=_timed(lambda: fn(words, stride), reps),
+            bytes=4 * words.numel() + 4 * out.numel()))
+        return out
+
     for mod, name, check in ((frontend, "decode_front_compact", k1),
                              (engine, "place_emit", k2),
-                             (encode_front, "encode_front_compact", k3)):
+                             (encode_front, "encode_front_compact", k3),
+                             (pack, "pack_words", k4)):
         fn = getattr(mod, name)
         rep = functools.partial(check, fn)
         rep.launches = rep.seg_launches = 0
@@ -1596,16 +1629,17 @@ def _checked(run, where, rec):
             setattr(mod, name, fn)
 
 
-def check_path_kernels(large, classes, mixed, dev):
-    """K1 (both modes of use), K2 and K3 against their plain versions on the
-    arguments the large-image and icon paths give them: every image of
-    ``large`` through encode_large and decode_large, the RGB one through
-    both shard forms as well (K3's carries, four rows), every icon class
-    and the mixed list through BatchDecoder. Returns {kernel: [records]}."""
+def check_path_kernels(large, classes, mixed, enc_sets, dev):
+    """K1 (both modes of use), K2, K3 and K4 against their plain versions on
+    the arguments the large-image, icon and batch-encode paths give them:
+    every image of ``large`` through encode_large and decode_large, the RGB
+    one through both shard forms as well (K3's carries, four rows), every
+    icon class and the mixed list through BatchDecoder, every list of
+    ``enc_sets`` through BatchEncoder. Returns {kernel: [records]}."""
     import seqoia_tpu_torch as st
     from seqoia_tpu_torch import native
 
-    rec = {k: [] for k in ("K1", "K1seg", "K2", "K3")}
+    rec = {k: [] for k in ("K1", "K1seg", "K2", "K3", "K4")}
     for name, pixels, w, h, ch in large:
         desc = st.SqoaDesc(w, h, ch)
         stream = _checked(lambda: st.encode_large(pixels, desc, device=dev),
@@ -1624,6 +1658,11 @@ def check_path_kernels(large, classes, mixed, dev):
     dec = st.BatchDecoder(device=dev)
     for name, streams in list(classes.items()) + [("mixed", mixed)]:
         _checked(lambda: dec(streams), f"{name} BatchDecoder", rec)
+    enc = st.BatchEncoder(device=dev)
+    for name, px, descs, want in enc_sets:
+        if _checked(lambda: enc(px, descs), f"{name} BatchEncoder",
+                    rec) != want:
+            raise AssertionError(f"{name}: the checked BatchEncoder differs")
     return rec
 
 
@@ -1819,6 +1858,295 @@ def icon_path(classes, mixed, ref_stream, dev):
     return rates, timings
 
 
+def _encode_sets(stages, qstages, icon_px, seed: int = 4):
+    """The batch-encode path's lists: (name, [pixels], [SqoaDesc], [wanted
+    stream]) for the three icon classes, the 32 RGB photos, the RGBA photo
+    with the gray+alpha scan, the photos as .qoi, and a mixed list (icons
+    of two classes, two photos as SQOA and as .qoi, an image without
+    pixels and an invalid desc, whose wanted stream is None). The wanted
+    streams are the native encodes the other paths made of the same
+    pixels."""
+    import seqoia_tpu_torch as st
+
+    D = st.SqoaDesc
+    sets = [(name, px, [D(64, 64, ch)] * len(px), icon_px[1][name])
+            for name, (px, ch) in icon_px[0].items()]
+    by = {s.name: s for s in list(stages) + list(qstages)}
+
+    def of(name, compat=0):
+        s = by[name]
+        return (list(s.pixels), [D(s.w, s.h, s.ch, 0, compat)] * len(s.pixels),
+                list(s.streams))
+
+    def joined(*names):
+        parts = [of(n, int(n.endswith("_qoi"))) for n in names]
+        return tuple(sum(p, []) for p in zip(*parts))
+
+    sets.append(("batch_rgb",) + of("batch_rgb"))
+    sets.append(("photo_rgba + gray_alpha",) + joined("photo_rgba",
+                                                      "gray_alpha"))
+    sets.append(("photos as .qoi",) + joined("photo_rgba_qoi",
+                                             "batch_rgb_qoi"))
+    rng = np.random.default_rng(seed)
+    pick = rng.permutation(64)
+    mixed = []
+    for name, first in (("icons_rgba", 0), ("tiles_gray", 1)):
+        _, px, ds, want = next(x for x in sets if x[0] == name)
+        mixed += [(px[j], ds[j], want[j]) for j in pick[first::2]]
+    for name in ("batch_rgb", "batch_rgb_qoi"):
+        mixed += list(zip(*[x[:2] for x in of(name, int("qoi" in name))]))
+    mixed += [(None, D(64, 64, 4), None),
+              (sets[0][1][0], D(0, 64, 4), None)]
+    order = rng.permutation(len(mixed))
+    sets.append(("mixed",) + tuple([mixed[j][k] for j in order]
+                                   for k in range(3)))
+    return sets
+
+
+def _encode_classes(descs, want):
+    """BatchEncoder's classes of one call: [(rows, K2's exact cap, SQOA,
+    stride)] from the descs and the wanted streams (the caps from their
+    bodies: SQOA after its header and start byte, .qoi after its header)."""
+    from seqoia_tpu_torch.codec.encode import pixel_bucket
+
+    groups = {}
+    for d, w in zip(descs, want):
+        if w is None:
+            continue
+        key = (d.col_channels, d.has_alpha, bool(d.qoi_compat),
+               max(pixel_bucket(d.n_pixels), 4))
+        groups.setdefault(key, []).append(
+            len(w) - (14 if d.qoi_compat else 15))
+    return [(len(b), max(-(-max(b) // 4) * 4, 4), not key[2],
+             key[0] + key[1]) for key, b in groups.items()]
+
+
+def batch_encode_path(sets, dev):
+    """Every list of ``sets`` through BatchEncoder, a cold call (the
+    first) and a warm one; every stream byte-exact against the native
+    codec. Returns ([(phase, Mpx/s)], [(phase, last_timings, last_stats)],
+    [(rows, K2's cap, SQOA) per class and call], K4 launches due)."""
+    import seqoia_tpu_torch as st
+
+    rates, timings, calls = [], [], []
+    k4 = 0
+    clock = functools.partial(_clock, rates)
+    for name, px, descs, want in sets:
+        n_px = sum(d.n_pixels for d, w in zip(descs, want) if w is not None)
+        classes = _encode_classes(descs, want)
+        for form in ("cold", "warm"):
+            enc = st.BatchEncoder(device=dev)
+            got = clock(f"{name} BatchEncoder ({len(px)} images, {form})",
+                        n_px, lambda: enc(px, descs))
+            bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
+            if bad:
+                raise AssertionError(f"{name} BatchEncoder ({form}): streams "
+                                     f"{bad[:8]} differ")
+            st_ = enc.last_stats
+            if st_["oom_redispatch"] or st_["oom_errors"]:
+                raise AssertionError(f"{name}: out of device memory: {st_}")
+            timings.append((f"{name} ({form})", enc.last_timings, st_))
+            calls += [c[:3] for c in classes]
+            k4 += sum(c[3] != 4 for c in classes)
+    return rates, timings, calls, k4
+
+
+def _mono_inputs(qstages, seed: int = 3):
+    """The mono .qoi path's streams (``corpus.mono_qoi``: seeded random ops,
+    decoder-only): one 4096x4096 gray+alpha stream, and a BatchDecoder
+    list of 64 1024x1024 streams (32 gray, 32 gray+alpha) mixed with the
+    32 batch photos as .qoi; each as (stream, native.decode's pixels)."""
+    from seqoia_tpu_torch import native
+    from seqoia_tpu_torch.utils import corpus
+
+    rng = np.random.default_rng(seed)
+    big = corpus.mono_qoi(rng, 4096, 4096, 2)
+    color = next(s for s in qstages if s.name == "batch_rgb_qoi").streams
+    streams = [corpus.mono_qoi(rng, 1024, 1024, 1 + i % 2) for i in range(64)]
+    streams += list(color)
+    streams = [streams[j] for j in rng.permutation(len(streams))]
+    return ((big, native.decode(big, 0)[0]),
+            [(x, native.decode(x, 0)[0]) for x in streams])
+
+
+def _mono_stream(ops, n, ch=2):
+    """A mono .qoi stream of one row of n pixels holding ``ops``' bytes."""
+    return (b"qoif" + n.to_bytes(4, "big") + (1).to_bytes(4, "big")
+            + bytes([ch, 0]) + bytes(ops) + bytes(7) + b"\x01")
+
+
+def _mono_edge_streams():
+    """K9 mono's edge rows as mono .qoi streams: no op, one op, RGBA ops
+    writing each of the 128 slots (gray at alpha 7) and an INDEX read of
+    every slot, runs to the row's end, and a run past it."""
+    fill, seen = [], set()
+    for g in range(256):
+        k = (g * 5 + 7 * 11) % 128
+        if k not in seen:
+            seen.add(k)
+            fill += [0xFF, g, 7]
+    reads = [int(k) for k in np.random.default_rng(5).permutation(128)]
+    return [_mono_stream([], 5), _mono_stream([0xFF, 200, 17], 3),
+            _mono_stream(fill + reads, 256),
+            _mono_stream([0xFE, 9, 0x85, 0xFD, 0xC0 + 40], 105),
+            _mono_stream([0xFE, 9, 0xFD], 4, ch=1)]
+
+
+def _mono_ops(streams, dev):
+    """The mono route's K9 arguments for ``streams``: the tokenizer and K5
+    (``decode_compat._ops``) on the card. Returns (lo, totals)."""
+    import torch
+
+    from seqoia_tpu_torch.codec import decode_compat
+
+    m = _pow2(max(len(x) for x in streams))
+    buf = np.zeros((len(streams), m), np.uint8)
+    for i, x in enumerate(streams):
+        buf[i, : len(x)] = np.frombuffer(x, np.uint8)
+    clen = torch.tensor([len(x) - 8 for x in streams], dtype=torch.int32,
+                        device=dev)
+    lo, _, tot = decode_compat._ops(torch.from_numpy(buf).to(dev), clen,
+                                    colch=1)
+    return lo, tot
+
+
+def _k9_mono_want(lo, tot):
+    """Each op's value (gray | alpha << 24) as the native decoder gives it:
+    each row's ops written back out as a mono .qoi stream of one row of
+    pixels, decoded by ``native.decode`` and read at each op's first
+    pixel. Returns (B, mo) int32, 0 past a row's total."""
+    import torch
+
+    from seqoia_tpu_torch import native
+
+    lo_h, tot_h = lo.cpu().numpy(), tot.cpu().numpy()
+    want = np.zeros(lo_h.shape, np.uint32)
+    for r in range(lo_h.shape[0]):
+        if tot_h[r] == 0:  # no op, no value
+            continue
+        w = lo_h[r, : tot_h[r]].view(np.uint32).astype(np.int64)
+        tag = w & 255
+        lens = np.where(tag == 0xFE, 2, np.where(tag == 0xFF, 3, 1))
+        off = np.cumsum(lens) - lens
+        body = np.zeros(int(lens.sum()), np.uint8)
+        for k in range(3):
+            at = lens > k
+            body[off[at] + k] = (w[at] >> (8 * k)) & 255
+        npix = np.where((tag >= 0xC0) & (tag < 0xFE), (tag & 63) + 1, 1)
+        if len(body) and body[0] == 0x31:
+            raise AssertionError("a row starts with the SQOA start byte")
+        px, _ = native.decode(_mono_stream(body, int(npix.sum())), 2)
+        px = px.reshape(-1, 2).astype(np.uint32)
+        at = np.cumsum(npix) - npix
+        want[r, : tot_h[r]] = px[at, 0] | (px[at, 1] << 24)
+    return torch.from_numpy(want.view(np.int32)).to(lo.device)
+
+
+#: the longest row K9 mono's plain version walks beside a recorded launch
+#: (it takes one step an op, about 0.6 ms on the card at 32 rows): the
+#: BatchDecoder list's 1024x1024 classes, not the 4096x4096 stream
+_K9_PLAIN_OPS = 400_000
+
+
+def check_mono_k9(big, mixed, dev):
+    """K9's mono step at the full-size launches of the mono path (the
+    4096x4096 stream's decode and the BatchDecoder list's two mono classes,
+    recorded): against native.decode's pixels at every op, and the
+    BatchDecoder classes also against its plain version (which walks one op
+    a step, too slow for the 4096x4096 row's 3M ops). Also at the edge rows
+    and at 64 short rows of corpus.mono_qoi ops against both (no main path
+    launches those shapes). Each re-launched REPEATS times. Returns
+    [records], the main-path ones first, those held to the plain version
+    leading."""
+    import torch
+
+    import seqoia_tpu_torch as st
+    from seqoia_tpu_torch.ops import sequential
+    from seqoia_tpu_torch.utils import corpus
+
+    launches = []
+    fn = sequential.sequential_decode
+
+    def rec(lo, hi, tot, colch=3):
+        if colch == 1:
+            launches.append((lo, tot))
+        return fn(lo, hi, tot, colch)
+
+    # the wrapper counts its launches under its module name: while
+    # recording, that name is rec
+    rec.launches = rec.mono_launches = 0
+    sequential.sequential_decode = rec
+    try:
+        st.decode(big[0], device=dev)
+        st.BatchDecoder(device=dev)([x for x, _ in mixed])
+    finally:
+        sequential.sequential_decode = fn
+    if not launches:
+        raise AssertionError("the mono path launched no K9 mono")
+
+    rng = np.random.default_rng(7)
+    short = [corpus.mono_qoi(rng, 128, 128, 1 + i % 2) for i in range(64)]
+    rows = []
+    for where, lo, tot, main in (
+            [("full-size",) + x + (True,) for x in launches]
+            + [(w,) + _mono_ops(x, dev) + (False,) for w, x in (
+                ("short rows", short),
+                ("edge rows", _mono_edge_streams()))]):
+        def run():
+            return fn(lo, None, tot, colch=1)
+        got = run()
+        err = _max_err(got, _k9_mono_want(lo, tot))
+        p_ms = None
+        if int(tot.max()) <= _K9_PLAIN_OPS:
+            # one op a step: a full-size walk is timed without a warm-up
+            want, p_ms = _plain_ms(lambda: sequential.sequential_decode_plain(
+                lo, None, tot, colch=1), warm=not main)
+            err = max(err, _max_err(got, want))
+            del want
+        n_ops = int(tot.sum())
+        rows.append(dict(
+            shape=f"{where} {tuple(lo.shape)} ops={n_ops} "
+                  f"longest={int(tot.max())}",
+            err=err, ms=_timed(run, 3 if main else REPS), plain_ms=p_ms,
+            bytes=8 * n_ops + 4 * len(tot),
+            repeats_differ=_repeats_differ(run, lambda o: [o], got),
+            longest=int(tot.max()), main=main))
+        del got
+    torch.cuda.empty_cache()
+    if not any(r["main"] and r["plain_ms"] is not None for r in rows):
+        raise AssertionError("no K9 mono launch of the mono path was held "
+                             "to its plain version")
+    rows.sort(key=lambda r: (not r["main"], r["plain_ms"] is None))
+    return rows
+
+
+def mono_qoi_path(big, mixed, dev):
+    """The 4096x4096 mono .qoi stream through seqoia_tpu_torch.decode, and
+    the mono + color .qoi list through BatchDecoder; every pixel equal to
+    native.decode's and no row on the host. Returns ([(phase, Mpx/s)],
+    [(phase, last_timings, last_stats)])."""
+    import seqoia_tpu_torch as st
+
+    rates = []
+    clock = functools.partial(_clock, rates)
+    stream, want = big
+    got, desc = clock("mono .qoi 4096x4096 decode (seqoia_tpu_torch.decode)",
+                      4096 * 4096, lambda: st.decode(stream, device=dev))
+    if not np.array_equal(got, want) or desc.channels != 2:
+        raise AssertionError("mono .qoi 4096x4096: decode differs")
+    dec = st.BatchDecoder(device=dev)
+    res = clock(f"mono + color .qoi BatchDecoder ({len(mixed)} x 1024x1024)",
+                len(mixed) * 1024 * 1024,
+                lambda: dec([x for x, _ in mixed]))
+    for i, (r, (_, w)) in enumerate(zip(res, mixed)):
+        if r.pixels is None or not np.array_equal(r.pixels, w):
+            raise AssertionError(f"mono + color .qoi: stream {i} differs")
+    if dec.last_stats["host_rows"] or dec.last_stats["oom_redispatch"]:
+        raise AssertionError(f"mono + color .qoi left the card: "
+                             f"{dec.last_stats}")
+    return rates, [("mono + color .qoi", dec.last_timings, dec.last_stats)]
+
+
 def _qoi_images(images):
     """The .qoi workloads: the SQOA path's RGBA photo and 32 RGB photos,
     the INDEX chain and the value chain."""
@@ -1878,9 +2206,10 @@ _CENSUS = {
         lambda a, o: f"{a['combine']} {tuple(a['arrays'][0].shape)}",
         lambda a, o: (8 * len(a["arrays"]) * a["arrays"][0].numel(), [])),
     "sequential_decode": (
-        lambda a: "K9",
-        lambda a, o: f"{tuple(a['lo'].shape)}",
-        lambda a, o: (4 * len(a["totals"]), [12 * a["totals"].sum()])),
+        lambda a: "K9mono" if a["colch"] == 1 else "K9",
+        lambda a, o: f"{tuple(a['lo'].shape)} colch={a['colch']}",
+        lambda a, o: (4 * len(a["totals"]),
+                      [(8 if a["colch"] == 1 else 12) * a["totals"].sum()])),
 }
 
 
@@ -1930,6 +2259,8 @@ class _Timed:
                         lambda s, v: setattr(s.fn, "launches", v))
     seg_launches = property(lambda s: s.fn.seg_launches,
                             lambda s, v: setattr(s.fn, "seg_launches", v))
+    mono_launches = property(lambda s: s.fn.mono_launches,
+                             lambda s, v: setattr(s.fn, "mono_launches", v))
 
     def __init__(self, fn, spec, log, pending):
         import inspect
@@ -1937,12 +2268,16 @@ class _Timed:
         self.fn, self.spec, self.log, self.pending = fn, spec, log, pending
         self.sig = inspect.signature(fn)
 
+    def _n(self):
+        """The wrapper's launches (K9 counts its two steps apart)."""
+        return self.fn.launches + getattr(self.fn, "mono_launches", 0)
+
     def __call__(self, *a, **k):
-        n0, p0 = self.fn.launches, len(self.pending)
+        n0, p0 = self._n(), len(self.pending)
         out = self.fn(*a, **k)
         ev = self.pending[p0:]
         del self.pending[p0:]
-        if self.fn.launches != n0:
+        if self._n() != n0:
             b = self.sig.bind(*a, **k)
             b.apply_defaults()
             kid_of, shape_of, bytes_of = self.spec
@@ -2070,7 +2405,9 @@ def main() -> int:
     stages = [Stages(*img, dev) for img in images]
     qstages = [Stages(*img, dev, compat=1) for img in _qoi_images(images)]
     large = _large_images(images)
-    classes, mixed, ref_stream = _icon_streams(images, qstages)
+    classes, mixed, ref_stream, icon_px = _icon_streams(images, qstages)
+    enc_sets = _encode_sets(stages, qstages, (icon_px, classes))
+    mono_big, mono_mixed = _mono_inputs(qstages)
     print(f"made and encoded (native) the inputs in "
           f"{time.perf_counter() - t0:.1f} s")
 
@@ -2091,8 +2428,10 @@ def main() -> int:
                          classes, dev)
     rec["K1"].append(timed("check_saturation", check_saturation, dev))
     for k, rows in timed("check_path_kernels", check_path_kernels, large,
-                         classes, mixed, dev).items():
+                         classes, mixed, enc_sets, dev).items():
         rec[k] += rows
+    rec["K9mono"] = timed("check_mono_k9", check_mono_k9, mono_big,
+                          mono_mixed, dev)
     edges = timed("check_edge_kernels", check_edge_kernels, dev)
     edges.update(timed("check_edge_engine", check_edge_engine, dev))
     edges["K7"] = timed("check_edge_slots", check_edge_slots, dev)
@@ -2122,8 +2461,14 @@ def main() -> int:
             if "replaced_ms" in r:
                 cold += (f"; the K6 spread + torch bytes it replaced "
                          f"{r['replaced_ms']:.4f} ms")
+            plain = ("plain not run (one op a step)" if r["plain_ms"] is None
+                     else f"plain {r['plain_ms']:.3f} ms")
+            if "longest" in r:  # K9: rows run side by side, ops in turn
+                cold += (f", {r['ms'] * 1e6 / max(r['longest'], 1):.1f} ns "
+                         f"an op of the longest row, {r['repeats_differ']}/"
+                         f"{REPEATS} repeats differ")
             print(f"{k} {r['shape']}: err {r['err']} kernel {r['ms']:.4f} ms "
-                  f"plain {r['plain_ms']:.3f} ms bound "
+                  f"{plain} bound "
                   f"{r['bytes'] / HBM_BYTES_PER_S * 1e3:.4f} ms{lib}{cold}")
     for r in rec["K8"]:
         if r["shape"].startswith(("photo_rgba_qoi decode ops sum",
@@ -2143,6 +2488,7 @@ def main() -> int:
         ("K7", slots.slot_last_writer), ("K8", scan.tile_scan),
         ("K9", sequential.sequential_decode))}
     counters["K1seg"] = (frontend.decode_front_compact, "seg_launches")
+    counters["K9mono"] = (sequential.sequential_decode, "mono_launches")
     torch.cuda.reset_peak_memory_stats()
     gaps = {}
     sqoa_launches, (rates, calls), table = _counted(
@@ -2168,19 +2514,33 @@ def main() -> int:
                              "per stride")
     icon_launches, (icon_rates, timings), _ = _counted(
         counters, lambda: icon_path(classes, mixed, ref_stream, dev), gaps)
+    enc_launches, (enc_rates, enc_timings, calls, k4_due), table = _counted(
+        counters, lambda: batch_encode_path(enc_sets, dev), gaps)
+    _one_front_one_k2("batch-encode", table, calls)
+    if enc_launches["K4"] != k4_due:
+        raise AssertionError(f"the batch-encode path ran K4 "
+                             f"{enc_launches['K4']} times, not once per "
+                             f"class of stride 1-3 ({k4_due})")
+    mono_launches, (mono_rates, mono_timings), _ = _counted(
+        counters, lambda: mono_qoi_path(mono_big, mono_mixed, dev), gaps)
+    timings += mono_timings
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     steps = large_steps(large[0], rgb_stream, dev)
     paths = (("SQOA", sqoa_launches, SQOA_KERNELS),
              (".qoi", qoi_launches, QOI_KERNELS),
              ("large-image", large_launches, LARGE_KERNELS),
-             ("icon", icon_launches, ICON_KERNELS))
+             ("icon", icon_launches, ICON_KERNELS),
+             ("batch-encode", enc_launches, ENCODE_KERNELS),
+             ("mono .qoi", mono_launches, MONO_KERNELS))
     for path, launches, kernels in paths:
         missing = [k for k in kernels if launches[k] == 0]
         if missing:
             raise AssertionError(f"the {path} path launched no {missing}")
     launches = {k: sum(p[1][k] for p in paths) for k in counters}
-    rates = rates + qoi_rates + large_rates + icon_rates
-    # the census saw every counted launch (K1's counter counts both modes)
+    rates = (rates + qoi_rates + large_rates + icon_rates + enc_rates
+             + mono_rates)
+    # the census saw every counted launch (K1's counter counts both modes;
+    # K9's the color step, K9mono's the mono step)
     seen = {k: sum(r[0] for r in gaps.get(k, {}).values()) for k in counters}
     seen["K1"] += seen["K1seg"]
     if seen != launches:
@@ -2198,6 +2558,9 @@ def main() -> int:
     for phase, t, st_ in timings:
         print(f"{phase} BatchDecoder seconds: " + ", ".join(
             f"{k} {v:.4f}" for k, v in t.items()) + f"; {st_}")
+    for phase, t, st_ in enc_timings:
+        print(f"{phase} BatchEncoder seconds: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in t.items()) + f"; {st_}")
     for f in fix:
         print(f"{f['workload']}: fixpoint converged {f['converged']}/"
               f"{f['rows']} rows in {f['passes']} passes; settled "
@@ -2209,6 +2572,8 @@ def main() -> int:
     print(f"launches on the .qoi path: {qoi_launches}")
     print(f"launches on the large-image path: {large_launches}")
     print(f"launches on the icon path: {icon_launches}")
+    print(f"launches on the batch-encode path: {enc_launches}")
+    print(f"launches on the mono .qoi path: {mono_launches}")
     print(f"peak device memory of the main paths: {peak_gb:.2f} GiB")
     gap_ms = {}
     for k, shapes in sorted(gaps.items()):
@@ -2232,16 +2597,27 @@ def main() -> int:
             bound_ms=head["bytes"] / HBM_BYTES_PER_S * 1e3,
             bound_by="bytes", library_ms=head.get("library_ms"),
             shape=head["shape"], gap_ms=gap_ms.get(k)))
+        if k == "K9mono":  # the 4096x4096 launch, held to native.decode
+            top = max(main, key=lambda r: r["longest"])
+            kernels[-1].update(largest_shape=top["shape"],
+                               largest_ms=top["ms"],
+                               largest_bound_ms=top["bytes"]
+                               / HBM_BYTES_PER_S * 1e3)
     total_s = time.perf_counter() - t_start
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=smi, build_s=build_s, total_s=total_s,
+                       check_s=phase_s,
                        kernels=rec, rates=rates, fixpoint=fix,
                        launches=dict(sqoa=sqoa_launches, qoi=qoi_launches,
                                      large=large_launches,
-                                     icon=icon_launches),
+                                     icon=icon_launches,
+                                     batch_encode=enc_launches,
+                                     mono_qoi=mono_launches),
                        large_rgb_steps_ms=steps,
                        batch_decoder=[dict(phase=p, timings=t, stats=s_)
                                       for p, t, s_ in timings],
+                       batch_encoder=[dict(phase=p, timings=t, stats=s_)
+                                      for p, t, s_ in enc_timings],
                        census=gaps,
                        peak_gib=peak_gb), f, indent=1)
     print(f"chip_smoke ran {total_s:.1f} s")

@@ -10,13 +10,15 @@ seqoia.h:336-374) and byte-exact streams. Two backends:
   through the kernels' plain PyTorch versions instead.
 * ``backend="native"`` — the C host codec.
 
-QOI-compatible (``.qoi``) streams encode and decode on the card too, except
-the decode of mono ``.qoi`` streams (a decoder-only quirk), which raises
-``NotImplementedError`` for now.
+QOI-compatible (``.qoi``) streams encode and decode on the card too, in
+color and, for the decode, mono (a decoder-only quirk: a header with 1 or 2
+channels and a 128-slot index).
 
-``encode_large`` / ``decode_large`` (one 100-400 Mpx image, with shard forms)
-and ``BatchDecoder`` / ``corpus_decode`` (many streams, icons packed many to
-a row) come from ``seqoia_tpu_torch.parallel`` and load on first use.
+``encode_large`` / ``decode_large`` (one 100-400 Mpx image, with shard
+forms), ``BatchDecoder`` / ``corpus_decode`` (many streams, icons packed
+many to a row) and ``BatchEncoder`` / ``corpus_encode`` (many images, one
+encode a class) come from ``seqoia_tpu_torch.parallel`` and load on first
+use.
 """
 
 from __future__ import annotations
@@ -49,8 +51,9 @@ __all__ = [
 ]
 
 _PARALLEL = (
-    "BatchDecoder", "DecodeResult", "corpus_decode", "encode_large",
-    "encode_large_shardmap", "decode_large", "decode_large_shardmap",
+    "BatchDecoder", "BatchEncoder", "DecodeResult", "corpus_decode",
+    "corpus_encode", "encode_large", "encode_large_shardmap", "decode_large",
+    "decode_large_shardmap",
 )
 __all__ += list(_PARALLEL)
 

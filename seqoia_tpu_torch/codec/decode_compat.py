@@ -1,5 +1,5 @@
-"""QOI-compat (``.qoi``) color decode on the card: the optimistic fixpoint
-over the color index table.
+"""QOI-compat (``.qoi``) decode on the card: the optimistic fixpoint over
+the color index table, and the sequential decode of mono streams.
 
 Port of ``seqoia_tpu/codec/decode_compat.py``. The index table is
 sequential state (reference: seqoia.h:753-755,785-787): every decoded pixel
@@ -31,8 +31,13 @@ the INDEX reads. Before the loop K8 (the tokenizer's map composition) finds
 the op starts and K5 compacts the op bytes; the restart's alpha is a K8
 fill; after the loop K6 places the pixels. The per-op values and hashes
 between the kernels are torch ops on the card, as they are XLA ops in the
-JAX package. Mono compat (a decoder-only quirk the encoder cannot produce)
-is not ported yet.
+JAX package.
+
+Mono ``.qoi`` (a header with 1 or 2 channels and a 128-slot index, a
+decoder-only quirk the encoder cannot produce) takes the JAX package's
+route for it, which has no fixpoint (``fixpoint_ok`` is false for mono):
+the mono tokenizer (K8), K5 compaction, K9's mono step over every row, and
+K6 with ``_emit_pixels``.
 """
 
 from __future__ import annotations
@@ -118,25 +123,28 @@ def _op_values(ops, iv, valid):
     return px, is_index
 
 
-def _ops(data, chunks_len):
-    """Tokenize (B, M) uint8 color streams and compact their ops (K8, K5).
+def _ops(data, chunks_len, colch: int = 3):
+    """Tokenize (B, M) uint8 streams and compact their ops (K8, K5).
     Returns (lo, hi, totals): op bytes 0-3 and byte 4 as (B, mo) int32,
     mo the longest row's op count (the JAX package keeps all M slots; the
-    ones past every row's total change nothing), and the ops per row."""
+    ones past every row's total change nothing), and the ops per row. Mono
+    ops (colch 1) are at most 3 bytes: hi is None."""
     dev = data.device
     bsz, m = data.shape
     b = data.to(torch.int32)
     clen = chunks_len.to(device=dev, dtype=torch.int32)[:, None]
-    token = _tokenize(b, clen)
+    token = _tokenize(b, clen, colch)
 
     def ahead(k):
         return torch.cat([b[:, k:], torch.zeros_like(b[:, :k])], dim=-1)
 
     lo = b | (ahead(1) << 8) | (ahead(2) << 16) | (ahead(3) << 24)
     idx = torch.arange(m, dtype=torch.int32, device=dev).expand(bsz, m)
-    _, (lo_c, hi_c), totals = compact.compact(token, idx, [lo, ahead(4)])
+    pays = [lo] if colch == 1 else [lo, ahead(4)]
+    _, pays_c, totals = compact.compact(token, idx, pays)
     mo = max(int(totals.max()), 1)
-    return lo_c[:, :mo], hi_c[:, :mo], totals
+    hi_c = None if colch == 1 else pays_c[1][:, :mo]
+    return pays_c[0][:, :mo], hi_c, totals
 
 
 def _expand(b0, px, valid, n_pixels, colch, out_ch, n_max):
@@ -155,7 +163,8 @@ def _expand(b0, px, valid, n_pixels, colch, out_ch, n_max):
 
 def decode_stream_compat_batched(data, chunks_len, n_pixels, *, colch: int,
                                  out_ch: int, n_max: int, stats=None):
-    """Decode a batch of QOI-compat color streams.
+    """Decode a batch of QOI-compat streams, color (colch 3) or mono
+    (colch 1).
 
     data: (B, M) uint8; chunks_len (stream length less the end marker) and
     n_pixels: (B,); n_max: pixel slots per row (>= n_pixels, a multiple of
@@ -163,30 +172,34 @@ def decode_stream_compat_batched(data, chunks_len, n_pixels, *, colch: int,
     bool). Every row's pixels are exact; ``converged`` says which rows the
     fixpoint settled within ``_MAX_ITERS`` passes (the JAX package's flags,
     which send the other rows to its host decoder), and the port finishes
-    the others on the card. A ``stats`` dict receives the fixpoint's
-    resolutions ("passes"), the rows restarted after it ("settled_rows"),
-    the resolutions the restart ran ("settle_passes") and the rows K9
-    decoded ("sequential_rows")."""
-    if colch != 3:
-        raise NotImplementedError(
-            "mono QOI-compat decode is not ported yet (ROADMAP.md Queue 1 "
-            "item 8)")
+    the others on the card; mono rows run no fixpoint (K9 decodes them
+    all) and are all flagged settled. A ``stats`` dict receives the
+    fixpoint's resolutions ("passes"), the rows restarted after it
+    ("settled_rows"), the resolutions the restart ran ("settle_passes") and
+    the rows K9 decoded ("sequential_rows")."""
+    if colch not in (1, 3):
+        raise ValueError("colch must be 1 or 3")
     if out_ch not in (1, 2, 3, 4):
         raise ValueError("out_ch must be 1 to 4")
     dev = data.device
     bsz = data.shape[0]
-    lo_c, hi_c, totals = _ops(data, chunks_len)
-    mo = lo_c.shape[1]
+    lo_c, hi_c, totals = _ops(data, chunks_len, colch)
+    valid = torch.arange(lo_c.shape[1], device=dev)[None, :] < totals[:, None]
+    if colch == 1:
+        px = sequential.sequential_decode(lo_c, None, totals, colch=1)
+        if stats is not None:
+            stats.update(passes=0, settled_rows=0, settle_passes=0,
+                         sequential_rows=bsz)
+        return (_expand(lo_c & 255, px, valid, n_pixels, 1, out_ch, n_max),
+                torch.ones(bsz, dtype=torch.bool, device=dev))
     ops = (lo_c & 255, (lo_c >> 8) & 255, (lo_c >> 16) & 255,
            (lo_c >> 24) & 255, hi_c & 255)
-    valid = torch.arange(mo, device=dev)[None, :] < totals[:, None]
     qslot = torch.where(ops[0] < spec.QOI_INDEX_SIZE, ops[0], -1)
     qslot = torch.where(valid, qslot, -1).to(torch.int32)
 
     # one resolution, then more until every row is stable or _MAX_ITERS
     # resolutions ran (the JAX package's body + while_loop)
-    iv, stable = _resolve(ops, valid, qslot, totals,
-                          torch.zeros((bsz, mo), dtype=torch.int32, device=dev))
+    iv, stable = _resolve(ops, valid, qslot, totals, torch.zeros_like(lo_c))
     passes = 1
     while passes < _MAX_ITERS and not bool(stable.all()):
         iv, stable = _resolve(ops, valid, qslot, totals, iv)

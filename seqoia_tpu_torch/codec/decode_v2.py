@@ -10,8 +10,8 @@ channels through its unfused front instead, which gives the same pixels
 (K1 is a drop-in for that front's compacted output).
 
 The compat (``.qoi``) decode tokenizes with ``_tokenize`` below, the JAX
-package's unfused tokenizer in its compat color form (K8 composes the
-countdown maps).
+package's unfused tokenizer in its compat color and mono forms (K8
+composes the countdown maps).
 """
 
 from __future__ import annotations
@@ -25,19 +25,25 @@ from ..ops._plain import to_i32
 _INIT_PACKED = -16777216  # (0, 0, 0, 255): the decoder's initial pixel
 
 
-def _token_lengths(b):
-    """QOI-compat color token length per byte position, assuming a token
-    starts there: INDEX, DIFF and RUN 1 byte, LUMA 2, RGB 4, RGBA 5."""
+def _token_lengths(b, colch: int = 3):
+    """QOI-compat token length per byte position, assuming a token starts
+    there. Color: INDEX, DIFF and RUN 1 byte, LUMA 2, RGB 4, RGBA 5. Mono
+    (colch 1): RGB 2, RGBA 3, any other tag 1 (a tag below 128 is an INDEX
+    of the 128-slot table)."""
+    if colch == 1:
+        lens = torch.where(b == spec.OP_RGB, 2, 1)
+        return torch.where(b == spec.OP_RGBA, 3, lens)
     lens = 1 + ((b & spec.MASK_2) == spec.OP_LUMA).to(torch.int32)
     lens = torch.where(b == spec.OP_RGB, 4, lens)
     lens = torch.where(b == spec.OP_RGBA, 5, lens)
     return torch.where(b < spec.QOI_INDEX_SIZE, 1, lens)
 
 
-def _tokenize(b, chunks_len):
-    """Token-start mask of (B, M) int32 QOI-compat color streams (tokens
-    start after the header; chunks_len (B, 1) ends them)."""
-    state = scan_ops.tokenizer_states(_token_lengths(b), spec.HEADER_SIZE)
+def _tokenize(b, chunks_len, colch: int = 3):
+    """Token-start mask of (B, M) int32 QOI-compat streams (tokens start
+    after the header; chunks_len (B, 1) ends them)."""
+    state = scan_ops.tokenizer_states(_token_lengths(b, colch),
+                                      spec.HEADER_SIZE)
     idx = torch.arange(b.shape[-1], device=b.device)
     return (state == 0) & (idx >= spec.HEADER_SIZE) & (idx < chunks_len)
 

@@ -49,12 +49,17 @@ def to_i32(x: torch.Tensor) -> torch.Tensor:
 
 def compact_rows(mask: torch.Tensor, *streams: torch.Tensor):
     """Order-preserving compaction per row: entries where ``mask`` holds
-    move to the front, the rest of each (B, M) int32 output is 0."""
-    outs = [torch.zeros(s.shape, dtype=torch.int32, device=s.device)
-            for s in streams]
-    for r in range(mask.shape[0]):
-        m = mask[r]
-        n = int(m.sum())
-        for o, s in zip(outs, streams):
-            o[r, :n] = to_i32(s[r][m]) if s.dtype == torch.int64 else s[r][m]
+    move to the front, the rest of each (B, M) int32 output is 0 (one
+    scatter for all rows: an entry goes to its row's count of kept entries
+    before it)."""
+    mask = mask.to(torch.bool)
+    rows = torch.arange(mask.shape[0], device=mask.device)[:, None].expand(
+        mask.shape)[mask]
+    cols = (torch.cumsum(mask, dim=-1) - 1)[mask]
+    outs = []
+    for s in streams:
+        o = torch.zeros(s.shape, dtype=torch.int32, device=s.device)
+        v = s[mask]
+        o[rows, cols] = to_i32(v) if s.dtype == torch.int64 else v
+        outs.append(o)
     return outs

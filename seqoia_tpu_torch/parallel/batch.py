@@ -1,44 +1,50 @@
-"""Batched multi-image decode on one card.
+"""Batched multi-image decode and encode on one card.
 
-Port of the decode half of ``seqoia_tpu/parallel/batch.py``
-(``DecodeResult``, ``BatchDecoder``, ``corpus_decode``): streams are
-grouped into shape classes, each class is stacked and decoded by one
-batched call, and a malformed header is refused on the host before
-dispatch and comes back as that image's error slot instead of failing the
-batch (per-image failure isolation).
+Port of ``seqoia_tpu/parallel/batch.py`` (``DecodeResult``,
+``BatchDecoder``, ``corpus_decode``, ``BatchEncoder``, ``corpus_encode``).
 
-Routes, per class:
+Decode: streams are grouped into shape classes, each class is stacked and
+decoded by one batched call, and a malformed header is refused on the host
+before dispatch and comes back as that image's error slot instead of
+failing the batch (per-image failure isolation). Routes, per class:
 
 * SQOA, at least two images of exactly ``n_max`` pixels with stream bucket
   and pixel bucket at most 8192 (the icon class): segment-packed rows of
   32768 bytes through ``decode_v2.decode_stream_packed`` (K1 in segment
   mode, K2 over the row's pixels);
 * other SQOA classes: ``decode_v2.decode_stream_batched`` (K1, K2);
-* color ``.qoi``: ``decode_compat.decode_stream_compat_batched``, which
-  keeps every row on the card (the JAX package's default sends all ``.qoi``
-  streams to its host pool);
-* mono ``.qoi`` (its card decode is not ported yet) and the rows the card
-  hands back (SQOA streams with REF ops): the native codec on a pool of
-  host threads, counted in ``last_stats["host_rows"]``.
+* ``.qoi``, color and mono: ``decode_compat.decode_stream_compat_batched``,
+  which keeps every row on the card (the JAX package's default sends all
+  ``.qoi`` streams to its host pool);
+* the rows the card hands back (SQOA streams with REF ops): the native
+  codec on a pool of host threads, counted in ``last_stats["host_rows"]``.
 
-The pipeline overlaps its phases: a class is staged into a pinned buffer
-and copied up asynchronously, its kernels and the copy of its output into
-pinned host memory (on a second stream) are queued, and the host goes on
-staging the next class; results are unpacked class by class as their
-copies complete. Device bytes held by queued work are bounded
+Encode: images are grouped by (color channels, alpha, ``.qoi``, pixel
+bucket); each class's raw bytes are staged once into a pinned buffer and
+copied up, K4 packs them (strides 1-3; stride 4 is already packed), and one
+front (K3, or the ``.qoi`` front: K8, K7, K5) and one K2 encode the class,
+K2 sized from the exact stream totals the front computed
+(``encode_v2.encode_stream_batched``). Reading those totals waits for the
+class's front, so the host stages the next class once that front has run.
+An image whose pixels are None or whose desc is invalid gets None.
+
+Both pipelines overlap their phases: a class's kernels and the copy of its
+output into pinned host memory (on a second stream) are queued, and the
+host goes on staging the next class; results are unpacked class by class as
+their copies complete. Device bytes held by queued work are bounded
 (``max_outstanding_bytes``): past the bound the oldest class drains first.
 A ``torch.cuda.OutOfMemoryError`` (PyTorch raises it where a class is
-dispatched, at the allocation) drains the queue and re-runs the class at
+dispatched, at an allocation) drains the queue and re-runs the class at
 half size, down to a single image; one that still does not fit comes back
-as that image's error slot. Work the card fails at is never moved to the
-host: the native codec decodes only the two routes named above.
+as that image's error slot (decode) or None (encode, counted in
+``last_stats["oom_errors"]``). Work the card fails at is never moved to the
+host: the native codec decodes only the REF rows named above.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-import threading
 import time
 from collections import defaultdict
 from concurrent.futures import ThreadPoolExecutor
@@ -48,7 +54,9 @@ import torch
 
 from .. import native, spec
 from .._device import resolve
-from ..codec import decode_compat, decode_v2
+from ..codec import decode_compat, decode_v2, encode_v2
+from ..codec.encode import pixel_bucket
+from ..ops import pack
 
 #: default bound on device bytes held by dispatched work that was not
 #: fetched yet (inputs + outputs)
@@ -113,8 +121,8 @@ class BatchDecoder:
     dispatching (``stage``), waiting for the first class's output
     (``compute``), unpacking the outputs (``fetch``) and in host decodes
     that nothing overlapped (``host``); ``last_stats`` the early drains,
-    OOM re-dispatches, packed rows and rows decoded on the host (REF rows
-    and mono ``.qoi`` streams, nothing else)."""
+    OOM re-dispatches, packed rows and rows decoded on the host (REF rows,
+    nothing else)."""
 
     def __init__(self, device="cuda", max_outstanding_bytes: int | None = None):
         self.device = resolve(device)
@@ -214,7 +222,6 @@ class BatchDecoder:
     def __call__(self, streams, channels: int = 0):
         results: list[DecodeResult | None] = [None] * len(streams)
         groups = defaultdict(list)
-        host_items: list = []  # (index, stream): decoded by the host pool
         for i, data in enumerate(streams):
             desc = (
                 spec.unpack_header(
@@ -224,9 +231,6 @@ class BatchDecoder:
                 results[i] = DecodeResult(None, None, "invalid header")
                 continue
             colch = desc.col_channels
-            if desc.qoi_compat and colch != 3:
-                host_items.append((i, data))  # mono .qoi: not on the card yet
-                continue
             out_ch = channels if channels else colch + int(desc.has_alpha)
             # power-of-two buckets keep the classes few; no kernel of the
             # port needs a floor on the stream bucket, K2 needs the pixel
@@ -289,20 +293,6 @@ class BatchDecoder:
                 t_fetch_early += time.perf_counter() - tf
         t_stage = time.perf_counter() - t0 - t_fetch_early
 
-        # host share: overlaps the device work still queued
-        host_thread = None
-        t_host_inline = 0.0
-        if host_items:
-            if pending and (os.cpu_count() or 8) > 1:
-                host_thread = threading.Thread(
-                    target=self._host_pool,
-                    args=(host_items, channels, results))
-                host_thread.start()
-            else:
-                t_h0 = time.perf_counter()
-                self._host_pool(host_items, channels, results)
-                t_host_inline = time.perf_counter() - t_h0
-
         # wait for the first class (the compute not yet hidden), then
         # unpack class by class while later ones still run
         t0 = time.perf_counter()
@@ -318,10 +308,8 @@ class BatchDecoder:
         t0 = time.perf_counter()
         if fallback:
             self._host_pool(fallback, channels, results)
-        if host_thread is not None:
-            host_thread.join()
-        t_host = time.perf_counter() - t0 + t_host_inline
-        stats["host_rows"] = len(host_items) + len(fallback)
+        t_host = time.perf_counter() - t0
+        stats["host_rows"] = len(fallback)
         self.last_timings = {"stage": t_stage, "compute": t_compute,
                              "fetch": t_fetch, "host": t_host}
         self.last_stats = stats
@@ -351,3 +339,179 @@ class BatchDecoder:
 
 def corpus_decode(streams, channels: int = 0, device="cuda"):
     return BatchDecoder(device)(streams, channels)
+
+
+@dataclasses.dataclass
+class _Encoding:
+    """One dispatched encode class: its bytes on their way to ``host``."""
+    items: list
+    host: torch.Tensor       # pinned (or CPU) copy of the stream bytes
+    total: torch.Tensor      # pinned (or CPU) copy of the exact totals
+    done: object             # event after the copies (None on the CPU)
+    nbytes: int              # device bytes held: input, packed, output
+    keep: tuple              # device tensors the queued copies read
+
+
+class BatchEncoder:
+    """Encode many images on one card (module docstring); returns a list
+    of file bytes, None for an image that is None, has an invalid desc or
+    did not fit in device memory.
+
+    ``last_timings`` holds the seconds of the latest call spent staging and
+    dispatching (``stage``), waiting for the first class's bytes
+    (``compute``), unpacking the outputs (``fetch``) and on the host
+    (``host``, 0: no image is encoded there); ``last_stats`` the early
+    drains, OOM re-dispatches and images that did not fit
+    (``oom_errors``)."""
+
+    def __init__(self, device="cuda", max_outstanding_bytes: int | None = None):
+        self.device = resolve(device)
+        self.last_timings: dict = {}
+        self.last_stats: dict = {}
+        self.max_outstanding_bytes = (
+            _MAX_OUTSTANDING if max_outstanding_bytes is None
+            else int(max_outstanding_bytes))
+        self._copy_stream = None
+
+    # --- one class ---------------------------------------------------------
+
+    def _run(self, items, key):
+        """Stage and encode one class on the card. Returns (stream bytes,
+        exact totals, device bytes of the input and packed pixels)."""
+        colch, has_alpha, compat, n_pad = key
+        stride = colch + int(has_alpha)
+        dev = self.device
+        pin = dev.type == "cuda"
+        b = len(items)
+        buf = torch.empty((b, n_pad * stride), dtype=torch.uint8,
+                          pin_memory=pin)
+        nval = torch.empty(b, dtype=torch.int32, pin_memory=pin)
+        buf_np, nval_np = buf.numpy(), nval.numpy()
+        for j, (_, pix, desc) in enumerate(items):
+            n = desc.n_pixels * stride
+            buf_np[j, :n] = np.asarray(pix, np.uint8).reshape(-1)
+            buf_np[j, n:] = 0
+            nval_np[j] = desc.n_pixels
+        words = buf.to(dev, non_blocking=True).view(torch.int32)
+        packed = words if stride == 4 else pack.pack_words(words, stride)
+        # K2 is sized from the front's exact totals: reading them waits for
+        # the front
+        out, total = encode_v2.encode_stream_batched(
+            packed, nval.to(dev, non_blocking=True), colch=colch,
+            compat=compat)
+        in_bytes = buf.numel() + (0 if stride == 4 else 4 * packed.numel())
+        return out, total, in_bytes
+
+    def _dispatch(self, items, key) -> _Encoding:
+        """Stage and encode one class and queue the copy of its bytes."""
+        out, total, in_bytes = self._run(items, key)
+        nbytes = out.numel() + in_bytes
+        if self.device.type != "cuda":
+            return _Encoding(items, out, total, None, nbytes, ())
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(self.device)
+        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        host_total = torch.empty(total.shape, dtype=total.dtype,
+                                 pin_memory=True)
+        self._copy_stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(self._copy_stream):
+            host.copy_(out, non_blocking=True)
+            host_total.copy_(total, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+        return _Encoding(items, host, host_total, done, nbytes, (out, total))
+
+    @staticmethod
+    def _finish(entry: _Encoding, results) -> None:
+        """Unpack one class's bytes into results."""
+        if entry.done is not None:
+            entry.done.synchronize()
+        out, total = entry.host.numpy(), entry.total.numpy()
+        for j, (i, _, desc) in enumerate(entry.items):
+            # header + body in one copy out of the pinned buffer
+            results[i] = b"".join((spec.pack_header(desc),
+                                   memoryview(out[j, : total[j]])))
+
+    # --- the call ----------------------------------------------------------
+
+    def __call__(self, images, descs):
+        results: list[bytes | None] = [None] * len(images)
+        groups = defaultdict(list)
+        for i, (pix, desc) in enumerate(zip(images, descs)):
+            if pix is None or desc is None or not spec.validate_encode_desc(
+                    desc):
+                continue
+            # K4 packs whole groups of 4 pixels: the bucket is at least 4
+            key = (desc.col_channels, desc.has_alpha, bool(desc.qoi_compat),
+                   max(pixel_bucket(desc.n_pixels), 4))
+            groups[key].append((i, pix, desc))
+
+        stats = {"early_drains": 0, "oom_redispatch": 0, "oom_errors": 0}
+        pending: list[_Encoding] = []
+        outstanding = 0
+        t_fetch_early = 0.0
+        is_oom = torch.cuda.OutOfMemoryError
+
+        def recover(items, key):
+            """OOM degradation: re-run the class synchronously (everything
+            else has drained), halving it while it still does not fit; a
+            single image that does not fit gets None."""
+            stats["oom_redispatch"] += 1
+            try:
+                entry = self._dispatch(items, key)
+            except is_oom:
+                if len(items) == 1:
+                    stats["oom_errors"] += 1
+                    return
+                recover(items[: len(items) // 2], key)
+                recover(items[len(items) // 2:], key)
+                return
+            self._finish(entry, results)
+
+        def drain_one():
+            nonlocal outstanding
+            entry = pending.pop(0)
+            outstanding -= entry.nbytes
+            self._finish(entry, results)
+
+        t0 = time.perf_counter()
+        for key, items in groups.items():
+            try:
+                entry = self._dispatch(items, key)
+            except is_oom:
+                # free the queue (each drain gives its bytes back, so
+                # ``outstanding`` restarts from 0), then run degraded
+                while pending:
+                    drain_one()
+                if self.device.type == "cuda":
+                    torch.cuda.empty_cache()
+                recover(items, key)
+                continue
+            pending.append(entry)
+            outstanding += entry.nbytes
+            while outstanding > self.max_outstanding_bytes and len(pending) > 1:
+                tf = time.perf_counter()
+                drain_one()
+                stats["early_drains"] += 1
+                t_fetch_early += time.perf_counter() - tf
+        t_stage = time.perf_counter() - t0 - t_fetch_early
+
+        # wait for the first class (the compute not yet hidden), then
+        # unpack class by class while later ones still run
+        t0 = time.perf_counter()
+        if pending and pending[0].done is not None:
+            pending[0].done.synchronize()
+        t_compute = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        while pending:
+            drain_one()
+        t_fetch = time.perf_counter() - t0 + t_fetch_early
+        self.last_timings = {"stage": t_stage, "compute": t_compute,
+                             "fetch": t_fetch, "host": 0.0}
+        self.last_stats = stats
+        return results
+
+
+def corpus_encode(images, descs, device="cuda"):
+    return BatchEncoder(device)(images, descs)

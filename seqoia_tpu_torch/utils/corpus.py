@@ -24,9 +24,14 @@ both sign and rough magnitude of the sqoa-vs-qoi size delta:
 * texture: periodic pattern + grain + full-width flat atlas padding bands;
 * mono_doc: grayscale scans exercising the 1/2-channel mono kernels (no
   qoi comparison -- mono+compat is rejected, seqoia.h:477-480).
+
+``mono_qoi`` is no image: it writes mono ``.qoi`` streams op by op, which
+no encoder produces but the decoder reads (seqoia.h:690-693).
 """
 
 from __future__ import annotations
+
+import struct
 
 import numpy as np
 
@@ -211,3 +216,43 @@ def make_corpus(scale: float = 1.0, seed: int = 0, labels: bool = False):
     if labels:
         return images
     return [t[:4] for t in images]
+
+
+#: mono .qoi op kinds of ``mono_qoi``: INDEX, LUMA, RUN, RGB, RGBA
+MONO_QOI_OPS = ("index", "luma", "run", "rgb", "rgba")
+
+
+def mono_qoi(rng, w, h, channels=1, weights=(0.5, 0.2, 0.15, 0.1, 0.05)):
+    """A mono ``.qoi`` stream (a ``qoif`` header with 1 or 2 channels) of
+    seeded random ops that decode to exactly w * h pixels, ending in the
+    8-byte marker. Ops are drawn with ``weights`` over MONO_QOI_OPS:
+    INDEX (a tag below 128: a slot of the 128-entry index), LUMA (gray
+    delta -32..31), RUN (1-62 pixels), RGB (0xFE gray) and RGBA (0xFF gray
+    alpha). The default leans on INDEX, so most ops read the table."""
+    n = w * h
+    est = n // 4 + 64
+    while True:
+        kind = rng.choice(len(MONO_QOI_OPS), size=est, p=weights)
+        run = rng.integers(1, 63, est)
+        cs = np.cumsum(np.where(kind == 2, run, 1))
+        if cs[-1] >= n:
+            break
+        est *= 2
+    cut = int(np.searchsorted(cs, n)) + 1
+    kind, run = kind[:cut], run[:cut]
+    run[-1] -= cs[cut - 1] - n  # the last op ends on the last pixel
+    tag = np.select(
+        [kind == 0, kind == 1, kind == 2, kind == 3],
+        [rng.integers(0, 128, cut), 0x80 + rng.integers(0, 64, cut),
+         0xC0 + run - 1, np.full(cut, 0xFE)], 0xFF)
+    if tag[0] == 0x31:  # the start byte would make the header SQOA's
+        tag[0] = 0x30
+    lens = np.where(kind == 3, 2, np.where(kind == 4, 3, 1))
+    off = np.cumsum(lens) - lens
+    body = np.zeros(int(lens.sum()), np.uint8)
+    body[off] = tag
+    wide = off[kind >= 3]
+    body[wide + 1] = rng.integers(0, 256, wide.size)
+    body[off[kind == 4] + 2] = rng.integers(0, 256, int((kind == 4).sum()))
+    return (b"qoif" + struct.pack(">IIBB", w, h, channels, 0) + body.tobytes()
+            + bytes((0, 0, 0, 0, 0, 0, 0, 1)))

@@ -1,10 +1,11 @@
-"""``BatchDecoder`` of the port against the JAX package's and the native
-oracle: a mixed list, the icon class on the packed route, error slots, the
-bound on outstanding device bytes and the out-of-memory ladder.
+"""``BatchDecoder`` and ``BatchEncoder`` of the port against the JAX
+package's and the native oracle: mixed lists, the icon class on the packed
+route, error slots, one front and one K2 an encode class, the bound on
+outstanding device bytes and the out-of-memory ladders.
 
 The port runs with ``device="cpu"`` (the kernels' plain versions), the JAX
-decoder on conftest's virtual CPU devices. Images are made from a seed with
-numpy; pixels are compared exactly (tolerance 0).
+decoder and encoder on conftest's virtual CPU devices. Images are made from a seed with
+numpy; pixels and streams are compared exactly (tolerance 0).
 """
 
 import numpy as np
@@ -12,7 +13,7 @@ import pytest
 import torch
 
 import seqoia_tpu_torch as st
-from conftest import gen_pixels
+from conftest import KINDS, gen_pixels
 from seqoia_tpu import native
 from seqoia_tpu.parallel import batch as jbatch
 from seqoia_tpu_torch.parallel import batch
@@ -128,15 +129,16 @@ def test_icon_class_takes_the_packed_route(monkeypatch):
 
 
 def test_mono_qoi_goes_to_the_host_pool_counted():
-    """Mono .qoi (a decoder-only stream no encoder writes) is not decoded on
-    the card yet: the batch decoder routes it to the native codec."""
+    """Mono .qoi (a decoder-only stream no encoder writes), once sent to the
+    host pool, decodes on the card path now: no row goes to the host, and
+    the pixels equal the native codec's."""
     rng = np.random.default_rng(4)
     s = bytearray(_image(rng, 20, 20, 3, "luma", compat=1))
     s[12] = 1  # the header's channels byte: now a mono .qoi stream
     streams = [bytes(s), _image(rng, 20, 20, 3, "luma")]
     dec = st.BatchDecoder(device="cpu")
     _same(dec(streams), streams)
-    assert dec.last_stats["host_rows"] == 1
+    assert dec.last_stats["host_rows"] == 0
 
 
 def _classes(rng):
@@ -223,3 +225,197 @@ def test_oom_at_dispatch_drains_the_queue_and_resets_outstanding(monkeypatch):
 def test_corpus_decode():
     streams = _mixed()[:4]
     _same(st.corpus_decode(streams, device="cpu"), streams)
+
+
+# --- BatchEncoder -----------------------------------------------------------
+
+# four sizes in one pixel bucket (2048) of both packages: one class each
+_ENC_SHAPES = [(37, 29), (40, 40), (45, 45), (33, 50)]
+
+
+def _enc_list(rng, ch):
+    """Every conftest kind at channels ch, sizes cycling through
+    _ENC_SHAPES, as SQOA and (color) .qoi, plus pixels=None and two invalid
+    descs (a zero width; .qoi of a mono source)."""
+    images, descs = [], []
+    for i, kind in enumerate(KINDS):
+        w, h = _ENC_SHAPES[i % len(_ENC_SHAPES)]
+        pix = gen_pixels(rng, w * h, _stride(ch), kind)
+        for compat in ((0, 1) if ch >= 3 else (0,)):
+            images.append(pix)
+            descs.append(st.SqoaDesc(w, h, ch, (i + compat) % 2, compat))
+    images += [None, np.zeros(64, np.uint8), np.zeros(64, np.uint8)]
+    descs += [st.SqoaDesc(8, 8, ch), st.SqoaDesc(0, 8, ch),
+              st.SqoaDesc(8, 8, 1, 0, 1)]
+    return images, descs
+
+
+def _native_enc(images, descs):
+    return [None if p is None or not st.spec.validate_encode_desc(d) else
+            native.encode(p, d.width, d.height, d.channels, d.colorspace,
+                          d.qoi_compat) for p, d in zip(images, descs)]
+
+
+@pytest.mark.parametrize("ch", [1, 2, 3, 4, 5, 6])
+def test_batch_encode_matches_jax_and_native(ch):
+    """BatchEncoder's streams against the JAX corpus_encode's and
+    native.encode's: the conftest kinds at several sizes in one class,
+    SQOA and .qoi, an image without pixels and invalid descs (None)."""
+    images, descs = _enc_list(np.random.default_rng(1000 + ch), ch)
+    want = _native_enc(images, descs)
+    enc = st.BatchEncoder(device="cpu")
+    ours = enc(images, descs)
+    assert ours == want
+    assert ours[-3:] == [None, None, None]
+    jdescs = [jbatch.spec.SqoaDesc(d.width, d.height, d.channels,
+                                   d.colorspace, d.qoi_compat) for d in descs]
+    assert jbatch.corpus_encode(images, jdescs) == ours
+    assert enc.last_stats == {"early_drains": 0, "oom_redispatch": 0,
+                              "oom_errors": 0}
+    assert set(enc.last_timings) == {"stage", "compute", "fetch", "host"}
+    assert enc.last_timings["host"] == 0
+
+
+def _enc_classes(rng):
+    """Five classes in dispatch order: RGB SQOA, gray+alpha SQOA, RGBA
+    .qoi, RGBA SQOA (stride 4: no K4) and gray SQOA, of two or three
+    images each, sizes varied inside a class."""
+    out = []
+    for ch, compat, shapes in ((3, 0, [(30, 20), (17, 31)]),
+                               (2, 0, [(8, 8), (7, 9), (8, 7)]),
+                               (4, 1, [(20, 20), (31, 16)]),
+                               (4, 0, [(9, 9), (10, 12)]),
+                               (1, 0, [(5, 5), (3, 7)])):
+        for w, h in shapes:
+            out.append((gen_pixels(rng, w * h, _stride(ch), "luma"),
+                        st.SqoaDesc(w, h, ch, 0, compat)))
+    return [p for p, _ in out], [d for _, d in out]
+
+
+@pytest.mark.parametrize("bound", [None, 1])
+def test_one_front_and_one_k2_per_encode_class(bound, monkeypatch):
+    """Each class runs one K2, sized from the exact totals, and a SQOA
+    class one K3; each class of stride 1-3 one K4, stride 4 none; with
+    the queue kept (the default bound) or drained before each dispatch
+    (a bound of 1 byte). The streams equal native.encode's."""
+    from seqoia_tpu_torch.ops import encode_front, engine, pack
+
+    calls = {"K2": [], "K3": 0, "K4": []}
+
+    def counted(key, fn, arg=None):
+        def run(*a, **k):
+            if arg is None:
+                calls[key] += 1
+            else:
+                calls[key].append(arg(a, k))
+            return fn(*a, **k)
+        return run
+
+    monkeypatch.setattr(engine, "place_emit", counted(
+        "K2", engine.place_emit, lambda a, k: (a[0].shape[0], a[4])))
+    monkeypatch.setattr(encode_front, "encode_front_compact", counted(
+        "K3", encode_front.encode_front_compact))
+    monkeypatch.setattr(pack, "pack_words", counted(
+        "K4", pack.pack_words, lambda a, k: a[1]))
+    images, descs = _enc_classes(np.random.default_rng(21))
+    want = _native_enc(images, descs)
+    enc = st.BatchEncoder(device="cpu", max_outstanding_bytes=bound)
+    assert enc(images, descs) == want
+    assert enc.last_stats["early_drains"] == (4 if bound else 0)
+    body = [len(x) - (14 if d.qoi_compat else 15) for x, d in zip(want, descs)]
+    sizes = [2, 3, 2, 2, 2]
+    caps, i = [], 0
+    for b in sizes:
+        caps.append((b, -(-max(body[i: i + b]) // 4) * 4))
+        i += b
+    assert calls == {"K2": caps, "K3": 4, "K4": [3, 2, 1]}
+
+
+def test_encoder_drain_bound():
+    """Past the bound on outstanding bytes the oldest class drains before
+    the next dispatch; the streams do not change."""
+    images, descs = _enc_classes(np.random.default_rng(22))
+    want = _native_enc(images, descs)
+    enc = st.BatchEncoder(device="cpu", max_outstanding_bytes=1)
+    assert enc(images, descs) == want
+    assert enc.last_stats["early_drains"] == 4
+    enc = st.BatchEncoder(device="cpu")
+    assert enc(images, descs) == want
+    assert enc.last_stats["early_drains"] == 0
+
+
+def test_encoder_oom_ladder_halves_down_to_none(monkeypatch):
+    """A class that does not fit is re-run in halves; a single image that
+    still does not fit gets None and is counted, and nothing is encoded on
+    the host."""
+    rng = np.random.default_rng(23)
+    images = [gen_pixels(rng, 40 * 40, 3, "luma") for _ in range(5)] \
+        + [gen_pixels(rng, 64, 1, "luma")]
+    descs = [st.SqoaDesc(40, 40, 3)] * 5 + [st.SqoaDesc(8, 8, 1)]
+    want = _native_enc(images, descs)
+    enc = st.BatchEncoder(device="cpu")
+    run = enc._run
+    seen = []
+
+    def tight(items, key):
+        seen.append(len(items))
+        if len(items) > 2 or any(it[0] == 4 for it in items):  # 4 never fits
+            raise torch.cuda.OutOfMemoryError("mocked")
+        return run(items, key)
+
+    monkeypatch.setattr(enc, "_run", tight)
+    monkeypatch.setattr(native, "encode", lambda *a: pytest.fail(
+        "an out-of-memory image went to the host"))
+    results = enc(images, descs)
+    # 5 -> (2, 3 -> (1, 2)): image 4 sits in the last pair -> (1, 1)
+    assert seen == [5, 5, 2, 3, 1, 2, 1, 1, 1]
+    assert enc.last_stats == {"early_drains": 0, "oom_redispatch": 7,
+                              "oom_errors": 1}
+    assert results[4] is None
+    assert results[:4] + results[5:] == want[:4] + want[5:]
+
+
+def test_encoder_oom_at_k2_drains_and_degrades(monkeypatch):
+    """An out-of-memory error at a class's K2 (its output allocation)
+    drains the queue and re-runs that class in halves; the streams do not
+    change."""
+    from seqoia_tpu_torch.ops import engine
+
+    images, descs = _enc_classes(np.random.default_rng(24))
+    want = _native_enc(images, descs)
+    enc = st.BatchEncoder(device="cpu")
+    place_emit, finish = engine.place_emit, enc._finish
+    log = []
+
+    def tight(*a, **k):
+        log.append(("K2", a[0].shape[0]))
+        if a[0].shape[0] == 3:  # the gray+alpha class, whole
+            raise torch.cuda.OutOfMemoryError("mocked")
+        return place_emit(*a, **k)
+
+    def finished(entry, results):
+        log.append(("done", len(entry.items)))
+        return finish(entry, results)
+
+    monkeypatch.setattr(engine, "place_emit", tight)
+    monkeypatch.setattr(enc, "_finish", finished)
+    assert enc(images, descs) == want
+    # RGB queued; gray+alpha fails at its K2: the queue drains (RGB
+    # done), the class re-runs whole, fails again and halves, 1 + 2; then
+    # the last three classes queue and drain at the end
+    assert log == [("K2", 2), ("K2", 3), ("done", 2), ("K2", 3), ("K2", 1),
+                   ("done", 1), ("K2", 2), ("done", 2), ("K2", 2), ("K2", 2),
+                   ("K2", 2), ("done", 2), ("done", 2), ("done", 2)]
+    assert enc.last_stats == {"early_drains": 0, "oom_redispatch": 3,
+                              "oom_errors": 0}
+
+
+def test_corpus_encode_and_the_exports():
+    images, descs = _enc_classes(np.random.default_rng(25))
+    assert st.corpus_encode(images, descs, device="cpu") == _native_enc(
+        images, descs)
+    from seqoia_tpu_torch import parallel
+
+    for name in ("BatchEncoder", "corpus_encode"):
+        assert name in st.__all__ and name in parallel.__all__
+        assert getattr(st, name) is getattr(parallel, name)

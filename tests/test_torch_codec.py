@@ -107,15 +107,19 @@ def test_ref_stream_goes_to_the_host_decoder():
 
 
 def test_qoi_compat_is_not_ported():
-    """The part of .qoi not ported yet: a mono QOI-compat stream (a
-    decoder-only quirk; the encoder refuses mono compat). The native codec
-    decodes it; the port raises."""
+    """Mono QOI-compat, once the part of .qoi not ported (a decoder-only
+    quirk; the encoder refuses mono compat): the port decodes it on the
+    card path, equal to the native codec at channels 0-4, and its encoder
+    still refuses it."""
     mono_qoi = (b"qoif" + struct.pack(">IIBB", 4, 1, 1, 0) + bytes([0xC3])
                 + spec.PADDING)
-    want, _ = native.decode(mono_qoi, 0)
-    assert want is not None and len(want) == 4
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        st.decode(mono_qoi, device="cpu")
+    for channels in range(5):
+        want, wdesc = native.decode(mono_qoi, channels)
+        assert want is not None and len(want) == 4 * max(channels, 1)
+        got, desc = st.decode(mono_qoi, channels, device="cpu")
+        assert np.array_equal(got, want), channels
+        assert (desc.width, desc.height, desc.channels, desc.colorspace,
+                desc.qoi_compat) == wdesc
     assert st.encode(np.zeros(16, np.uint8), st.SqoaDesc(4, 4, 1, 0, 1),
                      device="cpu") is None
 

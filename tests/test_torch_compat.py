@@ -437,3 +437,81 @@ def test_qoi_encode_emits_through_k2(ch, monkeypatch):
     assert np.array_equal(out.numpy(), np.asarray(want))
     for i, (kind, stream) in enumerate(zip(KINDS, streams)):
         assert out[i, : total[i]].numpy().tobytes() == stream[14:], kind
+
+
+def _mono_qoi_streams(rng, ch):
+    """Mono .qoi streams: corpus.mono_qoi's seeded ops and a color .qoi
+    encode whose header's channels byte says ch."""
+    s = bytearray(native.encode(gen_pixels(rng, 37 * 29, 4, "palette"), 37,
+                                29, 4, 0, 1))
+    s[12] = ch
+    return [corpus.mono_qoi(rng, 61, 13, ch), bytes(s)]
+
+
+def test_tokenize_mono_matches_jax():
+    """The mono tokenizer (RGB 2 bytes, RGBA 3, every other tag 1) against
+    the JAX package's on the CPU."""
+    import jax.numpy as jnp
+
+    from seqoia_tpu.codec import decode_v2 as jax_decode_v2
+    from seqoia_tpu_torch.codec import decode_v2
+
+    streams = _mono_qoi_streams(np.random.default_rng(980), 2)
+    data, clen = _rows(streams)
+    b = data.astype(np.int32)
+    want, _ = jax_decode_v2._tokenize(jnp.asarray(b),
+                                      jnp.asarray(clen[:, None]), 1, True)
+    got = decode_v2._tokenize(torch.from_numpy(b),
+                              torch.from_numpy(clen[:, None]), 1)
+    assert np.array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("ch", [1, 2])
+def test_mono_qoi_decode_matches_jax_and_native(ch):
+    """Mono .qoi through the public decode at channels 0-4 against the
+    native decoder (and the JAX package's decode at the stored count), and
+    the batched call: every row by K9, no fixpoint pass."""
+    streams = _mono_qoi_streams(np.random.default_rng(990 + ch), ch)
+    for stream in streams:
+        for fch in (0, 1, 2, 3, 4):
+            ours, desc = st.decode(stream, fch, device="cpu")
+            want, wdesc = native.decode(stream, fch)
+            assert np.array_equal(ours, want), fch
+            assert (desc.width, desc.height, desc.channels, desc.colorspace,
+                    desc.qoi_compat) == wdesc
+        assert np.array_equal(st.decode(stream, device="cpu")[0],
+                              sq.decode(stream)[0])
+    data, clen = _rows(streams)
+    npx = [61 * 13, 37 * 29]
+    stats = {}
+    px, conv = decode_stream_compat_batched(
+        torch.from_numpy(data), convert.tensor(clen), torch.tensor(npx),
+        colch=1, out_ch=ch, n_max=2048, stats=stats)
+    assert conv.tolist() == [True, True]
+    assert stats == dict(passes=0, settled_rows=0, settle_passes=0,
+                         sequential_rows=2)
+    for r, stream in enumerate(streams):
+        want, _ = native.decode(stream)
+        assert np.array_equal(px[r, : npx[r] * ch].numpy(), want)
+
+
+def test_mono_and_color_qoi_in_one_batch_decoder():
+    """BatchDecoder with mono and color .qoi streams (and SQOA) mixed:
+    every class on the card path, no row on the host, pixels equal to the
+    native decoder's at the stored channels and at 3."""
+    rng = np.random.default_rng(995)
+    streams = (_mono_qoi_streams(rng, 1) + _mono_qoi_streams(rng, 2)
+               + [corpus.mono_qoi(rng, 61, 13, 2),
+                  native.encode(gen_pixels(rng, 40 * 30, 4, "luma"), 40, 30,
+                                4, 0, 1),
+                  native.encode(gen_pixels(rng, 40 * 30, 3, "palette"), 40,
+                                30, 3, 0, 1),
+                  native.encode(gen_pixels(rng, 40 * 30, 2, "luma"), 40, 30,
+                                2, 0, 0)])
+    dec = st.BatchDecoder(device="cpu")
+    for channels in (0, 3):
+        res = dec(streams, channels)
+        for r, stream in zip(res, streams):
+            want, _ = native.decode(stream, channels)
+            assert r.error is None and np.array_equal(r.pixels, want)
+        assert dec.last_stats["host_rows"] == 0
