@@ -14,12 +14,16 @@
    decode_stream_compat_batched / encode_stream_batched(compat=True) call
    per photo workload (K2's EPI_ENCQ launch also beside the K6 spread and
    torch byte emission it replaced), and of K9 (the sequential decoder) in
-   the value chain's decode; K9's mono step at the mono path's full-size
-   launches against native.decode's pixels at every op, and at the
-   BatchDecoder list's two mono classes (32 rows of 1024x1024 each) also
-   against its plain version, as at edge rows (no op, one op, all 128
-   slots, runs to the row's end) and 64 short rows of generated mono .qoi
-   ops; K8 sum and K7 at 128
+   the value chain's decode, and on its ops at row totals on K9's chunk and
+   ring edges; K9's mono step at the mono path's full-size launches against
+   native.decode's pixels at every op, and at the BatchDecoder list's two
+   mono classes (32 rows of 1024x1024 each) also against its plain version
+   walking host copies of the same tensors, as at edge rows (no op, one op,
+   all 128 slots, runs to the row's end), 64 short rows and 2048 rows of
+   64x64 streams of generated mono .qoi ops and one row at totals on the
+   chunk and ring edges; every K9 launch re-launched REPEATS times; the
+   latency of one dependent shared-memory load (K9's chain bound, a
+   one-thread chase through a 128-entry table); K8 sum and K7 at 128
    slots (not on the path) at the decode's op shape. Large images and icons:
    K4 at the three strides, K1 in segment mode in its three modes, and K1,
    K2 and K3 at the first launch of every distinct shape that encode_large,
@@ -86,7 +90,8 @@
    workload's fixpoint (converged rows and passes, the rows settled after it
    and the resolutions that took) beside the INDEX-chain depth that
    ``native.compat_probe`` measures on its streams, the BatchDecoder's and
-   BatchEncoder's ``last_timings``, K9's ns an op of the longest row, the
+   BatchEncoder's ``last_timings``, K9's ns an op of the longest row and
+   chain bound (its ops times one shared-memory load's latency), the
    steps of the 134 Mpx encode and decode one by one, the peak device
    memory, each kernel's time beside its bound, each kernel's summed gap
    over the six paths' launches (Σ(ms − bound), every launch timed in place
@@ -717,6 +722,7 @@ def _check_qoi_call(key, args, kw, where):
         want, p_ms = _plain_ms(lambda: sequential.sequential_decode_plain(
             lo, hi, tot))
         err = _max_err(got, want)
+        repeats = _repeats_differ(run, lambda o: [o], got)
         n_ops = int(tot.sum())
         nbytes = 12 * n_ops + 4 * len(tot)
         shape = f"{where} {tuple(lo.shape)} ops={n_ops}"
@@ -767,6 +773,8 @@ def _check_qoi_call(key, args, kw, where):
         r.update(repeats_differ=repeats, cold_ms=_timed_cold(run))
     if kid in ("K2", "K6", "K7"):
         r["device_ms"] = _device_ms(run)
+    if kid == "K9":
+        r.update(repeats_differ=repeats, longest=int(tot.max()))
     return kid, r
 
 
@@ -774,7 +782,8 @@ def check_qoi_kernels(qstages, dev):
     """K5, K6, K7 and K8 against their plain versions at the shapes the .qoi
     path gives them (recorded from one batched decode and one batched
     encode per photo workload), K9 at the value chain's, and, off the path,
-    K8 sum and fill and K7 at 128 slots at the decode's op shape. Records
+    K9 on the value chain's ops at totals on its chunk edges, K8 sum and
+    fill and K7 at 128 slots at the decode's op shape. Records
     each photo workload's fixpoint stats."""
     import torch
 
@@ -790,6 +799,9 @@ def check_qoi_kernels(qstages, dev):
                 s.data, s.clen, s.npx, colch=3, out_ch=4, n_max=s.n_max))
             kid, r = _check_qoi_call("K9", *seen["K9"], f"{s.name} decode")
             rec[kid].append(r)
+            (lo, hi, _), _ = seen["K9"]
+            rec[kid].append(_k9_held(f"{s.name} ops at chunk-edge totals",
+                                     *_k9_edge_rows(lo, hi), 3, False))
             continue
         stats = {}
         seen, (_, conv) = _capture(lambda: decode_stream_compat_batched(
@@ -1951,20 +1963,27 @@ def batch_encode_path(sets, dev):
     return rates, timings, calls, k4
 
 
-def _mono_inputs(qstages, seed: int = 3):
+def _mono_streams(color, seed: int = 3):
     """The mono .qoi path's streams (``corpus.mono_qoi``: seeded random ops,
     decoder-only): one 4096x4096 gray+alpha stream, and a BatchDecoder
     list of 64 1024x1024 streams (32 gray, 32 gray+alpha) mixed with the
-    32 batch photos as .qoi; each as (stream, native.decode's pixels)."""
-    from seqoia_tpu_torch import native
+    streams ``color`` in a seeded order."""
     from seqoia_tpu_torch.utils import corpus
 
     rng = np.random.default_rng(seed)
     big = corpus.mono_qoi(rng, 4096, 4096, 2)
-    color = next(s for s in qstages if s.name == "batch_rgb_qoi").streams
     streams = [corpus.mono_qoi(rng, 1024, 1024, 1 + i % 2) for i in range(64)]
     streams += list(color)
-    streams = [streams[j] for j in rng.permutation(len(streams))]
+    return big, [streams[j] for j in rng.permutation(len(streams))]
+
+
+def _mono_inputs(qstages):
+    """_mono_streams with the 32 batch photos as .qoi, each stream as
+    (stream, native.decode's pixels)."""
+    from seqoia_tpu_torch import native
+
+    big, streams = _mono_streams(
+        next(s for s in qstages if s.name == "batch_rgb_qoi").streams)
     return ((big, native.decode(big, 0)[0]),
             [(x, native.decode(x, 0)[0]) for x in streams])
 
@@ -2042,20 +2061,77 @@ def _k9_mono_want(lo, tot):
     return torch.from_numpy(want.view(np.int32)).to(lo.device)
 
 
-#: the longest row K9 mono's plain version walks beside a recorded launch
-#: (it takes one step an op, about 0.6 ms on the card at 32 rows): the
-#: BatchDecoder list's 1024x1024 classes, not the 4096x4096 stream
+#: the longest row K9's plain version walks beside a recorded launch (one
+#: step an op, about 0.14 ms on the host at 32 rows): the BatchDecoder list's
+#: 1024x1024 mono classes, not the 4096x4096 stream
 _K9_PLAIN_OPS = 400_000
+#: K9's chunk (ops a warp walks at a time) and the chunks its ring holds
+_K9_CHUNK, _K9_STAGES = 32, 4
+
+
+def _k9_edge_totals(m: int):
+    """Row totals at the edges of K9's chunks and of its ring of chunks,
+    and at a row's width m (and past it)."""
+    c = _K9_CHUNK
+    edges = {0, 1, 2, 3 * c + 2, m - 1, m, m + 3}
+    edges |= {k * c + d for k in range(1, 2 * _K9_STAGES + 2)
+              for d in (-1, 0, 1)}
+    return sorted(e for e in edges if e <= m + 3)
+
+
+def _k9_held(where, lo, hi, tot, colch, main, want=None):
+    """One K9 launch (the wrapper, colch 3 or 1) held to its plain version,
+    which walks host copies of the same tensors (rows longer than
+    _K9_PLAIN_OPS only to ``want``), and to ``want`` where given; timed and
+    re-launched REPEATS times."""
+    from seqoia_tpu_torch.ops import sequential
+
+    def run():
+        return sequential.sequential_decode(lo, hi, tot, colch)
+    got = run()
+    err = 0 if want is None else _max_err(got, want)
+    longest = min(int(tot.max()), lo.shape[1])
+    p_ms = None
+    if longest <= _K9_PLAIN_OPS:
+        host = [None if x is None else x.cpu() for x in (lo, hi, tot)]
+        # one op a step: a full-size walk is timed without a warm-up
+        plain, p_ms = _plain_ms(lambda: sequential.sequential_decode_plain(
+            *host, colch), warm=not main)
+        err = max(err, _max_err(got.cpu(), plain))
+        del plain
+    n_ops = int(tot.clamp(max=lo.shape[1]).sum())
+    r = dict(shape=f"{where} {tuple(lo.shape)} ops={n_ops} longest={longest}",
+             err=err, ms=_timed(run, 3 if main else REPS), plain_ms=p_ms,
+             plain_on="host", bytes=(8 if colch == 1 else 12) * n_ops
+             + 4 * len(tot),
+             repeats_differ=_repeats_differ(run, lambda o: [o], got),
+             longest=longest, main=main)
+    del got
+    return r
+
+
+def _k9_edge_rows(lo, hi):
+    """Row 0 of (lo, hi) repeated once for each of _k9_edge_totals:
+    (lo, hi, totals)."""
+    import torch
+
+    m = lo.shape[1]
+    tot = _k9_edge_totals(m)
+    rep = [None if x is None else x[:1].expand(len(tot), m).contiguous()
+           for x in (lo, hi)]
+    return rep + [torch.tensor(tot, dtype=torch.int32, device=lo.device)]
 
 
 def check_mono_k9(big, mixed, dev):
     """K9's mono step at the full-size launches of the mono path (the
     4096x4096 stream's decode and the BatchDecoder list's two mono classes,
     recorded): against native.decode's pixels at every op, and the
-    BatchDecoder classes also against its plain version (which walks one op
-    a step, too slow for the 4096x4096 row's 3M ops). Also at the edge rows
-    and at 64 short rows of corpus.mono_qoi ops against both (no main path
-    launches those shapes). Each re-launched REPEATS times. Returns
+    BatchDecoder classes also against its plain version on host copies
+    (which walks one op a step, too slow for the 4096x4096 row's 3M ops).
+    Off the path, against its plain version (and native.decode where the
+    rows are whole streams): edge rows, 64 short rows, 2048 rows of 64x64
+    streams (the grid's row mapping) and one row repeated at totals on
+    K9's chunk and ring edges. Each re-launched REPEATS times. Returns
     [records], the main-path ones first, those held to the plain version
     leading."""
     import torch
@@ -2086,38 +2162,44 @@ def check_mono_k9(big, mixed, dev):
 
     rng = np.random.default_rng(7)
     short = [corpus.mono_qoi(rng, 128, 128, 1 + i % 2) for i in range(64)]
+    many = [corpus.mono_qoi(rng, 64, 64, 1 + i % 2) for i in range(2048)]
     rows = []
     for where, lo, tot, main in (
             [("full-size",) + x + (True,) for x in launches]
             + [(w,) + _mono_ops(x, dev) + (False,) for w, x in (
-                ("short rows", short),
+                ("short rows", short), ("2048 rows", many),
                 ("edge rows", _mono_edge_streams()))]):
-        def run():
-            return fn(lo, None, tot, colch=1)
-        got = run()
-        err = _max_err(got, _k9_mono_want(lo, tot))
-        p_ms = None
-        if int(tot.max()) <= _K9_PLAIN_OPS:
-            # one op a step: a full-size walk is timed without a warm-up
-            want, p_ms = _plain_ms(lambda: sequential.sequential_decode_plain(
-                lo, None, tot, colch=1), warm=not main)
-            err = max(err, _max_err(got, want))
-            del want
-        n_ops = int(tot.sum())
-        rows.append(dict(
-            shape=f"{where} {tuple(lo.shape)} ops={n_ops} "
-                  f"longest={int(tot.max())}",
-            err=err, ms=_timed(run, 3 if main else REPS), plain_ms=p_ms,
-            bytes=8 * n_ops + 4 * len(tot),
-            repeats_differ=_repeats_differ(run, lambda o: [o], got),
-            longest=int(tot.max()), main=main))
-        del got
+        rows.append(_k9_held(where, lo, None, tot, 1, main,
+                             want=_k9_mono_want(lo, tot)))
+    lo, _ = _mono_ops([short[0]], dev)
+    lo, _, tot = _k9_edge_rows(lo, None)
+    rows.append(_k9_held("chunk-edge totals", lo, None, tot, 1, False))
     torch.cuda.empty_cache()
     if not any(r["main"] and r["plain_ms"] is not None for r in rows):
         raise AssertionError("no K9 mono launch of the mono path was held "
                              "to its plain version")
     rows.sort(key=lambda r: (not r["main"], r["plain_ms"] is None))
     return rows
+
+
+def smem_load_ns(dev, n: int = 1 << 22):
+    """(ns, SM cycles) of one dependent shared-memory load: one thread
+    chasing n links through a 128-entry shared table (k9_smem_chase), timed
+    by CUDA events and by the SM clock."""
+    import torch
+
+    from seqoia_tpu_torch.ops import _build
+
+    lib = _build.load("sequential")
+    end = torch.zeros(1, dtype=torch.int32, device=dev)
+    cycles = torch.zeros(1, dtype=torch.int64, device=dev)
+
+    def run():
+        _build.check(lib.k9_smem_chase(n, _build.ptr(end), _build.ptr(cycles),
+                                       _build.stream_ptr(dev)),
+                     "k9_smem_chase")
+    ms = _timed(run, 3)
+    return ms * 1e6 / n, int(cycles.item()) / n
 
 
 def mono_qoi_path(big, mixed, dev):
@@ -2432,6 +2514,9 @@ def main() -> int:
         rec[k] += rows
     rec["K9mono"] = timed("check_mono_k9", check_mono_k9, mono_big,
                           mono_mixed, dev)
+    load_ns, load_cycles = timed("smem_load_ns", smem_load_ns, dev)
+    print(f"one dependent shared-memory load (k9_smem_chase): {load_ns:.4f} "
+          f"ns, {load_cycles:.2f} SM cycles")
     edges = timed("check_edge_kernels", check_edge_kernels, dev)
     edges.update(timed("check_edge_engine", check_edge_engine, dev))
     edges["K7"] = timed("check_edge_slots", check_edge_slots, dev)
@@ -2465,8 +2550,9 @@ def main() -> int:
                      else f"plain {r['plain_ms']:.3f} ms")
             if "longest" in r:  # K9: rows run side by side, ops in turn
                 cold += (f", {r['ms'] * 1e6 / max(r['longest'], 1):.1f} ns "
-                         f"an op of the longest row, {r['repeats_differ']}/"
-                         f"{REPEATS} repeats differ")
+                         f"an op of the longest row, chain bound "
+                         f"{r['longest'] * load_ns * 1e-6:.4f} ms, "
+                         f"{r['repeats_differ']}/{REPEATS} repeats differ")
             print(f"{k} {r['shape']}: err {r['err']} kernel {r['ms']:.4f} ms "
                   f"{plain} bound "
                   f"{r['bytes'] / HBM_BYTES_PER_S * 1e3:.4f} ms{lib}{cold}")
@@ -2597,12 +2683,18 @@ def main() -> int:
             bound_ms=head["bytes"] / HBM_BYTES_PER_S * 1e3,
             bound_by="bytes", library_ms=head.get("library_ms"),
             shape=head["shape"], gap_ms=gap_ms.get(k)))
+        if k in ("K9", "K9mono"):  # latency-bound: the chain bound too
+            kernels[-1].update(
+                chain_bound_ms=head["longest"] * load_ns * 1e-6,
+                smem_load_ns=load_ns)
         if k == "K9mono":  # the 4096x4096 launch, held to native.decode
             top = max(main, key=lambda r: r["longest"])
             kernels[-1].update(largest_shape=top["shape"],
                                largest_ms=top["ms"],
                                largest_bound_ms=top["bytes"]
-                               / HBM_BYTES_PER_S * 1e3)
+                               / HBM_BYTES_PER_S * 1e3,
+                               largest_chain_bound_ms=top["longest"]
+                               * load_ns * 1e-6)
     total_s = time.perf_counter() - t_start
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=smi, build_s=build_s, total_s=total_s,

@@ -22,8 +22,8 @@ from guesses whose alpha is speculated (the alpha of the latest RGBA op,
 passes: the same unique fixpoint, reached in a few passes when the
 speculation holds. A row still unsettled then (a long chain of INDEX reads
 of values derived from the read before) goes to K9, the sequential decoder
-(the color form of ``decode_jax.decode_stream_compat``'s scan), one thread
-per row, so no row costs more than a bounded number of passes and one
+(the color form of ``decode_jax.decode_stream_compat``'s scan), one warp
+a row, so no row costs more than a bounded number of passes and one
 sequential walk.
 
 Per pass: K8 (two segmented mod-256 sums) rebuilds the values, K7 resolves

@@ -36,7 +36,8 @@ _SIGNATURES = {
     "compact": {"k5_compact": "ppppiipppppp"},
     "slots": {"k7_slots": "ppppiiiippp"},
     "scan": {"k8_scan": "ippiipppp"},
-    "sequential": {"k9_sequential_decode": "pppiiipp"},
+    "sequential": {"k9_sequential_decode": "pppiiipp",
+                   "k9_smem_chase": "ippp"},
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "q": ctypes.c_longlong}
 KERNELS = tuple(_SIGNATURES)
@@ -91,13 +92,19 @@ def _nvcc() -> str:
                        "with the CUDA toolkit")
 
 
-def _start(name: str) -> subprocess.Popen:
-    cmd = [
+def nvcc_command(source: str, defines=()) -> list:
+    """The nvcc command (less its output) that builds ``source``, a .cu file
+    with the headers of its own directory, into a shared library."""
+    return [
         _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
         "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-        "-I", CSRC, os.path.join(CSRC, name + ".cu"),
+        *(f"-D{d}" for d in defines), "-I", os.path.dirname(source), source,
     ]
-    return compile_shared(cmd, _target(name))
+
+
+def _start(name: str) -> subprocess.Popen:
+    return compile_shared(nvcc_command(os.path.join(CSRC, name + ".cu")),
+                          _target(name))
 
 
 def build_all() -> dict:

@@ -1,4 +1,4 @@
-"""K9: sequential decode of QOI-compat ops, one thread per stream.
+"""K9: sequential decode of QOI-compat ops, one row a warp.
 
 Port of the sequential scan decoder's step
 (``seqoia_tpu/codec/decode_jax.py:_compat_scan_step``, run by
@@ -7,9 +7,11 @@ no Pallas kernel: the port runs it on the color ``.qoi`` rows the index
 fixpoint leaves unsettled after its bounded passes (``codec/
 decode_compat.py``), where the JAX package decodes them on the host, and on
 every mono ``.qoi`` row, as the JAX package does. The kernel is
-``csrc/sequential.cu`` (see its header for the two steps and what bounds
-it on the H100); ``sequential_decode_plain`` is the same walk in plain
-PyTorch, one step per op over all rows at once.
+``csrc/sequential.cu`` (see its header for the two steps, what bounds it
+on the H100 and its design: ops pre-decoded 32 at a time into a keep mask,
+a byte-wise addend and an INDEX slot, walked by one lane a row);
+``sequential_decode_plain`` is the same walk in plain PyTorch, one step per
+op over all rows at once.
 """
 
 from __future__ import annotations
