@@ -2065,17 +2065,15 @@ def _k9_mono_want(lo, tot):
 #: step an op, about 0.14 ms on the host at 32 rows): the BatchDecoder list's
 #: 1024x1024 mono classes, not the 4096x4096 stream
 _K9_PLAIN_OPS = 400_000
-#: K9's chunk (ops a warp walks at a time) and the chunks its ring holds
-_K9_CHUNK, _K9_STAGES = 32, 4
 
 
 def _k9_edge_totals(m: int):
     """Row totals at the edges of K9's chunks and of its ring of chunks,
     and at a row's width m (and past it)."""
-    c = _K9_CHUNK
+    from seqoia_tpu_torch.ops.sequential import CHUNK as c, RING
+
     edges = {0, 1, 2, 3 * c + 2, m - 1, m, m + 3}
-    edges |= {k * c + d for k in range(1, 2 * _K9_STAGES + 2)
-              for d in (-1, 0, 1)}
+    edges |= {k * c + d for k in range(1, 2 * RING + 2) for d in (-1, 0, 1)}
     return sorted(e for e in edges if e <= m + 3)
 
 
@@ -2182,14 +2180,15 @@ def check_mono_k9(big, mixed, dev):
     return rows
 
 
-def smem_load_ns(dev, n: int = 1 << 22):
+def smem_load_ns(dev):
     """(ns, SM cycles) of one dependent shared-memory load: one thread
-    chasing n links through a 128-entry shared table (k9_smem_chase), timed
-    by CUDA events and by the SM clock."""
+    chasing 2**22 links through a 128-entry shared table (k9_smem_chase),
+    timed by CUDA events and by the SM clock."""
     import torch
 
     from seqoia_tpu_torch.ops import _build
 
+    n = 1 << 22
     lib = _build.load("sequential")
     end = torch.zeros(1, dtype=torch.int32, device=dev)
     cycles = torch.zeros(1, dtype=torch.int64, device=dev)

@@ -31,8 +31,10 @@
 // chain's length in cycles a step, and how many rows run side by side.
 //
 // Design:
-// - One row a warp, W = K9_WARPS warps a block, each with its own table in
-//   shared memory; a class of 32 rows spreads over 32 warps, not one.
+// - One row a warp, one warp a block, with its table in shared memory; a
+//   class of 32 rows spreads over 32 blocks, not one warp. The table and
+//   tiles sit at fixed shared addresses; blocks of 2, 4 and 8 warps ran
+//   slower at every shape measured.
 // - Ops off the chain: the warp copies its row's op words 32 at a time into
 //   a shared ring of STAGES chunks with cp.async (coalesced, three chunks in
 //   flight while one is walked). Each lane pre-decodes its op of the chunk
@@ -48,25 +50,24 @@
 // - A single walker: lane 0 loads the chunk's operands into registers,
 //   walks them with the warp's table (it alone touches it, so no ordering
 //   between lanes is needed) and writes each value into a 32-word tile; the
-//   warp then stores the tile as one 128-byte line per chunk. The other
-//   lanes would only repeat the walk: a lockstep walk spends three shuffles
-//   a step for what one 16-byte shared load a step gives here.
-// - One warp a block (K9_WARPS): the table and tiles sit at fixed shared
-//   addresses, and a block of more warps was no faster at any shape.
+//   warp then stores the tile as one 128-byte line per chunk. A lockstep
+//   walk (every lane walks, operands by shuffle, one table written by all
+//   lanes at the same address) ran about 12% faster on the H100, but the
+//   order of its table writes rests on the warp staying converged: a lane
+//   that fell behind would write a step's value over a later one. With a
+//   table a lane (race-free) it ran slower than this single walker.
 // - The table read is taken two steps early: op k's slot is loaded right
 //   after op k-3's write, and the writes of ops k-2 and k-1 are forwarded by
-//   comparing slots. The chain a step is then the hash, a compare and a
-//   select; the shared store and load span three steps.
+//   comparing slots. The chain a step is then the hash (dp4a, and), a
+//   compare and two selects; the shared store and load span three steps,
+//   so one shared load an op is no floor for this walk.
 // The caller zeroes the output; nothing past a row's total is written.
 
 #include "common.cuh"
 
-#ifndef K9_WARPS
-#define K9_WARPS 1  // rows (warps) a block: chosen by tools/bench_k9.py
-#endif
-
 namespace {
 
+// ops/sequential.py's CHUNK and RING name these two for the host
 constexpr int LANES = 32;   // ops a chunk: one a lane
 constexpr int STAGES = 4;   // chunks in the ring: one walked, three in flight
 constexpr unsigned INIT = 0xFF000000u;  // (0, 0, 0, 255); mono gray 0, a 255
@@ -138,38 +139,35 @@ __device__ __forceinline__ uint4 predecode(unsigned w, unsigned a) {
 }
 
 template <bool MONO>
-__global__ void __launch_bounds__(K9_WARPS * LANES)
+__global__ void __launch_bounds__(LANES)
     k9_sequential(const int* __restrict__ lo, const int* __restrict__ hi,
-                  const int* __restrict__ totals, int B, int mo,
+                  const int* __restrict__ totals, int mo,
                   int* __restrict__ out) {
   constexpr int SLOTS = MONO ? 128 : 64;
   constexpr unsigned MASK4 = (SLOTS - 1) * 4u;  // a slot's byte offset
   // the hash times 4 (a byte offset) as one dot product of the value's bytes
   constexpr unsigned WEIGHTS4 = MONO ? 0x2C000014u : 0x2C1C140Cu;
   // +1: a dummy slot, the target of the write pending before the first op
-  __shared__ unsigned tab_s[K9_WARPS][SLOTS + 1];
-  __shared__ unsigned ring_lo[K9_WARPS][STAGES][LANES];
-  __shared__ unsigned ring_hi[MONO ? 1 : K9_WARPS][STAGES][LANES];
-  __shared__ uint4 steps_s[K9_WARPS][LANES];
-  __shared__ unsigned vals_s[K9_WARPS][LANES];
+  __shared__ unsigned tab[SLOTS + 1];
+  __shared__ unsigned ring_lo[STAGES][LANES];
+  __shared__ unsigned ring_hi[MONO ? 1 : STAGES][LANES];
+  __shared__ uint4 steps_s[LANES];
+  __shared__ unsigned vals[LANES];
 
-  const int warp = K9_WARPS == 1 ? 0 : threadIdx.x / LANES;
-  const int lane = threadIdx.x % LANES;
-  const long long row = (long long)blockIdx.x * K9_WARPS + warp;
-  if (row >= B) return;
+  const int lane = threadIdx.x;
+  const long long row = blockIdx.x;
   const int total = min(totals[row], mo);
   if (total <= 0) return;
   const int* l = lo + row * mo;
   const int* h = MONO ? nullptr : hi + row * mo;
   int* o = out + row * mo;
-  unsigned* tab = tab_s[warp];
   for (int s = lane; s <= SLOTS; s += LANES) tab[s] = 0u;
 
   auto fetch = [&](int c) {  // chunk c's op words into the ring
     const int j = c * LANES + lane;
     if (j < total) {
-      cp_async4(&ring_lo[warp][c % STAGES][lane], l + j);
-      if (!MONO) cp_async4(&ring_hi[warp][c % STAGES][lane], h + j);
+      cp_async4(&ring_lo[c % STAGES][lane], l + j);
+      if (!MONO) cp_async4(&ring_hi[c % STAGES][lane], h + j);
     }
     cp_async_commit();
   };
@@ -182,9 +180,9 @@ __global__ void __launch_bounds__(K9_WARPS * LANES)
   for (int c = 0; c < n_chunks; ++c) {
     cp_async_wait<STAGES - 2>();  // this lane's words of chunk c are in
     const int j = c * LANES + lane;
-    steps_s[warp][lane] =
-        j < total ? predecode<MONO>(ring_lo[warp][c % STAGES][lane],
-                                    MONO ? 0u : ring_hi[warp][c % STAGES][lane])
+    steps_s[lane] =
+        j < total ? predecode<MONO>(ring_lo[c % STAGES][lane],
+                                    MONO ? 0u : ring_hi[c % STAGES][lane])
                   : operands(-1, ~0u, 0u);  // past the end: a RUN
     fetch(c + STAGES - 1);
     __syncwarp();
@@ -193,8 +191,7 @@ __global__ void __launch_bounds__(K9_WARPS * LANES)
       // stores of the table then never wait behind them
       uint4 ops[LANES];
 #pragma unroll
-      for (int k = 0; k < LANES; ++k) ops[k] = steps_s[warp][k];
-      unsigned* vals = vals_s[warp];
+      for (int k = 0; k < LANES; ++k) ops[k] = steps_s[k];
       // the table reads of ops 0 and 1, as of every write but the pending
       // one (op -1's)
       unsigned t0 = at(tab, ops[0].x & MASK4);
@@ -223,7 +220,7 @@ __global__ void __launch_bounds__(K9_WARPS * LANES)
       }
     }
     __syncwarp();
-    if (j < total) o[j] = (int)vals_s[warp][lane];
+    if (j < total) o[j] = (int)vals[lane];
   }
 }
 
@@ -251,13 +248,10 @@ extern "C" int k9_sequential_decode(const int* lo, const int* hi,
                                     int colch, int* out, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (B <= 0) return 0;
-  const int grid = (B + K9_WARPS - 1) / K9_WARPS;
   if (colch == 1)
-    k9_sequential<true><<<grid, K9_WARPS * LANES, 0, st>>>(lo, hi, totals, B,
-                                                          mo, out);
+    k9_sequential<true><<<B, LANES, 0, st>>>(lo, hi, totals, mo, out);
   else
-    k9_sequential<false><<<grid, K9_WARPS * LANES, 0, st>>>(lo, hi, totals, B,
-                                                           mo, out);
+    k9_sequential<false><<<B, LANES, 0, st>>>(lo, hi, totals, mo, out);
   return (int)cudaGetLastError();
 }
 

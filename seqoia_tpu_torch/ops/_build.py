@@ -92,13 +92,13 @@ def _nvcc() -> str:
                        "with the CUDA toolkit")
 
 
-def nvcc_command(source: str, defines=()) -> list:
+def nvcc_command(source: str) -> list:
     """The nvcc command (less its output) that builds ``source``, a .cu file
     with the headers of its own directory, into a shared library."""
     return [
         _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
         "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-        *(f"-D{d}" for d in defines), "-I", os.path.dirname(source), source,
+        "-I", os.path.dirname(source), source,
     ]
 
 

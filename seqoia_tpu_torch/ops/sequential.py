@@ -22,6 +22,9 @@ from . import _build
 from ._plain import to_i32
 
 _INIT = 0xFF000000  # (0, 0, 0, 255): the decoder's initial pixel
+#: the kernel's walk geometry (``csrc/sequential.cu``'s LANES and STAGES):
+#: ops a chunk, and the chunks its ring of op words holds
+CHUNK, RING = 32, 4
 
 
 def _color_step(px, w, a, tab, rows):

@@ -13,6 +13,8 @@ channels. Integer codec: exact, tolerance 0.
 """
 
 import functools
+import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -25,7 +27,7 @@ from seqoia_tpu import native
 from seqoia_tpu.codec import decode_jax
 from seqoia_tpu_torch import convert
 from seqoia_tpu_torch.codec import decode_compat
-from seqoia_tpu_torch.ops import sequential
+from seqoia_tpu_torch.ops import _build, sequential
 from seqoia_tpu_torch.utils import corpus
 
 _M, _N_MAX = 8192, 2048
@@ -402,7 +404,7 @@ def _walk_stream(ops, colch):
     return _op_stream(body, max(npx, 1), 1, ch=ch), npx
 
 
-@pytest.mark.parametrize("chunk", [4, 7])
+@pytest.mark.parametrize("chunk", [4, 7, sequential.CHUNK])
 @pytest.mark.parametrize("colch", [1, 3])
 def test_walk_model_matches_plain_and_jax(colch, chunk):
     """The model of the kernel's tiled walk, with ``chunk`` ops a chunk, on
@@ -427,3 +429,13 @@ def test_walk_model_matches_plain_and_jax(colch, chunk):
                                      colch, out_ch, _N_MAX)
         theirs = _jax_sequential(data, clen, npx, out_ch, colch=colch)
         assert np.array_equal(ours.numpy(), theirs), out_ch
+
+
+def test_walk_geometry_names_the_kernel_source():
+    """ops/sequential.py's CHUNK and RING (which chip_smoke.py's edge totals
+    read) are csrc/sequential.cu's LANES and STAGES."""
+    with open(os.path.join(_build.CSRC, "sequential.cu")) as f:
+        src = f.read()
+    found = dict(re.findall(r"constexpr int (LANES|STAGES) = (\d+);", src))
+    assert found == {"LANES": str(sequential.CHUNK),
+                     "STAGES": str(sequential.RING)}

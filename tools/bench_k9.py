@@ -6,17 +6,16 @@ K9 on one NVIDIA GPU.
 
 DIR holds another checkout of the repository (for example the parent commit
 unpacked with ``git archive``). The script builds DIR's
-``seqoia_tpu_torch/csrc/sequential.cu`` and this tree's, the latter at
-K9_WARPS 1, 2, 4 and 8 (rows a block), and records the K9 launches of
+``seqoia_tpu_torch/csrc/sequential.cu`` beside this tree's, and records the
+K9 launches of
 ``chip_smoke.py``'s mono path (the 4096x4096 stream's ``decode`` and the
 BatchDecoder classes of its 64 1024x1024 mono streams) and of its value
 chain's ``decode``, and one class of 2048 rows of 64x64 mono streams (no
-path launches it: many short rows). Each launch is timed with every library by CUDA events,
-in turns (DIR's, this tree's, ..., then the same in reverse), and every
-output is held bitwise to DIR's. Then the mono path end to end (host clock,
-ended by a synchronize: the 4096x4096 ``decode`` and the BatchDecoder call),
-with DIR's library and this tree's default in the order DIR, this, this,
-DIR. Prints one line a launch and library, and writes
+path launches it: many short rows). Each launch is timed by CUDA events
+with both libraries in the order DIR, this, this, DIR, every output held
+bitwise to DIR's. Then the mono path end to end (host clock, ended by a
+synchronize: the 4096x4096 ``decode`` and the BatchDecoder call) in the
+same order. Prints one line a launch and library, and writes
 ``chiprun_out/bench_k9.json``. Needs the CUDA toolkit and one card.
 """
 
@@ -31,32 +30,26 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-WARPS = (1, 2, 4, 8)
 
 
 def _libraries(parent):
-    """{label: ctypes library}: DIR's K9, this tree's as built by the port,
-    and this tree's at each of WARPS; the nvcc runs all at once."""
+    """{label: ctypes library}: DIR's K9 and this tree's, as the port builds
+    it."""
     from seqoia_tpu_torch.ops import _build
 
     out_dir = os.path.join(_build.BUILD_DIR, "bench_k9")
     os.makedirs(out_dir, exist_ok=True)
-    src = os.path.join(_build.CSRC, "sequential.cu")
-    jobs = {"parent": (os.path.join(parent, "seqoia_tpu_torch", "csrc",
-                                    "sequential.cu"), ())}
-    jobs.update({f"warps={w}": (src, (f"K9_WARPS={w}",)) for w in WARPS})
-    procs = {k: _build.compile_shared(_build.nvcc_command(s, d),
-                                      os.path.join(out_dir, f"{i}.so"))
-             for i, (k, (s, d)) in enumerate(jobs.items())}
-    libs = {"parent": None, "this tree": _build.load("sequential")}
-    for k, p in procs.items():
-        _build.finish_shared(p)
-        lib = ctypes.CDLL(p.out_path)
-        sig = _build._SIGNATURES["sequential"]["k9_sequential_decode"]
-        lib.k9_sequential_decode.argtypes = [_build._CTYPES[c] for c in sig]
-        lib.k9_sequential_decode.restype = ctypes.c_int
-        libs[k] = lib
-    return libs
+    proc = _build.compile_shared(
+        _build.nvcc_command(os.path.join(parent, "seqoia_tpu_torch", "csrc",
+                                         "sequential.cu")),
+        os.path.join(out_dir, "parent.so"))
+    this = _build.load("sequential")
+    _build.finish_shared(proc)
+    lib = ctypes.CDLL(proc.out_path)
+    sig = _build._SIGNATURES["sequential"]["k9_sequential_decode"]
+    lib.k9_sequential_decode.argtypes = [_build._CTYPES[c] for c in sig]
+    lib.k9_sequential_decode.restype = ctypes.c_int
+    return {"parent": lib, "this tree": this}
 
 
 def _record(run):
@@ -138,7 +131,7 @@ def main() -> int:
     print(smi)
     print(f"one dependent shared-memory load: {load_ns:.4f} ns, "
           f"{load_cycles:.2f} SM cycles")
-    order = list(libs) + list(libs)[::-1]
+    order = ("parent", "this tree", "this tree", "parent")
     rows = []
     for what, a in launches:
         lo, _, tot, colch = a
@@ -161,7 +154,7 @@ def main() -> int:
                   f"{mean * 1e6 / longest:.2f} ns an op")
 
     e2e = []
-    for k in ("parent", "this tree", "this tree", "parent"):
+    for k in order:
         _build._libs["sequential"] = libs[k]
         for what, n_px, run in (
                 ("mono .qoi 4096x4096 decode", 4096 * 4096,
