@@ -52,7 +52,15 @@
    their times also with the L2 flushed before each launch, K1's, K2's,
    K3's, K6's and K7's also as device time from a torch.profiler trace
    (without the host's launch overhead), and K8 sum's beside torch.cumsum at
-   one row and at 32.
+   one row and at 32. K10 (the sequential REF decoder) against its plain
+   version at the JAX tests' hand-made REF streams (replay, mid-operand
+   teleport, negative start, window spent, mono), 40 seeded encodes with
+   REF bytes injected and 64 64x64 streams of the REF maker
+   (utils/corpus.ref_sqoa), each at channels 0-4, err included, and at the
+   2048x2048 gray+alpha stream with REF spliced in; that stream and the
+   4096x4096 RGBA photo's with REF spliced in also against native.decode's
+   pixels; every K10 launch re-launched REPEATS times, its ns an op
+   printed.
 3. Resets the kernels' launch counters and drives the SQOA path through the
    public entry points: one 4096x4096 RGBA photo-class image, a batch of 32
    1024x1024 RGB photos (decode_stream_batched / encode_stream_batched) and
@@ -79,8 +87,16 @@
    them again and drives the mono
    .qoi path: one 4096x4096 generated gray+alpha stream through
    seqoia_tpu_torch.decode and 64 1024x1024 ones with the 32 photos as .qoi
-   through BatchDecoder. Every stream and every pixel the card returns is
-   held byte-exact against the port's native C codec. Fails if a kernel of a
+   through BatchDecoder. Resets them again and drives the REF path: the two
+   full-size REF streams through seqoia_tpu_torch.decode with
+   SEQOIA_REF_CUDA=1 (K1 flags them, K10 decodes them). Resets them again
+   and drives the tooling path through seqoia_tpu_torch.cli.main: corpus
+   (31 PNGs), convert of each to .sqoa and .qoi and back, every file and
+   exit code equal to convert --native's, bench --cuda (3 runs) and fuzz
+   --cuda (1000 streams, without and with SEQOIA_REF_CUDA=1); then bench
+   --cuda once more outside the counters' census, for its table. Every stream
+   and every pixel the card returns is held byte-exact against the port's
+   native C codec. Fails if a kernel of a
    path was not launched on it, if a .qoi stream or an icon went to the host
    decoder, if the shard forms differ from the unsharded ones, if an encode
    call or a BatchEncoder class ran more than one K2 (or, SQOA, more than
@@ -93,8 +109,9 @@
    BatchEncoder's ``last_timings``, K9's ns an op of the longest row and
    chain bound (its ops times one shared-memory load's latency), the
    steps of the 134 Mpx encode and decode one by one, the peak device
-   memory, each kernel's time beside its bound, each kernel's summed gap
-   over the six paths' launches (Σ(ms − bound), every launch timed in place
+   memory, the bench --cuda table, the fuzz verdicts with the decodes that
+   reached K10, each kernel's time beside its bound, each kernel's summed
+   gap over the eight paths' launches (Σ(ms − bound), every launch timed in place
    by CUDA events around its C entry point and bounded at its own shape:
    _census), a JSON ``kernels`` line and, last, ``{"ok": true, "device":
    {...}}``.
@@ -112,6 +129,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -147,6 +165,9 @@ KERNELS = {
     "K9mono": ("sequential_decode (mono step)",
                "seqoia_tpu_torch/csrc/sequential.cu",
                "seqoia_tpu/codec/decode_jax.py:93"),
+    # no Pallas kernel: the lax.scan of the JAX REF decoder
+    "K10": ("ref_decode", "seqoia_tpu_torch/csrc/ref.cu",
+            "seqoia_tpu/codec/decode_jax.py:186"),
 }
 SQOA_KERNELS = ("K1", "K2", "K3", "K6")
 QOI_KERNELS = ("K2", "K5", "K6", "K7", "K8", "K9")
@@ -154,6 +175,8 @@ LARGE_KERNELS = ("K1", "K2", "K3", "K4")
 ICON_KERNELS = ("K1seg", "K2")
 ENCODE_KERNELS = ("K2", "K3", "K4", "K5", "K7", "K8")
 MONO_KERNELS = ("K5", "K6", "K8", "K9mono")
+REF_KERNELS = ("K1", "K2", "K10")
+TOOL_KERNELS = ("K1", "K2", "K3", "K5", "K6", "K7", "K8", "K10")
 
 
 def _images(seed: int = 0):
@@ -2228,6 +2251,329 @@ def mono_qoi_path(big, mixed, dev):
     return rates, [("mono + color .qoi", dec.last_timings, dec.last_stats)]
 
 
+# --- the REF path (K10) and the tooling path ------------------------------
+
+def _ref_hand_made():
+    """The JAX package's hand-made REF streams (tests/test_jax_codec.py):
+    replay, mid-operand teleport, negative start, window spent, mono."""
+    from seqoia_tpu_torch import spec
+
+    def sqoa(w, ch, ops):
+        return (spec.pack_header(spec.SqoaDesc(w, 1, ch, 0, 0)) + bytes(ops)
+                + spec.PADDING)
+    return [
+        sqoa(4, 3, [0xFE, 1, 2, 3, 0xA3, 0x76, 1]),
+        sqoa(4, 3, [0xFE, 1, 2, 3, 0xA3, 0x76, 0x41]),
+        sqoa(4, 3, [0xFE, 1, 2, 3, 31]),
+        sqoa(7, 3, [0xFE, 1, 2, 3, 0xA1, 0x11, 0xA2, 0x22, 0x41, 0xFE, 7,
+                    7, 7]),
+        sqoa(5, 1, [0xFE, 9, 0x85, 0x9F, 1]),
+    ]
+
+
+def _ref_injected(n: int = 40, seed: int = 7):
+    """Seeded 5x3 encodes (noise, flat, ramp; channels 1-4) with 1-3
+    REF-range bytes injected, after the JAX test's recipe."""
+    from seqoia_tpu_torch import native
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        ch = (3, 4, 1, 2)[i % 4]
+        stride = (1 if ch < 3 else 3) + (1 - (ch & 1))
+        kind = i % 3
+        if kind == 0:
+            px = rng.integers(0, 256, 15 * stride)
+        elif kind == 1:
+            px = np.repeat(rng.integers(0, 256, (1, stride)), 15, 0)
+        else:
+            px = (np.arange(15 * stride) * int(rng.integers(1, 9))) % 256
+        s = bytearray(native.encode(np.asarray(px, np.uint8).reshape(-1), 5,
+                                    3, ch, 0, 0))
+        for _ in range(int(rng.integers(1, 4))):
+            s[int(rng.integers(15, max(16, len(s) - 8)))] = int(
+                rng.integers(0, 0x60))
+        out.append(bytes(s))
+    return out
+
+
+def _ref_inputs(stages, seed: int = 8):
+    """K10's inputs: (small streams [(where, stream)], full-size [(name,
+    stream, native pixels)]). Small: the hand-made and injected streams and
+    64 64x64 streams of the REF maker (gray scans, gray+alpha, RGBA and RGB
+    icons; utils/corpus.ref_sqoa). Full size: the maker on the SQOA path's
+    2048x2048 gray+alpha stream and its 4096x4096 RGBA photo."""
+    from seqoia_tpu_torch import native
+    from seqoia_tpu_torch.utils import corpus
+
+    rng = np.random.default_rng(seed)
+    small = ([("hand-made", s) for s in _ref_hand_made()]
+             + [("injected", s) for s in _ref_injected()])
+    for i in range(64):
+        kind = i % 4
+        if kind < 2:
+            img = corpus._mono_doc(rng, 64, 64)[..., :1]
+            if kind == 1:
+                a = np.full((64, 64, 1), 255, np.uint8)
+                a[rng.random((64, 64)) < 0.05] = 200
+                img = np.concatenate([img, a], -1)
+        else:
+            img = corpus._icon(rng, 64, 5, glow_w=0.6, glow_peak=0.5)
+            if kind == 3:
+                img = np.ascontiguousarray(img[..., :3])
+        made = corpus.ref_sqoa(native.encode(img.reshape(-1), 64, 64,
+                                             img.shape[2], 0, 0), rng)
+        if made is None:
+            raise AssertionError(f"the REF maker found no site in image {i}")
+        small.append(("maker 64x64", made))
+    by_name = {s.name: s for s in stages}
+    big = []
+    for name in ("gray_alpha", "photo_rgba"):
+        made = corpus.ref_sqoa(by_name[name].streams[0], rng)
+        if made is None:
+            raise AssertionError(f"the REF maker found no site in {name}")
+        big.append((f"{name}_ref", made, native.decode(made, 0)[0]))
+    return small, big
+
+
+def _ref_args(stream, channels, dev):
+    """K10's arguments as decode gives them: (the stream's padded buffer
+    on dev, chunks_len, n_pixels, colch, out_ch, n_max)."""
+    import torch
+
+    from seqoia_tpu_torch import spec
+
+    desc = spec.unpack_header(stream[:15] + bytes(8))
+    buf = np.zeros(_pow2(len(stream)), np.uint8)
+    buf[: len(stream)] = np.frombuffer(stream, np.uint8)
+    n = desc.n_pixels
+    return (torch.from_numpy(buf).to(dev), len(stream) - 8, n,
+            desc.col_channels,
+            channels or desc.col_channels + desc.has_alpha, _pow2(max(n, 4)))
+
+
+def _k10_ops(data, clen, n, colch, out_ch, n_max):
+    """The ops K10 walks at these arguments: its stat word, from one
+    launch of its C entry point (uncounted)."""
+    import torch
+
+    from seqoia_tpu_torch.ops import _build
+
+    out = torch.zeros(n_max * out_ch, dtype=torch.uint8, device=data.device)
+    stat = torch.empty(2, dtype=torch.int32, device=data.device)
+    _build.check(_build.load("ref").k10_ref_decode(
+        _build.ptr(data), data.numel(), clen, n, colch, out_ch,
+        _build.ptr(out), _build.ptr(stat), _build.stream_ptr(data.device)),
+        "k10_ref_decode")
+    return int(stat[1])
+
+
+def check_ref_k10(small, big, dev):
+    """K10 against its plain version on the card: at every small stream
+    and channels 0-4 (outputs and err bitwise), and at the full-size
+    gray+alpha stream; at both full-size streams against native.decode's
+    pixels. Every launch re-launched REPEATS times. Returns [records], the
+    full-size ones first, the one held to its plain version leading."""
+    import torch
+
+    from seqoia_tpu_torch import native
+    from seqoia_tpu_torch.ops import ref
+
+    rows = []
+    for where, stream, want in big:
+        args = _ref_args(stream, 0, dev)
+        data, clen, n, colch, out_ch, n_max = args
+
+        def run():
+            return ref.ref_decode(data, clen, n, colch=colch, out_ch=out_ch,
+                                  n_max=n_max)
+        got, gerr = run()
+        err = int(bool(gerr)) + _max_err(got[: n * out_ch].cpu(),
+                                         torch.from_numpy(want))
+        p_ms = None
+        if colch == 1:  # the gray stream's walk fits: held and timed
+            host = data.cpu()
+            (pout, perr), p_ms = _plain_ms(lambda: ref.ref_decode_plain(
+                host, clen, n, colch=colch, out_ch=out_ch, n_max=n_max),
+                warm=False)
+            err = max(err, _max_err(got.cpu(), pout), int(bool(perr)))
+        ops = _k10_ops(*args)
+        rows.append(dict(
+            shape=f"{where} m={data.numel()} n_pixels={n} colch={colch} "
+                  f"out_ch={out_ch}",
+            err=err, ms=_timed(run, 3), plain_ms=p_ms, plain_on="host",
+            bytes=clen + n * out_ch, ops=ops, main=True,
+            repeats_differ=_repeats_differ(run, list, (got, gerr))))
+        del got
+        # the same walk at each number of channels: 1-4 stores a pixel
+        by_ch = rows[-1]["ms_by_out_ch"] = {}
+        for c in range(1, 5):
+            def run_c():
+                return ref.ref_decode(data, clen, n, colch=colch, out_ch=c,
+                                      n_max=n_max)
+            got, _ = run_c()
+            if not np.array_equal(got[: n * c].cpu().numpy(),
+                                  native.decode(stream, c)[0]):
+                raise AssertionError(f"K10 at {where} out_ch={c} differs "
+                                     "from native.decode")
+            by_ch[c] = _timed(run_c, 2)
+        print(f"K10 {where}: ms at out_ch 1-4 "
+              + ", ".join(f"{c}: {ms:.3f}" for c, ms in by_ch.items())
+              + f" ({ops} ops, {n} pixels)")
+    groups = {}
+    for where, stream in small:
+        for channels in range(5):
+            args = _ref_args(stream, channels, dev)
+            data, clen, n, colch, out_ch, n_max = args
+
+            def run():
+                return ref.ref_decode(data, clen, n, colch=colch,
+                                      out_ch=out_ch, n_max=n_max)
+            got = run()
+            (pout, perr), p_ms = _plain_ms(lambda: ref.ref_decode_plain(
+                data.cpu(), clen, n, colch=colch, out_ch=out_ch,
+                n_max=n_max), warm=False)
+            g = groups.setdefault(where, dict(
+                launches=0, err=0, ms=0.0, plain_ms=0.0, bytes=0, ops=0,
+                repeats_differ=0))
+            g["launches"] += 1
+            g["err"] = max(g["err"], _max_err(got[0].cpu(), pout),
+                           int(bool(got[1]) != bool(perr)))
+            g["ms"] += _timed(run, 3)
+            g["plain_ms"] += p_ms
+            g["bytes"] += clen + n * out_ch
+            g["ops"] += _k10_ops(*args)
+            g["repeats_differ"] += _repeats_differ(run, list, got)
+    for where, g in groups.items():
+        rows.append(dict(shape=f"{where} x{g.pop('launches')} (summed)",
+                         main=False, **g))
+    rows.sort(key=lambda r: (not r["main"], r["plain_ms"] is None))
+    return rows
+
+
+def ref_path(big, dev):
+    """The two full-size REF streams through seqoia_tpu_torch.decode with
+    SEQOIA_REF_CUDA=1 (K1 flags them, K10 decodes them on the card), each
+    at its own channels and at 4 forced; every pixel equal to
+    native.decode's. Returns [(phase, Mpx/s)]."""
+    import seqoia_tpu_torch as st
+    from seqoia_tpu_torch import native
+
+    rates = []
+    old = os.environ.get("SEQOIA_REF_CUDA")
+    os.environ["SEQOIA_REF_CUDA"] = "1"
+    try:
+        for name, stream, want in big:
+            desc = st.spec.unpack_header(stream[:15] + bytes(8))
+            for channels in (0, 4):
+                got, _ = _clock(rates, f"{name} decode channels={channels} "
+                                f"(seqoia_tpu_torch.decode, "
+                                f"SEQOIA_REF_CUDA=1)", desc.n_pixels,
+                                lambda: st.decode(stream, channels,
+                                                  device=dev))
+                w = want if channels == 0 else native.decode(stream, 4)[0]
+                if got is None or not np.array_equal(got, w):
+                    raise AssertionError(f"{name} channels={channels}: the "
+                                         "REF decode differs")
+    finally:
+        if old is None:
+            del os.environ["SEQOIA_REF_CUDA"]
+        else:
+            os.environ["SEQOIA_REF_CUDA"] = old
+    return rates
+
+
+def _cli(*argv):
+    """seqoia_tpu_torch.cli.main(argv) with its output captured: (exit
+    code, what it printed)."""
+    import contextlib
+    import io
+
+    from seqoia_tpu_torch import cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(out):
+        rc = cli.main(list(argv))
+    return rc, out.getvalue()
+
+
+def _bench(corpus_dir, dev):
+    """`bench --cuda` over corpus_dir, 3 runs: its table as printed."""
+    rc, table = _cli("bench", "--cuda", "--device", str(dev), corpus_dir, "3")
+    if rc != 0 or "sqoa:cuda" not in table:
+        raise AssertionError("cli bench --cuda failed")
+    return table
+
+
+def tool_path(tmp, dev):
+    """The tooling layer through seqoia_tpu_torch.cli.main on the card, in
+    the directory tmp: `corpus` at scale 1 (31 PNGs, numpy writer where PIL
+    is absent); `convert` of every PNG to .sqoa and .qoi and back, each
+    file and exit code equal to `convert --native`'s (the encoder refuses
+    mono .qoi, so the gray scans fail alike); `bench --cuda` over the
+    directory, 3 runs; `fuzz --cuda` at 1000 iterations, unset and with
+    SEQOIA_REF_CUDA=1. Returns (the corpus directory, {phase: seconds},
+    K10 launches of the fuzz with SEQOIA_REF_CUDA=1)."""
+    from seqoia_tpu_torch.ops import ref
+
+    secs, on = {}, ["--device", str(dev)]
+    corpus_dir = os.path.join(tmp, "corpus")
+    t = time.perf_counter()
+    if _cli("corpus", corpus_dir)[0] != 0:
+        raise AssertionError("cli corpus failed")
+    pngs = sorted(f for f in os.listdir(corpus_dir) if f.endswith(".png"))
+    if len(pngs) != 31:
+        raise AssertionError(f"cli corpus wrote {len(pngs)} PNGs, not 31")
+    secs["corpus"] = time.perf_counter() - t
+    t, refused = time.perf_counter(), 0
+    for f in pngs:
+        src = os.path.join(corpus_dir, f)
+        for ext in (".sqoa", ".qoi"):
+            files, rcs = [], []
+            for tag, how in (("native", ["--native"]), ("card", on)):
+                out = os.path.join(tmp, f"{tag}{ext}")
+                back = out + ".png"
+                rc = _cli("convert", *how, src, out)[0]
+                rcs.append(rc)
+                if rc == 0:
+                    rcs.append(_cli("convert", *how, out, back)[0])
+                    files.append([open(p, "rb").read() for p in (out, back)])
+            if len(set(rcs)) != 1 or len(files) not in (0, 2) \
+                    or files and files[0] != files[1]:
+                raise AssertionError(f"cli convert {f} to {ext}: the card "
+                                     f"and --native differ ({rcs})")
+            refused += rcs[0] != 0
+    if refused != 2:  # the two gray scans as .qoi
+        raise AssertionError(f"cli convert refused {refused} files")
+    secs["convert"] = time.perf_counter() - t
+    t = time.perf_counter()
+    _bench(corpus_dir, dev)
+    secs["bench"] = time.perf_counter() - t
+    t = time.perf_counter()
+    fuzz = {}
+    for ref_cuda in ("", "1"):
+        old = os.environ.get("SEQOIA_REF_CUDA")
+        os.environ["SEQOIA_REF_CUDA"] = ref_cuda
+        n0 = ref.ref_decode.launches
+        try:
+            rc, out = _cli("fuzz", "1000", "--cuda", *on)
+        finally:
+            if old is None:
+                del os.environ["SEQOIA_REF_CUDA"]
+            else:
+                os.environ["SEQOIA_REF_CUDA"] = old
+        if rc != 0:
+            raise AssertionError(f"cli fuzz --cuda (SEQOIA_REF_CUDA="
+                                 f"{ref_cuda!r}): {out.strip()}")
+        fuzz[ref_cuda] = ref.ref_decode.launches - n0
+        print(f"fuzz --cuda, SEQOIA_REF_CUDA={ref_cuda!r}: {out.strip()}; "
+              f"{fuzz[ref_cuda]} decodes reached K10")
+    if fuzz[""] or not fuzz["1"]:
+        raise AssertionError(f"K10 launches in the fuzz runs: {fuzz}")
+    secs["fuzz"] = time.perf_counter() - t
+    return corpus_dir, secs, fuzz["1"]
+
+
 def _qoi_images(images):
     """The .qoi workloads: the SQOA path's RGBA photo and 32 RGB photos,
     the INDEX chain and the value chain."""
@@ -2291,6 +2637,11 @@ _CENSUS = {
         lambda a, o: f"{tuple(a['lo'].shape)} colch={a['colch']}",
         lambda a, o: (4 * len(a["totals"]),
                       [(8 if a["colch"] == 1 else 12) * a["totals"].sum()])),
+    "ref_decode": (
+        lambda a: "K10",
+        lambda a, o: (f"m={a['data'].numel()} n_pixels={a['n_pixels']} "
+                      f"colch={a['colch']} out_ch={a['out_ch']}"),
+        lambda a, o: (a["chunks_len"] + a["n_pixels"] * a["out_ch"], [])),
 }
 
 
@@ -2376,12 +2727,13 @@ def _census(run):
     import torch
 
     from seqoia_tpu_torch.ops import (_build, compact, encode_front, engine,
-                                      frontend, pack, scan, sequential, slots)
+                                      frontend, pack, ref, scan, sequential,
+                                      slots)
 
     log, pending, saved = [], [], []
     libs = {name: _build.load(name) for name in _build.KERNELS}
     for mod in (frontend, engine, encode_front, pack, compact, slots, scan,
-                sequential):
+                sequential, ref):
         for name, spec in _CENSUS.items():
             fn = getattr(mod, name, None)
             if fn is not None and getattr(fn, "__module__", "") == \
@@ -2464,7 +2816,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
         from seqoia_tpu_torch.ops import (_build, compact, encode_front,
-                                          engine, frontend, pack, scan,
+                                          engine, frontend, pack, ref, scan,
                                           sequential, slots)
     except ImportError as e:
         print(f"chip_smoke: the port is not here ({e})", file=sys.stderr)
@@ -2489,6 +2841,7 @@ def main() -> int:
     classes, mixed, ref_stream, icon_px = _icon_streams(images, qstages)
     enc_sets = _encode_sets(stages, qstages, (icon_px, classes))
     mono_big, mono_mixed = _mono_inputs(qstages)
+    ref_small, ref_big = _ref_inputs(stages)
     print(f"made and encoded (native) the inputs in "
           f"{time.perf_counter() - t0:.1f} s")
 
@@ -2513,6 +2866,8 @@ def main() -> int:
         rec[k] += rows
     rec["K9mono"] = timed("check_mono_k9", check_mono_k9, mono_big,
                           mono_mixed, dev)
+    rec["K10"] = timed("check_ref_k10", check_ref_k10, ref_small, ref_big,
+                       dev)
     load_ns, load_cycles = timed("smem_load_ns", smem_load_ns, dev)
     print(f"one dependent shared-memory load (k9_smem_chase): {load_ns:.4f} "
           f"ns, {load_cycles:.2f} SM cycles")
@@ -2547,6 +2902,10 @@ def main() -> int:
                          f"{r['replaced_ms']:.4f} ms")
             plain = ("plain not run (one op a step)" if r["plain_ms"] is None
                      else f"plain {r['plain_ms']:.3f} ms")
+            if "ops" in r:  # K10: one thread walks a stream's ops
+                cold += (f", {r['ms'] * 1e6 / max(r['ops'], 1):.1f} ns an "
+                         f"op over {r['ops']} ops, "
+                         f"{r['repeats_differ']}/{REPEATS} repeats differ")
             if "longest" in r:  # K9: rows run side by side, ops in turn
                 cold += (f", {r['ms'] * 1e6 / max(r['longest'], 1):.1f} ns "
                          f"an op of the longest row, chain bound "
@@ -2571,7 +2930,7 @@ def main() -> int:
         ("K3", encode_front.encode_front_compact), ("K4", pack.pack_words),
         ("K6", engine.place_fill), ("K5", compact.compact),
         ("K7", slots.slot_last_writer), ("K8", scan.tile_scan),
-        ("K9", sequential.sequential_decode))}
+        ("K9", sequential.sequential_decode), ("K10", ref.ref_decode))}
     counters["K1seg"] = (frontend.decode_front_compact, "seg_launches")
     counters["K9mono"] = (sequential.sequential_decode, "mono_launches")
     torch.cuda.reset_peak_memory_stats()
@@ -2609,6 +2968,14 @@ def main() -> int:
     mono_launches, (mono_rates, mono_timings), _ = _counted(
         counters, lambda: mono_qoi_path(mono_big, mono_mixed, dev), gaps)
     timings += mono_timings
+    ref_launches, ref_rates, _ = _counted(
+        counters, lambda: timed("ref_path", ref_path, ref_big, dev), gaps)
+    with tempfile.TemporaryDirectory() as tmp:
+        tool_launches, (corpus_dir, tool_s, fuzz_k10), _ = _counted(
+            counters, lambda: timed("tool_path", tool_path, tmp, dev), gaps)
+        # the same bench again, outside the census (which times each
+        # launch of the counted run): the table to read
+        bench_table = timed("bench", _bench, corpus_dir, dev)
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     steps = large_steps(large[0], rgb_stream, dev)
     paths = (("SQOA", sqoa_launches, SQOA_KERNELS),
@@ -2616,14 +2983,16 @@ def main() -> int:
              ("large-image", large_launches, LARGE_KERNELS),
              ("icon", icon_launches, ICON_KERNELS),
              ("batch-encode", enc_launches, ENCODE_KERNELS),
-             ("mono .qoi", mono_launches, MONO_KERNELS))
+             ("mono .qoi", mono_launches, MONO_KERNELS),
+             ("REF", ref_launches, REF_KERNELS),
+             ("tooling", tool_launches, TOOL_KERNELS))
     for path, launches, kernels in paths:
         missing = [k for k in kernels if launches[k] == 0]
         if missing:
             raise AssertionError(f"the {path} path launched no {missing}")
     launches = {k: sum(p[1][k] for p in paths) for k in counters}
     rates = (rates + qoi_rates + large_rates + icon_rates + enc_rates
-             + mono_rates)
+             + mono_rates + ref_rates)
     # the census saw every counted launch (K1's counter counts both modes;
     # K9's the color step, K9mono's the mono step)
     seen = {k: sum(r[0] for r in gaps.get(k, {}).values()) for k in counters}
@@ -2659,6 +3028,12 @@ def main() -> int:
     print(f"launches on the icon path: {icon_launches}")
     print(f"launches on the batch-encode path: {enc_launches}")
     print(f"launches on the mono .qoi path: {mono_launches}")
+    print(f"launches on the REF path: {ref_launches}")
+    print(f"launches on the tooling path: {tool_launches}")
+    print("seconds of the tooling path: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in tool_s.items()))
+    print(f"bench --cuda over the corpus ({smi}):")
+    print(bench_table, end="")
     print(f"peak device memory of the main paths: {peak_gb:.2f} GiB")
     gap_ms = {}
     for k, shapes in sorted(gaps.items()):
@@ -2686,6 +3061,9 @@ def main() -> int:
             kernels[-1].update(
                 chain_bound_ms=head["longest"] * load_ns * 1e-6,
                 smem_load_ns=load_ns)
+        if k == "K10":  # latency-bound: one thread walks the stream's ops
+            kernels[-1].update(ops=head["ops"],
+                               ns_per_op=head["ms"] * 1e6 / head["ops"])
         if k == "K9mono":  # the 4096x4096 launch, held to native.decode
             top = max(main, key=lambda r: r["longest"])
             kernels[-1].update(largest_shape=top["shape"],
@@ -2703,7 +3081,10 @@ def main() -> int:
                                      large=large_launches,
                                      icon=icon_launches,
                                      batch_encode=enc_launches,
-                                     mono_qoi=mono_launches),
+                                     mono_qoi=mono_launches,
+                                     ref=ref_launches, tooling=tool_launches),
+                       bench_table=bench_table, tool_s=tool_s,
+                       fuzz_k10_decodes=fuzz_k10,
                        large_rgb_steps_ms=steps,
                        batch_decoder=[dict(phase=p, timings=t, stats=s_)
                                       for p, t, s_ in timings],

@@ -38,6 +38,7 @@ _SIGNATURES = {
     "scan": {"k8_scan": "ippiipppp"},
     "sequential": {"k9_sequential_decode": "pppiiipp",
                    "k9_smem_chase": "ippp"},
+    "ref": {"k10_ref_decode": "piiqiippp"},
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "q": ctypes.c_longlong}
 KERNELS = tuple(_SIGNATURES)

@@ -1,1 +1,5 @@
-"""Utilities: the deterministic synthetic corpus."""
+"""Utilities: the deterministic synthetic corpus and the bench harness."""
+
+from .corpus import make_corpus
+
+__all__ = ["make_corpus"]

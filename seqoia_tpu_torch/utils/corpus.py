@@ -256,3 +256,111 @@ def mono_qoi(rng, w, h, channels=1, weights=(0.5, 0.2, 0.15, 0.1, 0.05)):
     body[off[kind == 4] + 2] = rng.integers(0, 256, int((kind == 4).sum()))
     return (b"qoif" + struct.pack(">IIBB", w, h, channels, 0) + body.tobytes()
             + bytes((0, 0, 0, 0, 0, 0, 0, 1)))
+
+
+#: ``ref_sqoa``'s search: op boundaries spread over the stream, and the ops
+#: walked from each
+REF_SITES, REF_WALK = 64, 256
+
+
+def _op_len(data, p, colch):
+    """Bytes of the op at p of a SQOA stream without REF: the tag, its
+    operands and (color) a trailing alpha modifier."""
+    tag = data[p]
+    if tag < 0x60:
+        return None  # a REF or a stray modifier: not an encoder's op
+    if tag == 0xFE or tag == 0xFF:
+        n = 1 + colch + (tag == 0xFF)
+    elif tag < 0xC0 and colch == 3:
+        n = 2  # LUMA and its operand
+    else:
+        n = 1  # mono LUMA, RUN, BIGRUN
+    if colch == 3 and p + n < len(data) and 0x60 <= data[p + n] < 0x80:
+        n += 1
+    return n
+
+
+def _ref_sites(data, colch, starts, rng, keep_pixels):
+    """The splices of ``ref_sqoa``: [(position, bytes replaced, REF tag)],
+    one at most from each start, REF_WALK ops on; with ``keep_pixels``
+    only those after which the stream decodes to the same pixels."""
+    end = len(data) - 8
+    splices, floor = [], 0  # windows stay at or past floor
+    for p0 in starts:
+        if p0 < floor:
+            continue
+        ops, p = [], p0  # (position, length) of the ops from p0
+        while p < end and len(ops) < REF_WALK:
+            n = _op_len(data, p, colch)
+            if n is None:
+                break
+            ops.append((p, n))
+            p += n
+        found = []
+        for k in range(len(ops) - 2):
+            q = ops[k][0]
+            for m in (1, 2, 3):  # the replaced bytes: m whole ops
+                if k + m + 1 >= len(ops):
+                    break
+                L = ops[k + m][0] - q
+                if L > 4:
+                    break
+                c0, c1 = ops[k + m], ops[k + m + 1]
+                if L < 2 or keep_pixels and not (
+                        c0[1] == c1[1] == 1 and data[c0[0]] == data[c1[0]]):
+                    continue
+                want = data[q: q + L]
+                for off in range(1, 32):  # window [e - L, e), e = q + 1 - off
+                    e = q + 1 - off
+                    if e - L < max(floor, 15):
+                        break
+                    if data[e - L: e] == want and (
+                            colch == 1 or e == q
+                            or not 0x60 <= data[e] < 0x80):
+                        found.append((q, L, ((L - 2) << 5) | off))
+                        break
+        if found:
+            q, L, tag = found[int(rng.integers(len(found)))]
+            splices.append((q, L, tag))
+            floor = q + L + 2  # past the skipped and the twice-read byte
+    return splices
+
+
+def ref_sqoa(stream: bytes, rng):
+    """A SQOA stream with REF ops spliced into ``stream`` (a stream without
+    REF, as every encoder writes), or None where no site was found or
+    ``native.decode`` refuses the result. No encoder writes REF.
+
+    REF (a tag below 0x60) replays 2 + (tag >> 5) bytes from a window that
+    ends (tag & 31) bytes before the cursor, then teleports the cursor to
+    one past the byte after the REF and reads there without advancing
+    (seqoia.h:418, 729-738): the byte after the REF is skipped and the next
+    one read twice. A splice replaces 2-4 bytes of whole ops that repeat a
+    window ending at most 31 bytes back by one REF byte. Where the two ops
+    after them are the same one-byte op (a RUN, a BIGRUN or a mono LUMA),
+    the stream still decodes to the same pixels; the maker takes only such
+    sites where the stream has any. Elsewhere the decoder goes on from the
+    wrong byte, and ``native.decode``'s pixels are the truth. Sites are
+    searched from REF_SITES op boundaries spread over the stream
+    (``native.scan_chunks``), REF_WALK ops from each; one is spliced a
+    boundary, chosen with ``rng``."""
+    from .. import native
+
+    hdr = native.peek_header(stream)
+    if hdr is None or hdr[4]:
+        raise ValueError("ref_sqoa takes a SQOA (non-compat) stream")
+    colch = 1 if hdr[2] < 3 else 3
+    bounds = native.scan_chunks(stream, REF_SITES)
+    if bounds is None:
+        raise ValueError("ref_sqoa takes a stream without REF ops")
+    starts = sorted(set(int(b) for b in bounds[:, 0]))
+    splices = (_ref_sites(stream, colch, starts, rng, True)
+               or _ref_sites(stream, colch, starts, rng, False))
+    if not splices:
+        return None
+    parts, p = [], 0
+    for q, L, tag in splices:
+        parts += [stream[p: q], bytes((tag,))]
+        p = q + L
+    made = b"".join(parts + [stream[p:]])
+    return made if native.decode(made, 0)[0] is not None else None
