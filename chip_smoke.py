@@ -56,11 +56,12 @@
    version at the JAX tests' hand-made REF streams (replay, mid-operand
    teleport, negative start, window spent, mono), 40 seeded encodes with
    REF bytes injected and 64 64x64 streams of the REF maker
-   (utils/corpus.ref_sqoa), each at channels 0-4, err included, and at the
-   2048x2048 gray+alpha stream with REF spliced in; that stream and the
-   4096x4096 RGBA photo's with REF spliced in also against native.decode's
-   pixels; every K10 launch re-launched REPEATS times, its ns an op
-   printed.
+   (utils/corpus.ref_sqoa), each at channels 0-4, and at the 2048x2048
+   gray+alpha stream and the 4096x4096 RGBA photo's, both with REF spliced
+   in, err and the ops walked included; the two full-size streams also
+   against native.decode's pixels; every K10 launch re-launched REPEATS
+   times, its ns an op printed, and its registers and spills as ptxas
+   reports them.
 3. Resets the kernels' launch counters and drives the SQOA path through the
    public entry points: one 4096x4096 RGBA photo-class image, a batch of 32
    1024x1024 RGB photos (decode_stream_batched / encode_stream_batched) and
@@ -89,12 +90,14 @@
    seqoia_tpu_torch.decode and 64 1024x1024 ones with the 32 photos as .qoi
    through BatchDecoder. Resets them again and drives the REF path: the two
    full-size REF streams through seqoia_tpu_torch.decode with
-   SEQOIA_REF_CUDA=1 (K1 flags them, K10 decodes them). Resets them again
+   SEQOIA_REF_CUDA=1 (K1 flags them, K10 decodes them), native.decode timed
+   beside each. Resets them again
    and drives the tooling path through seqoia_tpu_torch.cli.main: corpus
    (31 PNGs), convert of each to .sqoa and .qoi and back, every file and
    exit code equal to convert --native's, bench --cuda (3 runs) and fuzz
    --cuda (1000 streams, without and with SEQOIA_REF_CUDA=1); then bench
-   --cuda once more outside the counters' census, for its table. Every stream
+   --cuda BENCH_RUNS times more outside the counters' census, for its
+   tables and their spread. Every stream
    and every pixel the card returns is held byte-exact against the port's
    native C codec. Fails if a kernel of a
    path was not launched on it, if a .qoi stream or an icon went to the host
@@ -138,6 +141,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM peak memory rate (NVIDIA data sheet)
 OUT_DIR = "chiprun_out"
 REPS = 10  # timed launches per kernel and shape
 REPEATS = 50  # re-launches of K1-K3 and K5-K8 held bitwise to the first
+BENCH_RUNS = 3  # `bench --cuda` tables outside the census, for their spread
 
 KERNELS = {
     "K1": ("decode_front_compact", "seqoia_tpu_torch/csrc/frontend.cu",
@@ -2253,62 +2257,19 @@ def mono_qoi_path(big, mixed, dev):
 
 # --- the REF path (K10) and the tooling path ------------------------------
 
-def _ref_hand_made():
-    """The JAX package's hand-made REF streams (tests/test_jax_codec.py):
-    replay, mid-operand teleport, negative start, window spent, mono."""
-    from seqoia_tpu_torch import spec
-
-    def sqoa(w, ch, ops):
-        return (spec.pack_header(spec.SqoaDesc(w, 1, ch, 0, 0)) + bytes(ops)
-                + spec.PADDING)
-    return [
-        sqoa(4, 3, [0xFE, 1, 2, 3, 0xA3, 0x76, 1]),
-        sqoa(4, 3, [0xFE, 1, 2, 3, 0xA3, 0x76, 0x41]),
-        sqoa(4, 3, [0xFE, 1, 2, 3, 31]),
-        sqoa(7, 3, [0xFE, 1, 2, 3, 0xA1, 0x11, 0xA2, 0x22, 0x41, 0xFE, 7,
-                    7, 7]),
-        sqoa(5, 1, [0xFE, 9, 0x85, 0x9F, 1]),
-    ]
-
-
-def _ref_injected(n: int = 40, seed: int = 7):
-    """Seeded 5x3 encodes (noise, flat, ramp; channels 1-4) with 1-3
-    REF-range bytes injected, after the JAX test's recipe."""
-    from seqoia_tpu_torch import native
-
-    rng = np.random.default_rng(seed)
-    out = []
-    for i in range(n):
-        ch = (3, 4, 1, 2)[i % 4]
-        stride = (1 if ch < 3 else 3) + (1 - (ch & 1))
-        kind = i % 3
-        if kind == 0:
-            px = rng.integers(0, 256, 15 * stride)
-        elif kind == 1:
-            px = np.repeat(rng.integers(0, 256, (1, stride)), 15, 0)
-        else:
-            px = (np.arange(15 * stride) * int(rng.integers(1, 9))) % 256
-        s = bytearray(native.encode(np.asarray(px, np.uint8).reshape(-1), 5,
-                                    3, ch, 0, 0))
-        for _ in range(int(rng.integers(1, 4))):
-            s[int(rng.integers(15, max(16, len(s) - 8)))] = int(
-                rng.integers(0, 0x60))
-        out.append(bytes(s))
-    return out
-
-
 def _ref_inputs(stages, seed: int = 8):
     """K10's inputs: (small streams [(where, stream)], full-size [(name,
-    stream, native pixels)]). Small: the hand-made and injected streams and
-    64 64x64 streams of the REF maker (gray scans, gray+alpha, RGBA and RGB
-    icons; utils/corpus.ref_sqoa). Full size: the maker on the SQOA path's
+    stream, native pixels)]). Small: the hand-made and injected streams
+    (utils/corpus.ref_hand_made, ref_injected) and 64 64x64 streams of the
+    REF maker (gray scans, gray+alpha, RGBA and RGB icons;
+    utils/corpus.ref_sqoa). Full size: the maker on the SQOA path's
     2048x2048 gray+alpha stream and its 4096x4096 RGBA photo."""
     from seqoia_tpu_torch import native
     from seqoia_tpu_torch.utils import corpus
 
     rng = np.random.default_rng(seed)
-    small = ([("hand-made", s) for s in _ref_hand_made()]
-             + [("injected", s) for s in _ref_injected()])
+    small = ([("hand-made", s) for s in corpus.ref_hand_made().values()]
+             + [("injected", s) for s in corpus.ref_injected()])
     for i in range(64):
         kind = i % 4
         if kind < 2:
@@ -2352,28 +2313,12 @@ def _ref_args(stream, channels, dev):
             channels or desc.col_channels + desc.has_alpha, _pow2(max(n, 4)))
 
 
-def _k10_ops(data, clen, n, colch, out_ch, n_max):
-    """The ops K10 walks at these arguments: its stat word, from one
-    launch of its C entry point (uncounted)."""
-    import torch
-
-    from seqoia_tpu_torch.ops import _build
-
-    out = torch.zeros(n_max * out_ch, dtype=torch.uint8, device=data.device)
-    stat = torch.empty(2, dtype=torch.int32, device=data.device)
-    _build.check(_build.load("ref").k10_ref_decode(
-        _build.ptr(data), data.numel(), clen, n, colch, out_ch,
-        _build.ptr(out), _build.ptr(stat), _build.stream_ptr(data.device)),
-        "k10_ref_decode")
-    return int(stat[1])
-
-
 def check_ref_k10(small, big, dev):
     """K10 against its plain version on the card: at every small stream
-    and channels 0-4 (outputs and err bitwise), and at the full-size
-    gray+alpha stream; at both full-size streams against native.decode's
-    pixels. Every launch re-launched REPEATS times. Returns [records], the
-    full-size ones first, the one held to its plain version leading."""
+    and channels 0-4 and at both full-size streams (outputs, err and the ops
+    walked, bitwise); at the full-size streams also against native.decode's
+    pixels, at their own channels and at 1-4. Every launch re-launched
+    REPEATS times. Returns [records], the full-size ones first."""
     import torch
 
     from seqoia_tpu_torch import native
@@ -2381,37 +2326,33 @@ def check_ref_k10(small, big, dev):
 
     rows = []
     for where, stream, want in big:
-        args = _ref_args(stream, 0, dev)
-        data, clen, n, colch, out_ch, n_max = args
+        data, clen, n, colch, out_ch, n_max = _ref_args(stream, 0, dev)
 
         def run():
             return ref.ref_decode(data, clen, n, colch=colch, out_ch=out_ch,
                                   n_max=n_max)
-        got, gerr = run()
-        err = int(bool(gerr)) + _max_err(got[: n * out_ch].cpu(),
-                                         torch.from_numpy(want))
-        p_ms = None
-        if colch == 1:  # the gray stream's walk fits: held and timed
-            host = data.cpu()
-            (pout, perr), p_ms = _plain_ms(lambda: ref.ref_decode_plain(
-                host, clen, n, colch=colch, out_ch=out_ch, n_max=n_max),
-                warm=False)
-            err = max(err, _max_err(got.cpu(), pout), int(bool(perr)))
-        ops = _k10_ops(*args)
+        got, gerr, gops = run()
+        host = data.cpu()
+        (pout, perr, pops), p_ms = _plain_ms(lambda: ref.ref_decode_plain(
+            host, clen, n, colch=colch, out_ch=out_ch, n_max=n_max),
+            warm=False)
+        err = max(_max_err(got[: n * out_ch].cpu(), torch.from_numpy(want)),
+                  _max_err(got.cpu(), pout), int(bool(gerr)), int(bool(perr)),
+                  abs(int(gops) - int(pops)))
         rows.append(dict(
             shape=f"{where} m={data.numel()} n_pixels={n} colch={colch} "
                   f"out_ch={out_ch}",
             err=err, ms=_timed(run, 3), plain_ms=p_ms, plain_on="host",
-            bytes=clen + n * out_ch, ops=ops, main=True,
-            repeats_differ=_repeats_differ(run, list, (got, gerr))))
-        del got
+            bytes=clen + n * out_ch, ops=int(gops), main=True,
+            repeats_differ=_repeats_differ(run, list, (got, gerr, gops))))
+        del got, pout
         # the same walk at each number of channels: 1-4 stores a pixel
         by_ch = rows[-1]["ms_by_out_ch"] = {}
         for c in range(1, 5):
             def run_c():
                 return ref.ref_decode(data, clen, n, colch=colch, out_ch=c,
                                       n_max=n_max)
-            got, _ = run_c()
+            got = run_c()[0]
             if not np.array_equal(got[: n * c].cpu().numpy(),
                                   native.decode(stream, c)[0]):
                 raise AssertionError(f"K10 at {where} out_ch={c} differs "
@@ -2419,18 +2360,18 @@ def check_ref_k10(small, big, dev):
             by_ch[c] = _timed(run_c, 2)
         print(f"K10 {where}: ms at out_ch 1-4 "
               + ", ".join(f"{c}: {ms:.3f}" for c, ms in by_ch.items())
-              + f" ({ops} ops, {n} pixels)")
+              + f" ({rows[-1]['ops']} ops, {n} pixels)")
     groups = {}
     for where, stream in small:
         for channels in range(5):
-            args = _ref_args(stream, channels, dev)
-            data, clen, n, colch, out_ch, n_max = args
+            data, clen, n, colch, out_ch, n_max = _ref_args(stream, channels,
+                                                            dev)
 
             def run():
                 return ref.ref_decode(data, clen, n, colch=colch,
                                       out_ch=out_ch, n_max=n_max)
             got = run()
-            (pout, perr), p_ms = _plain_ms(lambda: ref.ref_decode_plain(
+            (pout, perr, pops), p_ms = _plain_ms(lambda: ref.ref_decode_plain(
                 data.cpu(), clen, n, colch=colch, out_ch=out_ch,
                 n_max=n_max), warm=False)
             g = groups.setdefault(where, dict(
@@ -2438,16 +2379,16 @@ def check_ref_k10(small, big, dev):
                 repeats_differ=0))
             g["launches"] += 1
             g["err"] = max(g["err"], _max_err(got[0].cpu(), pout),
-                           int(bool(got[1]) != bool(perr)))
+                           int(bool(got[1]) != bool(perr)),
+                           abs(int(got[2]) - int(pops)))
             g["ms"] += _timed(run, 3)
             g["plain_ms"] += p_ms
             g["bytes"] += clen + n * out_ch
-            g["ops"] += _k10_ops(*args)
+            g["ops"] += int(got[2])
             g["repeats_differ"] += _repeats_differ(run, list, got)
     for where, g in groups.items():
         rows.append(dict(shape=f"{where} x{g.pop('launches')} (summed)",
                          main=False, **g))
-    rows.sort(key=lambda r: (not r["main"], r["plain_ms"] is None))
     return rows
 
 
@@ -2455,7 +2396,8 @@ def ref_path(big, dev):
     """The two full-size REF streams through seqoia_tpu_torch.decode with
     SEQOIA_REF_CUDA=1 (K1 flags them, K10 decodes them on the card), each
     at its own channels and at 4 forced; every pixel equal to
-    native.decode's. Returns [(phase, Mpx/s)]."""
+    native.decode's, which is timed beside it (the route taken with the
+    variable unset). Returns [(phase, Mpx/s)]."""
     import seqoia_tpu_torch as st
     from seqoia_tpu_torch import native
 
@@ -2463,7 +2405,7 @@ def ref_path(big, dev):
     old = os.environ.get("SEQOIA_REF_CUDA")
     os.environ["SEQOIA_REF_CUDA"] = "1"
     try:
-        for name, stream, want in big:
+        for name, stream, _ in big:
             desc = st.spec.unpack_header(stream[:15] + bytes(8))
             for channels in (0, 4):
                 got, _ = _clock(rates, f"{name} decode channels={channels} "
@@ -2471,8 +2413,11 @@ def ref_path(big, dev):
                                 f"SEQOIA_REF_CUDA=1)", desc.n_pixels,
                                 lambda: st.decode(stream, channels,
                                                   device=dev))
-                w = want if channels == 0 else native.decode(stream, 4)[0]
-                if got is None or not np.array_equal(got, w):
+                want, _ = _clock(rates, f"{name} decode channels={channels} "
+                                 f"(native.decode, on the host)",
+                                 desc.n_pixels,
+                                 lambda: native.decode(stream, channels))
+                if got is None or not np.array_equal(got, want):
                     raise AssertionError(f"{name} channels={channels}: the "
                                          "REF decode differs")
     finally:
@@ -2503,6 +2448,19 @@ def _bench(corpus_dir, dev):
     if rc != 0 or "sqoa:cuda" not in table:
         raise AssertionError("cli bench --cuda failed")
     return table
+
+
+def _bench_spread(tables):
+    """{codec: [(least, most) of decode Mpx/s, of encode Mpx/s]} over the
+    grand totals of several `bench` tables."""
+    seen = {}
+    for table in tables:
+        for line in table.split("# Grand total", 1)[1].splitlines()[2:]:
+            f = line.split()
+            if len(f) == 7:
+                seen.setdefault(f[0], []).append((float(f[3]), float(f[4])))
+    return {c: [(min(v), max(v)) for v in zip(*runs)]
+            for c, runs in seen.items()}
 
 
 def tool_path(tmp, dev):
@@ -2832,6 +2790,9 @@ def main() -> int:
         for name, log in logs.items():
             f.write(f"== {name}\n{log}\n")
     print(f"built {sorted(logs)} in {build_s:.1f} s")
+    for line in logs.get("ref", "").splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"K10 ptxas: {line.strip()}")
 
     t0 = time.perf_counter()
     images = _images()
@@ -2973,9 +2934,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         tool_launches, (corpus_dir, tool_s, fuzz_k10), _ = _counted(
             counters, lambda: timed("tool_path", tool_path, tmp, dev), gaps)
-        # the same bench again, outside the census (which times each
-        # launch of the counted run): the table to read
-        bench_table = timed("bench", _bench, corpus_dir, dev)
+        # the same bench again, BENCH_RUNS times outside the census (which
+        # times each launch of the counted run): the tables to read, and
+        # their spread (one image a call, host-bound)
+        bench_tables = timed("bench", lambda: [
+            _bench(corpus_dir, dev) for _ in range(BENCH_RUNS)])
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     steps = large_steps(large[0], rgb_stream, dev)
     paths = (("SQOA", sqoa_launches, SQOA_KERNELS),
@@ -3032,8 +2995,14 @@ def main() -> int:
     print(f"launches on the tooling path: {tool_launches}")
     print("seconds of the tooling path: " + ", ".join(
         f"{k} {v:.1f}" for k, v in tool_s.items()))
-    print(f"bench --cuda over the corpus ({smi}):")
-    print(bench_table, end="")
+    for i, table in enumerate(bench_tables):
+        print(f"bench --cuda over the corpus, run {i + 1} of "
+              f"{BENCH_RUNS} ({smi}):")
+        print(table, end="")
+    spread = _bench_spread(bench_tables)
+    for codec, ((d0, d1), (e0, e1)) in spread.items():
+        print(f"bench spread over {BENCH_RUNS} runs, {codec}: decode "
+              f"{d0}-{d1} Mpx/s, encode {e0}-{e1}")
     print(f"peak device memory of the main paths: {peak_gb:.2f} GiB")
     gap_ms = {}
     for k, shapes in sorted(gaps.items()):
@@ -3083,7 +3052,8 @@ def main() -> int:
                                      batch_encode=enc_launches,
                                      mono_qoi=mono_launches,
                                      ref=ref_launches, tooling=tool_launches),
-                       bench_table=bench_table, tool_s=tool_s,
+                       bench_tables=bench_tables, bench_spread=spread,
+                       tool_s=tool_s,
                        fuzz_k10_decodes=fuzz_k10,
                        large_rgb_steps_ms=steps,
                        batch_decoder=[dict(phase=p, timings=t, stats=s_)

@@ -67,7 +67,7 @@ def decode(data: bytes, channels: int = 0, device="cuda"):
     if bool(has_ref):
         if os.environ.get("SEQOIA_REF_CUDA", "") != "1":
             return _host(data, channels)
-        out, err = ref.ref_decode(buf, clen, n_pix, colch=colch,
+        out, err, _ = ref.ref_decode(buf, clen, n_pix, colch=colch,
                                   out_ch=out_ch, n_max=n_max)
         if bool(err):
             return None, None

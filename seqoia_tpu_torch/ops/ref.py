@@ -50,6 +50,7 @@ def ref_decode_plain(data, chunks_len: int, n_pixels: int, *, colch: int,
         return b[min(max(p, 0), last)]
 
     pos, rend, res = HEADER + 1, -1, 0
+    ops = 0
 
     def nxt():  # replay-aware: SQOA_NEXT
         nonlocal pos
@@ -69,6 +70,7 @@ def ref_decode_plain(data, chunks_len: int, n_pixels: int, *, colch: int,
             n = n_pixels - t
         else:
             b1 = nxt()
+            ops += 1
             if b1 < OP_ALPHA:  # REF: the replacement byte is a raw read
                 res, rend = pos, pos - (b1 & 31)
                 start = rend - 2 - (b1 >> 5)
@@ -102,7 +104,8 @@ def ref_decode_plain(data, chunks_len: int, n_pixels: int, *, colch: int,
             px += bytes([a])
         out[t * out_ch: (t + n) * out_ch] = px * n
         t += n
-    return torch.frombuffer(out, dtype=torch.uint8), torch.tensor(bad)
+    return (torch.frombuffer(out, dtype=torch.uint8), torch.tensor(bad),
+            torch.tensor(ops, dtype=torch.int32))
 
 
 def ref_decode(data, chunks_len: int, n_pixels: int, *, colch: int,
@@ -113,7 +116,7 @@ def ref_decode(data, chunks_len: int, n_pixels: int, *, colch: int,
     (mono); out_ch: 1-4, the channels asked for. Returns ((n_max * out_ch,)
     uint8 pixels in the out_ch layout of ``decode_jax._format_pixels``, 0
     past n_pixels; a 0-d bool tensor ``err``, set where a REF's window
-    starts before the stream).
+    starts before the stream; a 0-d int32 tensor, the ops walked).
 
     A CUDA tensor runs the kernel; a CPU tensor runs the plain version."""
     _check(data, chunks_len, n_pixels, colch, out_ch, n_max)
@@ -132,7 +135,7 @@ def ref_decode(data, chunks_len: int, n_pixels: int, *, colch: int,
         colch, out_ch, _build.ptr(out), _build.ptr(stat),
         _build.stream_ptr(dev))
     _build.check(rc, "k10_ref_decode")
-    return out, stat[0] != 0
+    return out, stat[0] != 0, stat[1]
 
 
 ref_decode.launches = 0

@@ -364,3 +364,55 @@ def ref_sqoa(stream: bytes, rng):
         p = q + L
     made = b"".join(parts + [stream[p:]])
     return made if native.decode(made, 0)[0] is not None else None
+
+
+def ref_hand_made():
+    """{case: stream}: small SQOA streams with REF ops, one for each turn of
+    the REF cursor (the JAX package's hand-made streams)."""
+    from .. import spec
+
+    def sqoa(w, ch, ops):
+        return (spec.pack_header(spec.SqoaDesc(w, 1, ch, 0, 0)) + bytes(ops)
+                + spec.PADDING)
+    return {
+        # RGB(1,2,3), LUMA pair, REF len=2 off=1 (replays the LUMA pair)
+        "replay": sqoa(4, 3, [0xFE, 1, 2, 3, 0xA3, 0x76, 1]),
+        # REF len=4 off=1: the replay ends mid-operand, the cursor
+        # teleports while reading an operand (SQOA_NEXT, seqoia.h:418)
+        "mid_operand": sqoa(4, 3, [0xFE, 1, 2, 3, 0xA3, 0x76, 0x41]),
+        # a window that starts before the stream: err (seqoia.h:733-736)
+        "negative_start": sqoa(4, 3, [0xFE, 1, 2, 3, 31]),
+        # REF len=4 replaying two LUMA pairs, then the window is spent
+        # with pixels left: the cursor teleports to resume + 1
+        "window_spent": sqoa(7, 3, [0xFE, 1, 2, 3, 0xA1, 0x11, 0xA2, 0x22,
+                                    0x41, 0xFE, 7, 7, 7]),
+        # mono: a REF replaying a gray LUMA byte
+        "mono": sqoa(5, 1, [0xFE, 9, 0x85, 0x9F, 1]),
+    }
+
+
+def ref_injected(n: int = 40, seed: int = 7):
+    """n seeded 5x3 encodes (noise, flat, ramp; channels 3, 4, 1, 2 in
+    turn) with 1-3 REF-range bytes written over op bytes: mostly malformed
+    streams, as a fuzzer makes them."""
+    from .. import native
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        ch = (3, 4, 1, 2)[i % 4]
+        stride = (1 if ch < 3 else 3) + (1 - (ch & 1))
+        kind = i % 3
+        if kind == 0:
+            px = rng.integers(0, 256, 15 * stride)
+        elif kind == 1:
+            px = np.repeat(rng.integers(0, 256, (1, stride)), 15, 0)
+        else:
+            px = (np.arange(15 * stride) * int(rng.integers(1, 9))) % 256
+        s = bytearray(native.encode(np.asarray(px, np.uint8).reshape(-1), 5,
+                                    3, ch, 0, 0))
+        for _ in range(int(rng.integers(1, 4))):
+            s[int(rng.integers(15, max(16, len(s) - 8)))] = int(
+                rng.integers(0, 0x60))
+        out.append(bytes(s))
+    return out

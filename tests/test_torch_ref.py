@@ -4,8 +4,9 @@ version against the JAX package's ``decode_jax.decode_stream_ref`` (a
 ``decode`` route under ``SEQOIA_REF_CUDA=1`` against the native codec.
 
 Streams: the hand-made ones of ``tests/test_jax_codec.py`` (replay,
-mid-operand teleport, negative start, window spent, mono), 40 seeded
-encodes with REF-range bytes injected, and 32 streams of the port's REF
+mid-operand teleport, negative start, window spent, mono;
+``utils/corpus.ref_hand_made``), 40 seeded encodes with REF-range bytes
+injected (``utils/corpus.ref_injected``), and 32 streams of the port's REF
 maker (``utils/corpus.ref_sqoa``). Integer codec: exact, tolerance 0,
 ``err`` included.
 """
@@ -15,53 +16,12 @@ import pytest
 import torch
 
 import seqoia_tpu_torch as st
-from conftest import KINDS, gen_pixels
 from seqoia_tpu.codec import decode_jax
 from seqoia_tpu_torch import cli, native, spec
 from seqoia_tpu_torch.ops import frontend, ref
 from seqoia_tpu_torch.utils import corpus
 
 _M = 16384  # every stream padded to one buffer length: one jit a mode
-
-
-def _hand_made():
-    hdr = spec.pack_header(spec.SqoaDesc(4, 1, 3, 0, 0))
-    h7 = spec.pack_header(spec.SqoaDesc(7, 1, 3, 0, 0))
-    mh = spec.pack_header(spec.SqoaDesc(5, 1, 1, 0, 0))
-    pad = spec.PADDING
-    return {
-        # RGB(1,2,3), LUMA pair, REF len=2 off=1 (replays the LUMA pair)
-        "replay": hdr + bytes([0xFE, 1, 2, 3, 0xA3, 0x76, 1]) + pad,
-        # REF len=4 off=1: the replay ends mid-operand, the cursor
-        # teleports while reading an operand (SQOA_NEXT, seqoia.h:418)
-        "mid_operand": hdr + bytes([0xFE, 1, 2, 3, 0xA3, 0x76, 0x41]) + pad,
-        # a window that starts before the stream: err (seqoia.h:733-736)
-        "negative_start": hdr + bytes([0xFE, 1, 2, 3, 31]) + pad,
-        # REF len=4 replaying two LUMA pairs, then the window is spent
-        # with pixels left: the cursor teleports to resume + 1
-        "window_spent": h7 + bytes([0xFE, 1, 2, 3, 0xA1, 0x11, 0xA2, 0x22,
-                                    0x41, 0xFE, 7, 7, 7]) + pad,
-        # mono: a REF replaying a gray LUMA byte
-        "mono": mh + bytes([0xFE, 9, 0x85, 0x9F, 1]) + pad,
-    }
-
-
-def _injected(n=40):
-    """Seeded small encodes with REF-range bytes injected (the JAX test's
-    recipe, tests/test_jax_codec.py)."""
-    rng = np.random.default_rng(7)
-    out = []
-    for trial in range(n):
-        ch = (3, 4, 1, 2)[trial % 4]
-        colch = 1 if ch < 3 else 3
-        stride = colch + (1 - (ch & 1))
-        pix = gen_pixels(rng, 15, stride, KINDS[trial % len(KINDS)])
-        s = bytearray(native.encode(pix, 5, 3, ch, 0, 0))
-        for _ in range(int(rng.integers(1, 4))):
-            s[int(rng.integers(15, max(16, len(s) - 8)))] = int(
-                rng.integers(0, 0x60))
-        out.append(bytes(s))
-    return out
 
 
 def _maker_images(n=32, seed=3):
@@ -115,7 +75,7 @@ def _both(stream, channels):
     """(plain K10's (pixels, err), the JAX scan's), as numpy."""
     buf, clen, n, colch, out_ch, n_max = _args(stream, channels)
     kw = dict(colch=colch, out_ch=out_ch, n_max=n_max)
-    got, gerr = ref.ref_decode(torch.from_numpy(buf), clen, n, **kw)
+    got, gerr, _ = ref.ref_decode(torch.from_numpy(buf), clen, n, **kw)
     want, werr = decode_jax.decode_stream_ref(buf, np.int32(clen),
                                               np.int32(n), **kw)
     return (got.numpy(), bool(gerr)), (np.asarray(want), bool(werr))
@@ -128,9 +88,9 @@ def _same(stream, channels):
     return gerr
 
 
-@pytest.mark.parametrize("name", list(_hand_made()))
+@pytest.mark.parametrize("name", list(corpus.ref_hand_made()))
 def test_plain_matches_jax_on_hand_made_streams(name):
-    stream = _hand_made()[name]
+    stream = corpus.ref_hand_made()[name]
     for channels in range(5):
         (got, err), _ = _both(stream, channels)
         assert _same(stream, channels) == err == (name == "negative_start")
@@ -142,7 +102,7 @@ def test_plain_matches_jax_on_hand_made_streams(name):
 
 
 def test_plain_matches_jax_on_injected_streams():
-    for i, stream in enumerate(_injected()):
+    for i, stream in enumerate(corpus.ref_injected()):
         _same(stream, i % 5)
 
 
@@ -176,7 +136,7 @@ def test_decode_routes_ref_streams_to_k10(monkeypatch):
     """SEQOIA_REF_CUDA=1: a stream K1 flags goes to K10 on the same device
     and never to the host codec; a REF that starts before the stream gives
     (None, None), as the native codec's refusal."""
-    streams = (list(_hand_made().values()) + _injected(12)
+    streams = (list(corpus.ref_hand_made().values()) + corpus.ref_injected(12)
                + [m for m, _, _ in _maker_streams(8)])
     want = {(s, c): native.decode(s, c) for s in streams for c in range(5)}
 
@@ -200,7 +160,7 @@ def test_decode_sends_ref_streams_to_the_host_when_unset(monkeypatch):
     decode = native.decode
     monkeypatch.setattr(native, "decode",
                         lambda *a: calls.append(1) or decode(*a))
-    stream = _hand_made()["replay"]
+    stream = corpus.ref_hand_made()["replay"]
     got, _ = st.decode(stream, 0, device="cpu")
     assert calls and np.array_equal(got, decode(stream, 0)[0])
 
