@@ -55,13 +55,18 @@
    one row and at 32. K10 (the sequential REF decoder) against its plain
    version at the JAX tests' hand-made REF streams (replay, mid-operand
    teleport, negative start, window spent, mono), 40 seeded encodes with
-   REF bytes injected and 64 64x64 streams of the REF maker
-   (utils/corpus.ref_sqoa), each at channels 0-4, and at the 2048x2048
-   gray+alpha stream and the 4096x4096 RGBA photo's, both with REF spliced
-   in, err and the ops walked included; the two full-size streams also
-   against native.decode's pixels; every K10 launch re-launched REPEATS
-   times, its ns an op printed, and its registers and spills as ptxas
-   reports them.
+   REF bytes injected, 64 64x64 streams of the REF maker
+   (utils/corpus.ref_sqoa) and the edge streams of K10's chunks at its own
+   chunk size (utils/corpus.ref_edge_streams), each at channels 0-4, and at
+   the 2048x2048 gray+alpha stream and the 4096x4096 RGBA photo's, both
+   with REF spliced in, err and the ops walked included; the two full-size
+   streams also against native.decode's pixels; every K10 launch
+   re-launched REPEATS times, its ns an op and chain bound (its ops times
+   one dependent shared-memory load) printed, and its registers, spills
+   and shared memory as ptxas and the library report them; the latency of
+   one dependent __ldg byte read within 4 KB and over 64 MB
+   (k10_ldg_chase), what a walk that reads the stream from global memory
+   pays a byte.
 3. Resets the kernels' launch counters and drives the SQOA path through the
    public entry points: one 4096x4096 RGBA photo-class image, a batch of 32
    1024x1024 RGB photos (decode_stream_batched / encode_stream_batched) and
@@ -2228,6 +2233,36 @@ def smem_load_ns(dev):
     return ms * 1e6 / n, int(cycles.item()) / n
 
 
+def ldg_load_ns(dev):
+    """{region: (ns, SM cycles)} of one dependent __ldg byte read and the
+    two integer ops that make the next address from it, in one thread
+    (k10_ldg_chase): 2**20 links within a 4 KB region (L1-resident) and
+    2**18 links spread over 64 MB of random bytes (past the 50 MB L2: L2 and
+    HBM), timed by CUDA events and by the SM clock: what a walk that reads
+    the stream from global memory pays a byte (K10 reads shared memory)."""
+    import torch
+
+    from seqoia_tpu_torch.ops import _build
+
+    lib = _build.load("ref")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    buf = torch.randint(0, 256, (64 << 20,), dtype=torch.uint8, device=dev,
+                        generator=gen)
+    end = torch.zeros(1, dtype=torch.int32, device=dev)
+    cycles = torch.zeros(1, dtype=torch.int64, device=dev)
+    out = {}
+    for region, mask, shift, stride, n in (
+            ("4 KB", 4095, 0, 1, 1 << 20),
+            ("64 MB", (64 << 20) - 1, 12, 4097, 1 << 18)):
+        def run():
+            _build.check(lib.k10_ldg_chase(
+                _build.ptr(buf), mask, shift, stride, n, _build.ptr(end),
+                _build.ptr(cycles), _build.stream_ptr(dev)), "k10_ldg_chase")
+        ms = _timed(run, 3)
+        out[region] = (ms * 1e6 / n, int(cycles.item()) / n)
+    return out
+
+
 def mono_qoi_path(big, mixed, dev):
     """The 4096x4096 mono .qoi stream through seqoia_tpu_torch.decode, and
     the mono + color .qoi list through BatchDecoder; every pixel equal to
@@ -2260,11 +2295,17 @@ def mono_qoi_path(big, mixed, dev):
 def _ref_inputs(stages, seed: int = 8):
     """K10's inputs: (small streams [(where, stream)], full-size [(name,
     stream, native pixels)]). Small: the hand-made and injected streams
-    (utils/corpus.ref_hand_made, ref_injected) and 64 64x64 streams of the
+    (utils/corpus.ref_hand_made, ref_injected), 64 64x64 streams of the
     REF maker (gray scans, gray+alpha, RGBA and RGB icons;
-    utils/corpus.ref_sqoa). Full size: the maker on the SQOA path's
-    2048x2048 gray+alpha stream and its 4096x4096 RGBA photo."""
+    utils/corpus.ref_sqoa) and the edge streams of K10's chunks at the
+    kernel's own chunk size (utils/corpus.ref_edge_streams: windows across
+    a chunk edge, teleports onto and past it, an alpha-modifier peek at a
+    window's end, nested REFs, a ladder that walks the cursor back, the
+    last pixel inside a run, dense random REFs). Full size: the maker on
+    the SQOA path's 2048x2048 gray+alpha stream and its 4096x4096 RGBA
+    photo."""
     from seqoia_tpu_torch import native
+    from seqoia_tpu_torch.ops import ref
     from seqoia_tpu_torch.utils import corpus
 
     rng = np.random.default_rng(seed)
@@ -2287,6 +2328,8 @@ def _ref_inputs(stages, seed: int = 8):
         if made is None:
             raise AssertionError(f"the REF maker found no site in image {i}")
         small.append(("maker 64x64", made))
+    small += [(f"edge (chunk {ref.CHUNK})", s)
+              for s in corpus.ref_edge_streams(ref.CHUNK).values()]
     by_name = {s.name: s for s in stages}
     big = []
     for name in ("gray_alpha", "photo_rgba"):
@@ -2790,9 +2833,17 @@ def main() -> int:
         for name, log in logs.items():
             f.write(f"== {name}\n{log}\n")
     print(f"built {sorted(logs)} in {build_s:.1f} s")
+    fn = ""
     for line in logs.get("ref", "").splitlines():
+        if "Compiling entry function" in line:
+            fn = next((v for k, v in (
+                ("k10_walkILi1", "k10_walk<1>"), ("k10_walkILi3", "k10_walk<3>"),
+                ("k10_fill", "k10_fill"), ("k10_chase", "k10_chase"))
+                if k in line), line.strip())
         if "registers" in line or "spill" in line:
-            print(f"K10 ptxas: {line.strip()}")
+            print(f"K10 ptxas {fn}: {line.strip()}")
+    print(f"K10 k10_walk dynamic shared memory: "
+          f"{_build.load('ref').k10_shared_bytes()} bytes")
 
     t0 = time.perf_counter()
     images = _images()
@@ -2832,6 +2883,10 @@ def main() -> int:
     load_ns, load_cycles = timed("smem_load_ns", smem_load_ns, dev)
     print(f"one dependent shared-memory load (k9_smem_chase): {load_ns:.4f} "
           f"ns, {load_cycles:.2f} SM cycles")
+    ldg = timed("ldg_load_ns", ldg_load_ns, dev)
+    for region, (ns, cyc) in ldg.items():
+        print(f"one dependent __ldg byte read over {region} (k10_ldg_chase): "
+              f"{ns:.4f} ns, {cyc:.2f} SM cycles")
     edges = timed("check_edge_kernels", check_edge_kernels, dev)
     edges.update(timed("check_edge_engine", check_edge_engine, dev))
     edges["K7"] = timed("check_edge_slots", check_edge_slots, dev)
@@ -2865,7 +2920,8 @@ def main() -> int:
                      else f"plain {r['plain_ms']:.3f} ms")
             if "ops" in r:  # K10: one thread walks a stream's ops
                 cold += (f", {r['ms'] * 1e6 / max(r['ops'], 1):.1f} ns an "
-                         f"op over {r['ops']} ops, "
+                         f"op over {r['ops']} ops, chain bound "
+                         f"{r['ops'] * load_ns * 1e-6:.4f} ms, "
                          f"{r['repeats_differ']}/{REPEATS} repeats differ")
             if "longest" in r:  # K9: rows run side by side, ops in turn
                 cold += (f", {r['ms'] * 1e6 / max(r['longest'], 1):.1f} ns "
@@ -3032,7 +3088,11 @@ def main() -> int:
                 smem_load_ns=load_ns)
         if k == "K10":  # latency-bound: one thread walks the stream's ops
             kernels[-1].update(ops=head["ops"],
-                               ns_per_op=head["ms"] * 1e6 / head["ops"])
+                               ns_per_op=head["ms"] * 1e6 / head["ops"],
+                               chain_bound_ms=head["ops"] * load_ns * 1e-6,
+                               smem_load_ns=load_ns,
+                               ldg_load_ns={k_: v[0] for k_, v in
+                                            ldg.items()})
         if k == "K9mono":  # the 4096x4096 launch, held to native.decode
             top = max(main, key=lambda r: r["longest"])
             kernels[-1].update(largest_shape=top["shape"],
@@ -3060,7 +3120,7 @@ def main() -> int:
                                       for p, t, s_ in timings],
                        batch_encoder=[dict(phase=p, timings=t, stats=s_)
                                       for p, t, s_ in enc_timings],
-                       census=gaps,
+                       census=gaps, smem_load_ns=load_ns, ldg_load_ns=ldg,
                        peak_gib=peak_gb), f, indent=1)
     print(f"chip_smoke ran {total_s:.1f} s")
     print(smi)

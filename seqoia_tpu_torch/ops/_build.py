@@ -38,7 +38,8 @@ _SIGNATURES = {
     "scan": {"k8_scan": "ippiipppp"},
     "sequential": {"k9_sequential_decode": "pppiiipp",
                    "k9_smem_chase": "ippp"},
-    "ref": {"k10_ref_decode": "piiqiippp"},
+    "ref": {"k10_ref_decode": "piiqiipppp", "k10_ldg_chase": "piiiippp",
+            "k10_shared_bytes": ""},
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "q": ctypes.c_longlong}
 KERNELS = tuple(_SIGNATURES)

@@ -416,3 +416,197 @@ def ref_injected(n: int = 40, seed: int = 7):
                 rng.integers(0, 0x60))
         out.append(bytes(s))
     return out
+
+
+class _EdgeBody:
+    """The op bytes of a hand-built SQOA stream (they follow the header and
+    the start byte, so the first lies at stream position 15) and the pixels
+    its in-line ops emit."""
+
+    def __init__(self, rng, colch):
+        self.rng, self.colch = rng, colch
+        self.body, self.px = bytearray(), 0
+
+    def at(self):
+        return 15 + len(self.body)
+
+    def add(self, ops, px=0):
+        self.body += bytes(ops)
+        self.px += px
+
+    def run(self, r):  # a RUN of r + 1 pixels (r in 0-60)
+        self.add([0xC0 | r], r + 1)
+
+    def op(self):
+        """One random op of the encoder's kinds, (color) an alpha modifier
+        after one in five; short runs, so that the pixels stay few."""
+        rng, c = self.rng, self.colch
+        k = int(rng.integers(4))
+        if k == 0:
+            ops = [0xFE] + rng.integers(0, 256, c).tolist()
+        elif k == 1:
+            ops = [0xFF] + rng.integers(0, 256, c + 1).tolist()
+        elif k == 2:
+            ops = [0x80 | int(rng.integers(64))] + (
+                [int(rng.integers(256))] if c == 3 else [])
+        else:
+            return self.run(int(rng.integers(8)))
+        if c == 3 and rng.random() < 0.2:
+            ops.append(0x60 | int(rng.integers(32)))
+        self.add(ops, 1)
+
+    def fill_to(self, p):
+        """Whole ops up to stream position p, ending in one-byte RUNs."""
+        while p - self.at() > 8:
+            self.op()
+        while self.at() < p:
+            self.run(int(self.rng.integers(8)))
+
+    def pair(self, n):
+        """n bytes (2-4) of whole ops, ending in one that takes no
+        modifier."""
+        if self.colch == 3:
+            lum = [0x80 | int(self.rng.integers(64)), 0xC5]
+            ops = {2: lum, 3: lum + [0xC1], 4: [0xFE, 1, 2, 3]}[n]
+        else:
+            ops = {2: [0xFE, 77], 3: [0xFF, 78, 200], 4: [0xFE, 79, 0x85,
+                                                         0xC2]}[n]
+        self.add(ops, 1 if n < 3 or self.colch == 3 and n == 4 else 2)
+
+
+def ref_edge_streams(chunk: int, seed: int = 11):
+    """{name: stream}: SQOA streams (channels 4, colch 3, and channels 2,
+    colch 1) whose REF ops sit on the edge between the chunks 1 and 2 of
+    K10's staging (``chunk`` bytes a chunk; ops/ref.py's CHUNK on the card):
+
+    - ``straddle``: a replay window across the edge;
+    - ``resume_at_edge``, ``resume_past_edge``: a REF just before the edge,
+      whose teleport lands on it and one past it;
+    - ``far_teleport``: a REF 3 bytes before the edge replaying a window 31
+      bytes back, so the teleport from the window's end crosses the edge;
+    - ``peek_at_end`` (color): the window ends where the replayed op's alpha
+      modifier lay, so the raw peek sees a modifier and next() consumes the
+      byte after the resume point; at the edge and away from it;
+    - ``nested``: a REF inside another's window (the cursor then loops
+      until the pixels are done);
+    - ``ladder``: REF windows that each hold the REF before, so that the
+      cursor walks back chunk after chunk;
+    - ``run_end``, ``bigrun_end``: the last pixel inside a RUN or BIGRUN
+      that starts at the edge;
+    - ``dense_0``-``dense_3``: random REF tags spliced at op boundaries.
+
+    Every stream decodes without err (native.decode accepts it). The pixel
+    count is a power of two past the ops before the sites, but for the
+    run cases, whose count ends inside the run."""
+    from .. import native, spec
+
+    rng = np.random.default_rng(seed)
+    edge = 2 * chunk
+    out = {}
+
+    def stream(body, ch, n):
+        return (spec.pack_header(spec.SqoaDesc(n, 1, ch, 0, 0))
+                + bytes(body.body) + spec.PADDING)
+
+    def pow2_past(px):
+        return 1 << (px + 1000).bit_length()
+
+    for colch, ch in ((3, 4), (1, 2)):
+        cases = {}
+
+        def site(L, gap, q=None, peek=False, e=None):
+            """W (L bytes of whole ops), the gap (its first byte a modifier
+            with peek), a REF replaying W, then two equal RUNs; the REF at
+            q, or W ending at e."""
+            b = _EdgeBody(rng, colch)
+            if q is not None:
+                e = q - gap
+            b.fill_to(e - L)
+            b.pair(L)
+            if peek:
+                b.add([0x60 | int(rng.integers(32))])
+            while b.at() < e + gap:
+                b.run(int(rng.integers(8)))
+            b.add([((L - 2) << 5) | (gap + 1)])
+            px = b.px
+            b.add([0xC3, 0xC3])
+            for _ in range(40):
+                b.op()
+            return b, px
+
+        cases["straddle"] = site(3, 5, e=edge + 1)
+        # a window 31 bytes back from a REF just before the edge: from the
+        # window's end the teleport lands across the edge, 33 bytes on
+        cases["far_teleport"] = site(2, 30, q=edge - 3)
+        cases["resume_at_edge"] = site(2, 9, q=edge - 2)
+        cases["resume_past_edge"] = site(4, 20, q=edge - 1)
+        if colch == 3:
+            cases["peek_at_end"] = site(2, 6, e=edge, peek=True)
+            cases["peek_at_end_mid"] = site(3, 3, e=edge - 700 % chunk,
+                                            peek=True)
+        # nested: [W2 R2 X X] gap R1, R1's window [W2 R2 X)
+        b = _EdgeBody(rng, colch)
+        b.fill_to(edge - 2)
+        s = b.at()
+        b.pair(2)
+        b.add([0x01, 0xC4, 0xC4])  # R2: window [s, s + 2), off 1
+        px = b.px
+        for _ in range(3):
+            b.run(2)
+        b.add([(2 << 5) | (b.at() - (s + 4) + 1)])  # R1: [s, s + 4)
+        for _ in range(20):
+            b.op()
+        cases["nested"] = (b, px)
+        # ladder: rungs R_1..R_k are operand bytes of literal ops (an op
+        # [0xFE or 0xFF, run byte, ..., R_i, ...]), so a walk in line skips
+        # them; R_1 replays W0, R_i+1 replays [R_i - 1, R_i + 1): its run
+        # byte, then R_i read as a tag. A real REF at the top replays the
+        # last rung, and the cursor walks back rung by rung to W0.
+        b = _EdgeBody(rng, colch)
+        b.fill_to(max(60, edge - 3 * chunk))
+        b.pair(2)
+        rungs = [b.at() - 2]  # W0's start, where R_1's window begins
+        while True:
+            top = b.at() > edge + 2 * 26
+            if not top:
+                lit = [0xFE, 0xC1, 0, 0x9A] if colch == 3 else [0xFF, 0xC1, 0]
+                at = b.at() + 2
+            else:
+                lit, at = [0], b.at()
+            off = at + 1 - (rungs[-1] + 2)  # window [rungs[-1], + 2)
+            lit[at - b.at()] = off  # L 2
+            b.add(lit, 1)
+            rungs.append(at - 1)  # the next window starts at the run byte
+            if top:
+                break
+            for _ in range(int(rng.integers(3, 22 if colch == 3 else 24))):
+                b.run(int(rng.integers(4)))
+        px = b.px
+        b.add([0xC2, 0xC2])
+        for _ in range(20):
+            b.op()
+        cases["ladder"] = (b, px)
+        for name, last, cut in (("run_end", 0xC0 | 60, 30),
+                                ("bigrun_end", 0xFD, 300)):
+            b = _EdgeBody(rng, colch)
+            for _ in range(4):
+                b.add([0xFD], 512)
+            b.fill_to(edge)
+            n = b.px + cut
+            b.add([last])
+            out[f"{name}_{colch}"] = stream(b, ch, n)
+        for i in range(4):
+            b = _EdgeBody(rng, colch)
+            while b.at() < edge + 4 * 64:
+                if b.at() > 60 and rng.random() < 0.08:
+                    L = int(rng.integers(2, 5))
+                    b.add([((L - 2) << 5) | int(rng.integers(1, 32))])
+                else:
+                    b.op()
+            cases[f"dense_{i}"] = (b, b.px)
+        for name, (b, px) in cases.items():
+            out[f"{name}_{colch}"] = stream(b, ch, pow2_past(px))
+    for name, s in out.items():
+        if native.decode(s, 0)[0] is None:
+            raise AssertionError(f"edge stream {name} does not decode")
+    return out

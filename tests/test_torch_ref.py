@@ -9,6 +9,17 @@ mid-operand teleport, negative start, window spent, mono;
 injected (``utils/corpus.ref_injected``), and 32 streams of the port's REF
 maker (``utils/corpus.ref_sqoa``). Integer codec: exact, tolerance 0,
 ``err`` included.
+
+The kernel's design in plain form (``ref.ref_walk_plain``: chunks staged
+into a ring, the descriptor walk, the byte walk, the records placed by
+tiles) is held to ``ref_decode_plain``, pixels, ``err`` and the ops walked,
+on the same streams and on ``utils/corpus.ref_edge_streams`` (REF windows
+across a chunk edge, teleports onto, past and far across it, an
+alpha-modifier peek at a window's end, nested REFs, a ladder of REFs that
+walks the cursor back over chunks, the last pixel inside a run, dense
+random REFs), with chunks of 64 and 128 bytes so that the edges occur at
+test size, and at the kernel's own chunk; the edge streams also against
+the JAX scan.
 """
 
 import numpy as np
@@ -207,3 +218,158 @@ def test_fuzz_command_on_the_plain_versions(monkeypatch, capsys, ref_cuda):
     assert cli.main(["fuzz", "200", "--cuda", "--device", "cpu"]) == 0
     assert "0 mismatches" in capsys.readouterr().out
     assert ref.ref_decode.launches == n0
+
+
+def _walk_same(stream, channels, chunk):
+    """The descriptor walk (at ``chunk`` bytes a chunk) against the op-by-op
+    walk: pixels, err and the ops walked."""
+    buf, clen, n, colch, out_ch, n_max = _args(stream, channels)
+    kw = dict(colch=colch, out_ch=out_ch, n_max=n_max)
+    data = torch.from_numpy(buf)
+    want, werr, wops = ref.ref_decode_plain(data, clen, n, **kw)
+    got, gerr, gops = ref.ref_walk_plain(data, clen, n, chunk=chunk, **kw)
+    assert bool(gerr) == bool(werr), (stream.hex(), channels, chunk)
+    assert int(gops) == int(wops), (stream.hex(), channels, chunk)
+    assert torch.equal(got, want), (stream.hex(), channels, chunk)
+    return bool(werr)
+
+
+@pytest.mark.parametrize("chunk", [64, 128, ref.CHUNK])
+def test_walk_matches_plain_on_hand_made_and_injected_streams(chunk):
+    for name, stream in corpus.ref_hand_made().items():
+        for channels in range(5):
+            assert _walk_same(stream, channels, chunk) == (
+                name == "negative_start")
+    for i, stream in enumerate(corpus.ref_injected()):
+        _walk_same(stream, i % 5, chunk)
+
+
+@pytest.mark.parametrize("chunk", [64, ref.CHUNK])
+@pytest.mark.parametrize("part", range(2))
+def test_walk_matches_plain_on_maker_streams(part, chunk):
+    for made, _, _ in _maker_streams()[part::2]:
+        for channels in range(5):
+            assert not _walk_same(made, channels, chunk)
+
+
+_EDGE = corpus.ref_edge_streams(64)
+
+
+@pytest.mark.parametrize("name", sorted(_EDGE))
+def test_walk_matches_plain_and_jax_on_edge_streams(name):
+    """The edge streams made for 64-byte chunks, walked at 64 bytes a chunk
+    (their edges) and at 128: equal to the op-by-op walk, which equals the
+    JAX scan (every stream decodes without err)."""
+    stream = _EDGE[name]
+    for channels in range(5):
+        assert not _same(stream, channels)
+        for chunk in (64, 128):
+            assert not _walk_same(stream, channels, chunk)
+
+
+@pytest.mark.parametrize("chunk", [128, ref.CHUNK])
+def test_walk_matches_plain_on_edge_streams_at_their_chunk(chunk):
+    for stream in corpus.ref_edge_streams(chunk).values():
+        for channels in (0, 1, 4):
+            assert not _walk_same(stream, channels, chunk)
+
+
+def test_edge_streams_meet_their_cases():
+    """Each edge stream does what its name says, at 64 bytes a chunk (the
+    REFs the op-by-op walk meets, traced: tag position, window start and
+    end, resume point, and whether a window was open)."""
+    edge = 2 * 64
+
+    def refs(stream):
+        b, colch = list(stream), 3 if stream[12] >= 3 else 1
+        last, clen = len(b) - 1, len(b) - 8
+        n = spec.unpack_header(stream[:15] + bytes(8)).n_pixels
+        pos, rend, res, t, out, peeks = 15, -1, 0, 0, [], []
+
+        def fetch(p):
+            return b[min(max(p, 0), last)]
+
+        def nxt():
+            nonlocal pos
+            if pos == rend:
+                pos = res + 1
+                return fetch(pos)
+            pos += 1
+            return fetch(pos - 1)
+        while t < n and pos < clen:
+            inside, q, b1 = pos < rend, pos, nxt()
+            if b1 < 0x60:
+                res, rend = pos, pos - (b1 & 31)
+                start = rend - 2 - (b1 >> 5)
+                out.append((q, start, rend, res, inside))
+                b1, pos = fetch(start), start + 1
+            run = 0
+            if b1 >= 0xFE:
+                for _ in range(colch if b1 == 0xFE else colch + 1):
+                    nxt()
+            elif b1 & 0xC0 == 0x80:
+                if colch == 3:
+                    nxt()
+            else:
+                run = 511 if b1 == 0xFD else b1 & 63
+            if colch == 3 and 0x60 <= fetch(pos) < 0x80:
+                peeks.append(pos == rend)
+                nxt()
+            t += run + 1
+        return out, peeks, t, n
+
+    for colch in (3, 1):
+        get = {k[:-2]: refs(s) for k, s in _EDGE.items()
+               if k.endswith(f"_{colch}")}
+        (q, start, rend, res, _), = get["straddle"][0]
+        assert start < edge < rend
+        assert get["resume_at_edge"][0][0][3] + 1 == edge
+        assert get["resume_past_edge"][0][0][3] + 1 == edge + 1
+        (q, start, rend, res, _), = get["far_teleport"][0]
+        assert q == edge - 3 and rend < edge - 30 and res + 1 >= edge - 1
+        assert any(r[4] for r in get["nested"][0])
+        ladder = get["ladder"][0]
+        depth = max(i for i, r in enumerate(ladder) if all(
+            x[4] for x in ladder[1: i + 1]))
+        assert depth >= 4 and ladder[depth][1] < edge - 64
+        if colch == 3:
+            for case in ("peek_at_end", "peek_at_end_mid"):
+                assert any(get[case][1])
+            assert get["peek_at_end"][0][0][2] == edge
+        for case, run in (("run_end", 61), ("bigrun_end", 512)):
+            out, _, t, n = get[case]
+            assert not out and n < t < n + run
+
+
+def test_descriptors_plain_fields():
+    """The descriptor words of hand-picked ops: the next op's address, the
+    slow flag, the op's pixels (a REF's: its tag), the keep mask and the
+    byte-wise addend."""
+    ops = [0xFE, 1, 2, 3, 0xFF, 4, 5, 6, 7, 0x65, 0xA3, 0x76, 0xC9, 0xFD,
+           0x21, 0x70]
+    words = ref.ref_descriptors_plain(
+        torch.tensor(ops, dtype=torch.uint8), colch=3, chunk=64, stages=2,
+        first=120, base=1024).tolist()
+
+    def word(p):
+        x, meta, add, keep = words[p]
+        if meta & ref.SLOW:
+            return (x - 1024) // 16, True, (meta >> 16) & 255, add, keep
+        return (x - 1024) // 16, False, meta, keep, add
+    # ring indices: (120 + p + the op's bytes) % 128
+    assert word(0) == (124, False, 1, 0xFF000000, 0x030201)  # RGB
+    assert word(4) == (2, False, 1, 0, 0x07060504 + (5 - 16 << 24)
+                       & 0xFFFFFFFF)  # RGBA + modifier
+    vg = 0x23 - 32
+    assert word(10) == (4, False, 1, 0xFFFFFFFF,
+                        (vg - 8 + 7) & 255 | (vg & 255) << 8
+                        | ((vg - 8 + 6) & 255) << 16)  # LUMA, operand 0x76
+    assert word(12) == (5, False, 10, 0xFFFFFFFF, 0)  # RUN of 10
+    assert word(13) == (6, False, 512, 0xFFFFFFFF, 0)  # BIGRUN
+    assert word(14) == (6, True, 0x21, 0, 0)  # REF: its own word, its tag
+    words = ref.ref_descriptors_plain(
+        torch.tensor([0xFF, 9, 200, 0x85], dtype=torch.uint8),
+        colch=1).tolist()
+    assert words[0][0] == 3 * 16 and words[0][3] == 0
+    assert words[0][2] == 9 * 0x010101 | 200 << 24  # mono RGBA
+    assert words[3][2] == (5 - 32 & 255) * 0x010101  # mono LUMA, no operand
