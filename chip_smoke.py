@@ -96,13 +96,20 @@
    through BatchDecoder. Resets them again and drives the REF path: the two
    full-size REF streams through seqoia_tpu_torch.decode with
    SEQOIA_REF_CUDA=1 (K1 flags them, K10 decodes them), native.decode timed
-   beside each. Resets them again
+   beside each. Resets them again and drives the mesh path: the 134 Mpx
+   RGB image through encode_large, decode_large and both shard forms, and
+   BatchDecoder and BatchEncoder on the 32 photos, the icon classes, the
+   photos as .qoi and the color icons as .qoi, each without a mesh and with
+   mesh= (every card, or cuda:0 four times on one card), the mesh's output
+   byte-equal to the other's. Resets them again
    and drives the tooling path through seqoia_tpu_torch.cli.main: corpus
    (31 PNGs), convert of each to .sqoa and .qoi and back, every file and
    exit code equal to convert --native's, bench --cuda (3 runs) and fuzz
    --cuda (1000 streams, without and with SEQOIA_REF_CUDA=1); then bench
    --cuda BENCH_RUNS times more outside the counters' census, for its
-   tables and their spread. Every stream
+   tables and their spread. Then times BatchDecoder on the photos and the
+   icons as .qoi under each .qoi batch policy (SEQOIA_COMPAT_CUDA 1, 0 and
+   auto; the paths above run with 1). Every stream
    and every pixel the card returns is held byte-exact against the port's
    native C codec. Fails if a kernel of a
    path was not launched on it, if a .qoi stream or an icon went to the host
@@ -118,8 +125,9 @@
    chain bound (its ops times one shared-memory load's latency), the
    steps of the 134 Mpx encode and decode one by one, the peak device
    memory, the bench --cuda table, the fuzz verdicts with the decodes that
-   reached K10, each kernel's time beside its bound, each kernel's summed
-   gap over the eight paths' launches (Σ(ms − bound), every launch timed in place
+   reached K10, the mesh path's seconds without and with the mesh, the
+   policies' seconds beside os.cpu_count(), each kernel's time beside its
+   bound, each kernel's summed gap over the nine paths' launches (Σ(ms − bound), every launch timed in place
    by CUDA events around its C entry point and bounded at its own shape:
    _census), a JSON ``kernels`` line and, last, ``{"ok": true, "device":
    {...}}``.
@@ -147,6 +155,7 @@ OUT_DIR = "chiprun_out"
 REPS = 10  # timed launches per kernel and shape
 REPEATS = 50  # re-launches of K1-K3 and K5-K8 held bitwise to the first
 BENCH_RUNS = 3  # `bench --cuda` tables outside the census, for their spread
+DISPATCH_RUNS = 5  # warm BatchDecoder calls a .qoi policy and list
 
 KERNELS = {
     "K1": ("decode_front_compact", "seqoia_tpu_torch/csrc/frontend.cu",
@@ -186,6 +195,7 @@ ENCODE_KERNELS = ("K2", "K3", "K4", "K5", "K7", "K8")
 MONO_KERNELS = ("K5", "K6", "K8", "K9mono")
 REF_KERNELS = ("K1", "K2", "K10")
 TOOL_KERNELS = ("K1", "K2", "K3", "K5", "K6", "K7", "K8", "K10")
+MESH_KERNELS = ("K1", "K1seg", "K2", "K3", "K4", "K5", "K6", "K7", "K8")
 
 
 def _images(seed: int = 0):
@@ -2226,9 +2236,8 @@ def smem_load_ns(dev):
     cycles = torch.zeros(1, dtype=torch.int64, device=dev)
 
     def run():
-        _build.check(lib.k9_smem_chase(n, _build.ptr(end), _build.ptr(cycles),
-                                       _build.stream_ptr(dev)),
-                     "k9_smem_chase")
+        _build.launch(lib, "k9_smem_chase", dev, n, _build.ptr(end),
+                      _build.ptr(cycles))
     ms = _timed(run, 3)
     return ms * 1e6 / n, int(cycles.item()) / n
 
@@ -2255,9 +2264,9 @@ def ldg_load_ns(dev):
             ("4 KB", 4095, 0, 1, 1 << 20),
             ("64 MB", (64 << 20) - 1, 12, 4097, 1 << 18)):
         def run():
-            _build.check(lib.k10_ldg_chase(
-                _build.ptr(buf), mask, shift, stride, n, _build.ptr(end),
-                _build.ptr(cycles), _build.stream_ptr(dev)), "k10_ldg_chase")
+            _build.launch(lib, "k10_ldg_chase", dev, _build.ptr(buf), mask,
+                          shift, stride, n, _build.ptr(end),
+                          _build.ptr(cycles))
         ms = _timed(run, 3)
         out[region] = (ms * 1e6 / n, int(cycles.item()) / n)
     return out
@@ -2575,6 +2584,176 @@ def tool_path(tmp, dev):
     return corpus_dir, secs, fuzz["1"]
 
 
+# --- the mesh path and the .qoi batch policy --------------------------------
+
+def _sync_all():
+    """Wait for every card (a mesh call may run on several)."""
+    import torch
+
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def _qoi_icons(icon_px):
+    """The color icon classes as .qoi: (streams, native pixels) of the 4096
+    RGBA and the 4096 RGB 64x64 icons in one list."""
+    from seqoia_tpu_torch import native
+
+    streams, pixels = [], []
+    for px, ch in icon_px.values():
+        if ch >= 3:
+            streams += [native.encode(p, 64, 64, ch, 0, 1) for p in px]
+            pixels += list(px)
+    return streams, pixels
+
+
+def _mesh_of(dev):
+    """The mesh path's mesh: every card when there are several, else
+    ``dev`` four times (the four-way split on one card). Returns (mesh,
+    what it is)."""
+    import torch
+
+    from seqoia_tpu_torch.parallel import default_mesh
+
+    if torch.cuda.device_count() > 1:
+        mesh = default_mesh()
+        return mesh, f"default_mesh(): {len(mesh)} cards"
+    mesh = default_mesh([dev] * 4)
+    return mesh, (f"({dev},) * 4 on one card: cross-card launches were not "
+                  "exercised")
+
+
+def mesh_path(large, stages, qstages, icon_classes, icon_px, qoi_icons,
+              mesh, dev):
+    """Every large-image function on the 134 Mpx RGB image, and BatchDecoder
+    and BatchEncoder on the 32 photos, the icon classes and the .qoi photos
+    and icons, each without a mesh and with ``mesh=``, warmed and then
+    timed once; the mesh's output byte-equal to the other's. Returns
+    [(call, seconds without the mesh, seconds with it)]."""
+    import seqoia_tpu_torch as st
+
+    rows = []
+    n_sh = len(mesh)
+
+    def both(name, single, meshed, same):
+        """Each form once to warm it (pinned buffers, copy streams), then
+        once timed."""
+        outs, secs = [], []
+        for fn in (single, meshed):
+            fn()
+            _sync_all()
+            t = time.perf_counter()
+            outs.append(fn())
+            _sync_all()
+            secs.append(time.perf_counter() - t)
+        rows.append((name, *secs))
+        a, b = outs
+        if not same(a, b):
+            raise AssertionError(f"mesh path: {name} differs from the call "
+                                 "without a mesh")
+
+    def same_pixels(a, b):
+        return np.array_equal(a[0], b[0]) and a[1] == b[1]
+
+    def same_results(a, b):
+        return len(a) == len(b) and all(
+            x.error == y.error and (x.pixels is None) == (y.pixels is None)
+            and (x.pixels is None or np.array_equal(x.pixels, y.pixels))
+            for x, y in zip(a, b))
+
+    _, pixels, w, h, ch = next(x for x in large if x[0] == "large_rgb")
+    desc = st.SqoaDesc(w, h, ch)
+    stream = st.encode_large(pixels, desc, device=dev)
+    both("large_rgb encode_large",
+         lambda: st.encode_large(pixels, desc, device=dev),
+         lambda: st.encode_large(pixels, desc, mesh=mesh), bytes.__eq__)
+    both(f"large_rgb encode_large_shardmap ({n_sh} shards)",
+         lambda: st.encode_large_shardmap(pixels, desc, n_shards=n_sh,
+                                          device=dev),
+         lambda: st.encode_large_shardmap(pixels, desc, mesh=mesh),
+         lambda a, b: a == b == stream)
+    both("large_rgb decode_large",
+         lambda: st.decode_large(stream, device=dev),
+         lambda: st.decode_large(stream, mesh=mesh), same_pixels)
+    both(f"large_rgb decode_large_shardmap ({n_sh} shards)",
+         lambda: st.decode_large_shardmap(stream, n_shards=n_sh, device=dev),
+         lambda: st.decode_large_shardmap(stream, mesh=mesh), same_pixels)
+
+    by = {s.name: s for s in list(stages) + list(qstages)}
+    icons = [x for v in icon_classes.values() for x in v]
+    icon_pix = [(p, ch) for px, ch in icon_px.values() for p in px]
+    qoi_streams, qoi_pixels = qoi_icons
+    for name, streams in (
+            ("batch_rgb", by["batch_rgb"].streams),
+            (f"icons ({len(icons)} x 64x64)", icons),
+            ("batch_rgb_qoi", by["batch_rgb_qoi"].streams),
+            (f".qoi icons ({len(qoi_streams)} x 64x64)", qoi_streams)):
+        both(f"{name} BatchDecoder",
+             lambda: st.BatchDecoder(device=dev)(streams),
+             lambda: st.BatchDecoder(mesh=mesh)(streams), same_results)
+    D = st.SqoaDesc
+    photos = by["batch_rgb"]
+    for name, px, descs in (
+            ("batch_rgb", photos.pixels,
+             [D(photos.w, photos.h, 3)] * len(photos.pixels)),
+            (f"icons ({len(icon_pix)} x 64x64)", [p for p, _ in icon_pix],
+             [D(64, 64, c) for _, c in icon_pix]),
+            ("batch_rgb as .qoi", photos.pixels,
+             [D(photos.w, photos.h, 3, 0, 1)] * len(photos.pixels)),
+            (f".qoi icons ({len(qoi_pixels)} x 64x64)", qoi_pixels,
+             [D(64, 64, p.size // 4096, 0, 1) for p in qoi_pixels])):
+        both(f"{name} BatchEncoder",
+             lambda: st.BatchEncoder(device=dev)(px, descs),
+             lambda: st.BatchEncoder(mesh=mesh)(px, descs), list.__eq__)
+    return rows
+
+
+def dispatch_timing(qstages, qoi_icons, dev):
+    """BatchDecoder on the 32 photos as .qoi and on the .qoi icons under
+    each SEQOIA_COMPAT_CUDA policy: one warm-up call held to the native
+    decoder, then the median, least and most seconds of DISPATCH_RUNS
+    calls. Returns {list: {policy: (median, least, most, host rows)}}."""
+    import statistics
+
+    import torch
+
+    import seqoia_tpu_torch as st
+
+    photos = next(s for s in qstages if s.name == "batch_rgb_qoi")
+    out = {}
+    saved = os.environ.get("SEQOIA_COMPAT_CUDA")
+    try:
+        for name, streams, want in (
+                ("batch_rgb_qoi (32 x 1024x1024)", photos.streams,
+                 photos.pixels),
+                (f".qoi icons ({len(qoi_icons[0])} x 64x64)", *qoi_icons)):
+            row = out[name] = {}
+            for mode in ("1", "0", "auto"):
+                os.environ["SEQOIA_COMPAT_CUDA"] = mode
+                dec = st.BatchDecoder(device=dev)
+                res = dec(streams)
+                bad = [i for i, (r, w) in enumerate(zip(res, want))
+                       if not np.array_equal(r.pixels, w)]
+                if bad:
+                    raise AssertionError(f"{name} under SEQOIA_COMPAT_CUDA="
+                                         f"{mode}: streams {bad[:8]} differ")
+                secs = []
+                for _ in range(DISPATCH_RUNS):
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    dec(streams)
+                    torch.cuda.synchronize()
+                    secs.append(time.perf_counter() - t)
+                row[mode] = (statistics.median(secs), min(secs), max(secs),
+                             dec.last_stats["host_rows"])
+    finally:
+        if saved is None:
+            os.environ.pop("SEQOIA_COMPAT_CUDA", None)
+        else:
+            os.environ["SEQOIA_COMPAT_CUDA"] = saved
+    return out
+
+
 def _qoi_images(images):
     """The .qoi workloads: the SQOA path's RGBA photo and 32 RGB photos,
     the INDEX chain and the value chain."""
@@ -2749,7 +2928,7 @@ def _census(run):
         _build._libs.update(libs)
         for mod, name, fn in saved:
             setattr(mod, name, fn)
-    torch.cuda.synchronize()
+    _sync_all()
     table = {}
     for kid, shape, (nbytes, parts), evs in log:
         nbytes += sum(int(p) for p in parts)
@@ -2825,6 +3004,9 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     os.makedirs(OUT_DIR, exist_ok=True)
     t_start = time.perf_counter()
+    # the paths below hold the .qoi kernels on the card whatever the batch
+    # policy's default; dispatch_timing sets each policy in turn
+    os.environ["SEQOIA_COMPAT_CUDA"] = "1"
 
     t0 = time.perf_counter()
     logs = _build.build_all()
@@ -2854,6 +3036,8 @@ def main() -> int:
     enc_sets = _encode_sets(stages, qstages, (icon_px, classes))
     mono_big, mono_mixed = _mono_inputs(qstages)
     ref_small, ref_big = _ref_inputs(stages)
+    qoi_icons = _qoi_icons(icon_px)
+    mesh, mesh_what = _mesh_of(dev)
     print(f"made and encoded (native) the inputs in "
           f"{time.perf_counter() - t0:.1f} s")
 
@@ -2987,6 +3171,10 @@ def main() -> int:
     timings += mono_timings
     ref_launches, ref_rates, _ = _counted(
         counters, lambda: timed("ref_path", ref_path, ref_big, dev), gaps)
+    mesh_launches, mesh_rows, _ = _counted(
+        counters, lambda: timed("mesh_path", mesh_path, large, stages,
+                                qstages, classes, icon_px, qoi_icons, mesh,
+                                dev), gaps)
     with tempfile.TemporaryDirectory() as tmp:
         tool_launches, (corpus_dir, tool_s, fuzz_k10), _ = _counted(
             counters, lambda: timed("tool_path", tool_path, tmp, dev), gaps)
@@ -2995,6 +3183,8 @@ def main() -> int:
         # their spread (one image a call, host-bound)
         bench_tables = timed("bench", lambda: [
             _bench(corpus_dir, dev) for _ in range(BENCH_RUNS)])
+    dispatch = timed("dispatch_timing", dispatch_timing, qstages, qoi_icons,
+                     dev)
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     steps = large_steps(large[0], rgb_stream, dev)
     paths = (("SQOA", sqoa_launches, SQOA_KERNELS),
@@ -3004,7 +3194,8 @@ def main() -> int:
              ("batch-encode", enc_launches, ENCODE_KERNELS),
              ("mono .qoi", mono_launches, MONO_KERNELS),
              ("REF", ref_launches, REF_KERNELS),
-             ("tooling", tool_launches, TOOL_KERNELS))
+             ("tooling", tool_launches, TOOL_KERNELS),
+             ("mesh", mesh_launches, MESH_KERNELS))
     for path, launches, kernels in paths:
         missing = [k for k in kernels if launches[k] == 0]
         if missing:
@@ -3049,6 +3240,17 @@ def main() -> int:
     print(f"launches on the mono .qoi path: {mono_launches}")
     print(f"launches on the REF path: {ref_launches}")
     print(f"launches on the tooling path: {tool_launches}")
+    print(f"launches on the mesh path: {mesh_launches}")
+    print(f"mesh path on {mesh_what}; seconds without the mesh, with it:")
+    for name, t1, tm in mesh_rows:
+        print(f"  {name}: {t1:.4f} s, {tm:.4f} s")
+    print(f".qoi batch policy (SEQOIA_COMPAT_CUDA), BatchDecoder median "
+          f"seconds of {DISPATCH_RUNS} warm calls (least-most, host rows); "
+          f"os.cpu_count() {os.cpu_count()}; {smi}:")
+    for name, row in dispatch.items():
+        print(f"  {name}: " + "; ".join(
+            f"{m} {md:.4f} ({lo:.4f}-{hi:.4f}, {hr})"
+            for m, (md, lo, hi, hr) in row.items()))
     print("seconds of the tooling path: " + ", ".join(
         f"{k} {v:.1f}" for k, v in tool_s.items()))
     for i, table in enumerate(bench_tables):
@@ -3111,7 +3313,11 @@ def main() -> int:
                                      icon=icon_launches,
                                      batch_encode=enc_launches,
                                      mono_qoi=mono_launches,
-                                     ref=ref_launches, tooling=tool_launches),
+                                     ref=ref_launches, tooling=tool_launches,
+                                     mesh=mesh_launches),
+                       mesh=dict(mesh=mesh_what, seconds=mesh_rows),
+                       dispatch=dict(cpu_count=os.cpu_count(),
+                                     runs=DISPATCH_RUNS, seconds=dispatch),
                        bench_tables=bench_tables, bench_spread=spread,
                        tool_s=tool_s,
                        fuzz_k10_decodes=fuzz_k10,

@@ -42,6 +42,8 @@ K6 with ``_emit_pixels``.
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 from .. import spec
@@ -49,8 +51,10 @@ from ..ops import compact, engine, scan, scan_ops, sequential, slots
 from .decode_v2 import _INIT_PACKED, _emit_pixels, _tokenize
 
 # resolutions before a row is flagged unconverged: INDEX-light content
-# settles in <= 3, palette-heavy chains advance about one link per pass
-_MAX_ITERS = 12
+# settles in <= 3, palette-heavy chains advance about one link per pass.
+# SEQOIA_FIXPOINT_ITERS sets it, read at import, as in the JAX package
+# (the first resolution always runs, so 0 and 1 both mean one)
+_MAX_ITERS = int(os.environ.get("SEQOIA_FIXPOINT_ITERS", "12"))
 # resolutions from the alpha-speculated restart before a row goes to K9
 # (opaque photos settle in a few)
 _SETTLE_ITERS = 16

@@ -67,6 +67,8 @@
 // the records, and stat[3], the fault word (0: none); the caller zeroes the
 // output past n_pixels.
 
+#include <atomic>
+
 #include "common.cuh"
 
 namespace {
@@ -624,12 +626,18 @@ template <int COLCH>
 int launch(const uint8_t* data, int nbytes, int chunks_len,
            long long n_pixels, int out_ch, uint8_t* out, uint2* rec,
            int* stat, cudaStream_t stream) {
-  static bool sized = false;  // above 48 KB: once, before the first launch
-  if (!sized) {
-    cudaError_t e = cudaFuncSetAttribute(
+  // above 48 KB: once a device (the attribute is set per device), before
+  // the device's first launch; a bit a device of the current one's index
+  static std::atomic<unsigned long long> sized{0};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+  if (!(sized.load(std::memory_order_relaxed) & bit)) {
+    e = cudaFuncSetAttribute(
         k10_walk<COLCH>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
     if (e != cudaSuccess) return (int)e;
-    sized = true;
+    sized.fetch_or(bit, std::memory_order_relaxed);
   }
   k10_walk<COLCH><<<1, THREADS, SMEM, stream>>>(
       data, nbytes, chunks_len, (unsigned)n_pixels, out_ch, out, rec, stat);

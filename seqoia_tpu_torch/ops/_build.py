@@ -9,8 +9,10 @@ loaded and concurrent builders never see a half-written file.
 
 ``build_all()`` starts one ``nvcc`` per source at once and waits for all of
 them; ``load(name)`` returns the library for one source, building it first
-if needed. Every C entry point returns ``cudaGetLastError()`` after its
-launches; ``check(rc, what)`` raises on a non-zero code.
+if needed. Every C entry point takes the stream last and returns
+``cudaGetLastError()`` after its launches; ``launch(lib, fn, dev, *args)``
+calls one on ``dev``'s current stream, with ``dev`` the current device, and
+raises on a non-zero code.
 """
 
 from __future__ import annotations
@@ -132,9 +134,27 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-def check(rc: int, what: str) -> None:
+def launch(lib, fn: str, dev, *args) -> None:
+    """Call the C entry point ``fn`` of ``lib`` (a library or the name of its
+    source) with ``args`` and the current stream of ``dev``, a CUDA device
+    with an index, and raise if it returns an error. The entry points act on
+    the runtime's current device (K10 raises its shared-memory limit there,
+    and a launch into a stream of another device is not defined to work),
+    so the call runs with ``dev`` current: the guard is entered only when it
+    is not, which keeps the one-card path at one query of the current
+    device a launch."""
+    import torch
+
+    if isinstance(lib, str):
+        lib = load(lib)
+    idx = dev.index
+    if idx == torch.cuda.current_device():
+        rc = getattr(lib, fn)(*args, stream_ptr(dev))
+    else:
+        with torch.cuda.device(idx):
+            rc = getattr(lib, fn)(*args, stream_ptr(dev))
     if rc != 0:
-        raise RuntimeError(f"CUDA launch of {what} failed: cudaError {rc}")
+        raise RuntimeError(f"CUDA launch of {fn} failed: cudaError {rc}")
 
 
 def ptr(t) -> ctypes.c_void_p:

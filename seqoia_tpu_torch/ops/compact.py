@@ -56,14 +56,13 @@ def compact(valid, key, payloads):
     ins, outs = ins + [None] * (3 - len(ins)), outs + [None] * (3 - len(outs))
     totals = torch.empty(bsz, **i32)
     scratch = torch.empty(scratch_words(bsz, m), **i32)
-    lib = _build.load("compact")
     P = _build.ptr
     compact.launches += 1
-    rc = lib.k5_compact(
+    _build.launch(
+        "compact", "k5_compact", dev,
         P(valid.contiguous().view(torch.uint8)), P(ins[0]), P(ins[1]),
         P(ins[2]), bsz, m, P(scratch), P(outs[0]), P(outs[1]), P(outs[2]),
-        P(totals), _build.stream_ptr(dev))
-    _build.check(rc, "k5_compact")
+        P(totals))
     return outs[0], [o for o in outs[1:] if o is not None], totals
 
 

@@ -153,14 +153,12 @@ def encode_front_compact(packed, n_valid, colch: int = 3, init_prev=None,
     scratch = torch.empty(scratch_words(bsz, n), **i32)
     keys, curs, metas = (torch.empty((bsz, n), **i32) for _ in range(3))
     et, ct, lc = (torch.empty(bsz, **i32) for _ in range(3))
-    lib = _build.load("encode_front")
     P = _build.ptr
     encode_front_compact.launches += 1
-    rc = lib.k3_encode_front(
+    _build.launch(
+        "encode_front", "k3_encode_front", dev,
         P(packed), P(nv), P(ip), P(l0), bsz, n, colch, P(scratch), P(keys),
-        P(curs), P(metas), P(et), P(ct), P(lc), _build.stream_ptr(dev),
-    )
-    _build.check(rc, "k3_encode_front")
+        P(curs), P(metas), P(et), P(ct), P(lc))
     return keys, [curs, metas], et, ct, lc
 
 

@@ -89,16 +89,13 @@ def _launch(epi, keys, payloads, totals, n_out, scalars, inits, fill_keys,
     ini = list(inits[: len(payloads)]) + [0] * (3 - len(payloads))
     ini_key = int(inits[len(payloads)]) if fill_keys else 0
     n_scal = 0 if scalars is None else scalars.shape[1]
-    lib = _build.load("engine")
     P = _build.ptr
-    rc = lib.k2_place(
+    _build.launch(
+        "engine", "k2_place", keys.device,
         epi, P(keys), P(pays[0]), P(pays[1]), P(pays[2]),
         P(totals), mc, bsz, int(n_out), P(scalars), n_scal,
         int(ini[0]), int(ini[1]), int(ini[2]), ini_key,
-        P(out0), P(outs_extra[0]), P(outs_extra[1]), P(outs_extra[2]),
-        _build.stream_ptr(keys.device),
-    )
-    _build.check(rc, "k2_place")
+        P(out0), P(outs_extra[0]), P(outs_extra[1]), P(outs_extra[2]))
 
 
 def place_fill(keys, payloads, totals, n_out: int, inits, fill_keys=False):

@@ -271,16 +271,14 @@ def decode_front_compact(data, chunks_len, n_max: int, mode: str = "alpha",
     pays = torch.empty((bsz, m), dtype=torch.int32, device=dev)
     totals = torch.zeros(bsz, dtype=torch.int32, device=dev)
     has_ref = torch.zeros(bsz, dtype=torch.int32, device=dev)
-    lib = _build.load("frontend")
     P = _build.ptr
     decode_front_compact.launches += 1
     decode_front_compact.seg_launches += seg is not None
-    rc = lib.k1_decode_front(
+    _build.launch(
+        "frontend", "k1_decode_front", dev,
         P(data), P(clen), bsz, m, int(n_max), MODES[mode], k,
         int(seg_px or 0), P(scratch), P(keys), P(pays), P(totals),
-        P(has_ref), _build.stream_ptr(dev),
-    )
-    _build.check(rc, "k1_decode_front")
+        P(has_ref))
     return keys, pays, totals, has_ref
 
 

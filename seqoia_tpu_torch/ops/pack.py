@@ -65,11 +65,9 @@ def pack_words(words, stride: int):
     n = wlen * 4 // stride
     words = words.contiguous()
     out = torch.empty((bsz, n), dtype=torch.int32, device=words.device)
-    lib = _build.load("pack")
     pack_words.launches += 1
-    rc = lib.k4_pack_words(_build.ptr(words), _build.ptr(out), bsz * n,
-                           stride, _build.stream_ptr(words.device))
-    _build.check(rc, "k4_pack_words")
+    _build.launch("pack", "k4_pack_words", words.device, _build.ptr(words),
+                  _build.ptr(out), bsz * n, stride)
     return out
 
 

@@ -392,13 +392,11 @@ def ref_decode(data, chunks_len: int, n_pixels: int, *, colch: int,
     out = torch.zeros(n_max * out_ch, dtype=torch.uint8, device=dev)
     rec = torch.empty(2 * (n_pixels + 1), dtype=torch.int32, device=dev)
     stat = torch.empty(4, dtype=torch.int32, device=dev)  # err, ops, fault
-    lib = _build.load("ref")
     ref_decode.launches += 1
-    rc = lib.k10_ref_decode(
+    _build.launch(
+        "ref", "k10_ref_decode", dev,
         _build.ptr(data), data.numel(), chunks_len, n_pixels, colch, out_ch,
-        _build.ptr(out), _build.ptr(rec), _build.ptr(stat),
-        _build.stream_ptr(dev))
-    _build.check(rc, "k10_ref_decode")
+        _build.ptr(out), _build.ptr(rec), _build.ptr(stat))
     fault = int(stat[3])
     if fault:
         raise RuntimeError(f"k10_ref_decode: a wait in the kernel ran out "

@@ -114,12 +114,10 @@ def tile_scan(arrays, combine: str):
           for _ in range(n_arr)] + [None] * (2 - n_arr)
     scratch = torch.empty(scratch_words(bsz, m), dtype=torch.int32,
                           device=dev)
-    lib = _build.load("scan")
     P = _build.ptr
     tile_scan.launches += 1
-    rc = lib.k8_scan(sel, P(xs[0]), P(xs[1]), bsz, m, P(scratch), P(ys[0]),
-                     P(ys[1]), _build.stream_ptr(dev))
-    _build.check(rc, "k8_scan")
+    _build.launch("scan", "k8_scan", dev, sel, P(xs[0]), P(xs[1]), bsz, m,
+                  P(scratch), P(ys[0]), P(ys[1]))
     return tuple(ys[:n_arr])
 
 

@@ -116,17 +116,16 @@ def sequential_decode(lo, hi, totals, colch: int = 3):
             raise ValueError(f"unsupported device {dev}")
         return sequential_decode_plain(lo, hi, totals, colch)
     out = torch.zeros((bsz, mo), dtype=torch.int32, device=dev)
-    lib = _build.load("sequential")
     P = _build.ptr
     if colch == 1:
         sequential_decode.mono_launches += 1
     else:
         sequential_decode.launches += 1
-    rc = lib.k9_sequential_decode(
+    _build.launch(
+        "sequential", "k9_sequential_decode", dev,
         P(lo.contiguous()), P(None if colch == 1 else hi.contiguous()),
         P(totals.to(dtype=torch.int32, device=dev).contiguous()), bsz, mo,
-        colch, P(out), _build.stream_ptr(dev))
-    _build.check(rc, "k9_sequential_decode")
+        colch, P(out))
     return out
 
 

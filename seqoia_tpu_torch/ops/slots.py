@@ -80,14 +80,13 @@ def slot_last_writer(hashes, values, qslots, n_slots: int = 64, init: int = 0,
     i32 = dict(dtype=torch.int32, device=dev)
     out = torch.empty((bsz, m), **i32)
     scratch = torch.empty(scratch_words(bsz, m, n_slots), **i32)
-    lib = _build.load("slots")
     P = _build.ptr
     slot_last_writer.launches += 1
-    rc = lib.k7_slots(
+    _build.launch(
+        "slots", "k7_slots", dev,
         P(hashes.contiguous()), P(values.contiguous()),
         P(qslots.contiguous()), P(n_live.to(**i32).contiguous()), bsz, m,
-        n_slots, int(init), P(scratch), P(out), _build.stream_ptr(dev))
-    _build.check(rc, "k7_slots")
+        n_slots, int(init), P(scratch), P(out))
     return out
 
 

@@ -1,7 +1,12 @@
-"""Batched multi-image decode and encode on one card.
+"""Batched multi-image decode and encode on a card or a mesh of devices.
 
 Port of ``seqoia_tpu/parallel/batch.py`` (``DecodeResult``,
 ``BatchDecoder``, ``corpus_decode``, ``BatchEncoder``, ``corpus_encode``).
+With ``mesh=`` (``parallel.mesh``) each class's images are split into
+contiguous parts, one per mesh entry (``batch_sharding``), and each part
+is staged and coded on its entry's device as a class of its own; results
+come back in input order. Without a mesh everything runs on ``device=``
+(the JAX package's default mesh is every device).
 
 Decode: streams are grouped into shape classes, each class is stacked and
 decoded by one batched call, and a malformed header is refused on the host
@@ -13,11 +18,20 @@ failing the batch (per-image failure isolation). Routes, per class:
   32768 bytes through ``decode_v2.decode_stream_packed`` (K1 in segment
   mode, K2 over the row's pixels);
 * other SQOA classes: ``decode_v2.decode_stream_batched`` (K1, K2);
-* ``.qoi``, color and mono: ``decode_compat.decode_stream_compat_batched``,
-  which keeps every row on the card (the JAX package's default sends all
-  ``.qoi`` streams to its host pool);
-* the rows the card hands back (SQOA streams with REF ops): the native
-  codec on a pool of host threads, counted in ``last_stats["host_rows"]``.
+* ``.qoi``, color and mono, by the policy ``SEQOIA_COMPAT_CUDA`` read at
+  each call (``_compat_mode``): ``1`` (the default) every stream through
+  ``decode_compat.decode_stream_compat_batched``, which keeps every row on
+  the card; ``0`` every stream to the host pool (the JAX package's
+  default); ``auto`` a color stream to the card when
+  ``native.compat_probe`` predicts an INDEX-chain depth below the
+  fixpoint's cap (``decode_compat._MAX_ITERS``), else to the host pool,
+  counted in ``last_stats["auto_cuda"]`` / ``["auto_host"]``, and mono
+  streams to the host pool, as the JAX package's ``auto`` does;
+* the host pool: the native codec on a pool of host threads. It takes the
+  ``.qoi`` streams the policy sends it, on a background thread while the
+  card's classes run (inline when nothing was dispatched or the host has
+  one core), then the rows the card hands back (SQOA streams with REF
+  ops); all counted in ``last_stats["host_rows"]``.
 
 Encode: images are grouped by (color channels, alpha, ``.qoi``, pixel
 bucket); each class's raw bytes are staged once into a pinned buffer and
@@ -29,16 +43,18 @@ class's front, so the host stages the next class once that front has run.
 An image whose pixels are None or whose desc is invalid gets None.
 
 Both pipelines overlap their phases: a class's kernels and the copy of its
-output into pinned host memory (on a second stream) are queued, and the
-host goes on staging the next class; results are unpacked class by class as
-their copies complete. Device bytes held by queued work are bounded
-(``max_outstanding_bytes``): past the bound the oldest class drains first.
+output into pinned host memory (on a second stream of its device) are
+queued, and the host goes on staging the next class; results are unpacked
+class by class as their copies complete. Device bytes held by queued work
+are bounded (``max_outstanding_bytes``): past the bound the oldest class
+drains first.
 A ``torch.cuda.OutOfMemoryError`` (PyTorch raises it where a class is
 dispatched, at an allocation) drains the queue and re-runs the class at
 half size, down to a single image; one that still does not fit comes back
 as that image's error slot (decode) or None (encode, counted in
 ``last_stats["oom_errors"]``). Work the card fails at is never moved to the
-host: the native codec decodes only the REF rows named above.
+host: the native codec decodes only the rows the policy and the REF
+streams send it.
 """
 
 from __future__ import annotations
@@ -57,6 +73,7 @@ from .._device import resolve
 from ..codec import decode_compat, decode_v2, encode_v2
 from ..codec.encode import pixel_bucket
 from ..ops import pack
+from .mesh import batch_sharding, default_mesh
 
 #: default bound on device bytes held by dispatched work that was not
 #: fetched yet (inputs + outputs)
@@ -68,6 +85,34 @@ _ROW_BYTES = 32768
 _ICON_MAX = 8192
 #: K1's segment contract: a segment is a multiple of 128 bytes
 _SEG_MIN = 128
+#: the route of .qoi streams when SEQOIA_COMPAT_CUDA is unset: the card.
+#: On an H100 host with 8 cores the host pool won on 32 1024x1024 photos
+#: (5.7x) and lost on 8192 64x64 icons (3.8x), so the JAX package's
+#: default, the host, was not taken (PERF.md)
+_COMPAT_DEFAULT = "1"
+
+
+def _compat_mode() -> str:
+    """The batch route of ``.qoi`` streams, ``SEQOIA_COMPAT_CUDA`` read at
+    each call: ``1`` the card, ``0`` the host pool, ``auto`` by probe
+    (module docstring); unset or empty: ``_COMPAT_DEFAULT``."""
+    mode = os.environ.get("SEQOIA_COMPAT_CUDA", "") or _COMPAT_DEFAULT
+    if mode not in ("0", "1", "auto"):
+        raise ValueError(f"SEQOIA_COMPAT_CUDA={mode!r}: use 0, 1 or auto")
+    return mode
+
+
+def _mesh(device, mesh) -> tuple:
+    """The entries a pipeline runs on: the mesh, or ``device`` alone."""
+    return default_mesh(mesh) if mesh is not None else (resolve(device),)
+
+
+def _copy_stream(streams: dict, dev):
+    """The stream of ``dev`` that copies outputs down (made once)."""
+    s = streams.get(dev)
+    if s is None:
+        s = streams[dev] = torch.cuda.Stream(dev)
+    return s
 
 
 def _next_pow2(x: int) -> int:
@@ -115,31 +160,33 @@ class _Pending:
 
 
 class BatchDecoder:
-    """Decode many SQOA / QOI streams on one card (module docstring).
+    """Decode many SQOA / QOI streams on one card or a mesh (module
+    docstring).
 
     ``last_timings`` holds the seconds of the latest call spent staging and
     dispatching (``stage``), waiting for the first class's output
     (``compute``), unpacking the outputs (``fetch``) and in host decodes
     that nothing overlapped (``host``); ``last_stats`` the early drains,
-    OOM re-dispatches, packed rows and rows decoded on the host (REF rows,
-    nothing else)."""
+    OOM re-dispatches, packed rows, rows decoded on the host and, under
+    ``SEQOIA_COMPAT_CUDA=auto``, the probed streams sent to the card and to
+    the host."""
 
-    def __init__(self, device="cuda", max_outstanding_bytes: int | None = None):
-        self.device = resolve(device)
+    def __init__(self, device="cuda", max_outstanding_bytes: int | None = None,
+                 mesh=None):
+        self.mesh = _mesh(device, mesh)
         self.last_timings: dict = {}
         self.last_stats: dict = {}
         self.max_outstanding_bytes = (
             _MAX_OUTSTANDING if max_outstanding_bytes is None
             else int(max_outstanding_bytes))
-        self._copy_stream = None
+        self._copy_streams: dict = {}
 
     # --- one class ---------------------------------------------------------
 
-    def _run(self, items, key):
-        """Decode one staged class on the card. Returns (output, per-row
+    def _run(self, items, key, dev):
+        """Decode one staged class on ``dev``. Returns (output, per-row
         fallback flags, images per packed row or None, input bytes)."""
         colch, compat, out_ch, m_pad, n_max, src_alpha = key
-        dev = self.device
         pin = dev.type == "cuda"
 
         def up(t):
@@ -173,22 +220,22 @@ class BatchDecoder:
                 emit="words", src_alpha=src_alpha)
         return out, ref, None, buf.numel()
 
-    def _dispatch(self, items, key) -> _Pending:
-        """Stage and decode one class and queue the copy of its output."""
-        out, ref, seg_k, in_bytes = self._run(items, key)
+    def _dispatch(self, items, key, dev) -> _Pending:
+        """Stage and decode one class on ``dev`` and queue the copy of its
+        output."""
+        out, ref, seg_k, in_bytes = self._run(items, key, dev)
         nbytes = out.numel() * out.element_size() + in_bytes
-        if self.device.type != "cuda":
+        if dev.type != "cuda":
             return _Pending(items, key, out, ref, None, seg_k, nbytes, ())
-        if self._copy_stream is None:
-            self._copy_stream = torch.cuda.Stream(self.device)
+        copy = _copy_stream(self._copy_streams, dev)
         host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
         flags = torch.empty(ref.shape, dtype=ref.dtype, pin_memory=True)
-        self._copy_stream.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(self._copy_stream):
+        copy.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(copy):
             host.copy_(out, non_blocking=True)
             flags.copy_(ref, non_blocking=True)
             done = torch.cuda.Event()
-            done.record()
+            done.record(copy)
         return _Pending(items, key, host, flags, done, seg_k, nbytes,
                         (out, ref))
 
@@ -242,26 +289,28 @@ class BatchDecoder:
 
         stats = self._stats = {"early_drains": 0, "oom_redispatch": 0,
                                "packed_rows": 0, "host_rows": 0}
+        mode = _compat_mode()
+        host_items: list = []   # .qoi streams the policy sends to the host
         pending: list[_Pending] = []
-        fallback: list = []
+        fallback: list = []     # rows the card hands back
         outstanding = 0
         t_fetch_early = 0.0
         is_oom = torch.cuda.OutOfMemoryError
 
-        def recover(items, key):
+        def recover(items, key, dev):
             """OOM degradation: re-run the class synchronously (everything
             else has drained), halving it while it still does not fit; a
             single image that does not fit is that image's error."""
             stats["oom_redispatch"] += 1
             try:
-                entry = self._dispatch(items, key)
+                entry = self._dispatch(items, key, dev)
             except is_oom:
                 if len(items) == 1:
                     results[items[0][0]] = DecodeResult(
                         None, None, "out of device memory")
                     return
-                recover(items[: len(items) // 2], key)
-                recover(items[len(items) // 2:], key)
+                recover(items[: len(items) // 2], key, dev)
+                recover(items[len(items) // 2:], key, dev)
                 return
             self._finish(entry, results, fallback)
 
@@ -273,25 +322,46 @@ class BatchDecoder:
 
         t0 = time.perf_counter()
         for key, items in groups.items():
-            try:
-                entry = self._dispatch(items, key)
-            except is_oom:
-                # free the queue (each drain gives its bytes back, so
-                # ``outstanding`` restarts from 0), then run degraded
-                while pending:
+            colch, compat = key[0], key[1]
+            if compat and mode != "1":
+                items = self._route(items, colch, mode, host_items, stats)
+            for dev, lo, hi in batch_sharding(self.mesh, len(items)):
+                part = items[lo:hi]
+                try:
+                    entry = self._dispatch(part, key, dev)
+                except is_oom:
+                    # free the queue (each drain gives its bytes back, so
+                    # ``outstanding`` restarts from 0), then run degraded
+                    while pending:
+                        drain_one()
+                    if dev.type == "cuda":
+                        torch.cuda.empty_cache()
+                    recover(part, key, dev)
+                    continue
+                pending.append(entry)
+                outstanding += entry.nbytes
+                while (outstanding > self.max_outstanding_bytes
+                       and len(pending) > 1):
+                    tf = time.perf_counter()
                     drain_one()
-                if self.device.type == "cuda":
-                    torch.cuda.empty_cache()
-                recover(items, key)
-                continue
-            pending.append(entry)
-            outstanding += entry.nbytes
-            while outstanding > self.max_outstanding_bytes and len(pending) > 1:
-                tf = time.perf_counter()
-                drain_one()
-                stats["early_drains"] += 1
-                t_fetch_early += time.perf_counter() - tf
+                    stats["early_drains"] += 1
+                    t_fetch_early += time.perf_counter() - tf
         t_stage = time.perf_counter() - t0 - t_fetch_early
+
+        # the host's share of .qoi streams: on a thread of its own while
+        # the card's classes run, inline when there is nothing to overlap
+        # or one core (a thread then only adds turns of the GIL)
+        host_job, t_host = None, 0.0
+        if host_items:
+            pairs = [(i, data) for i, data, _ in host_items]
+            if pending and (os.cpu_count() or 8) > 1:
+                ex = ThreadPoolExecutor(1)
+                host_job = ex.submit(self._host_pool, pairs, channels, results)
+                ex.shutdown(wait=False)  # the job runs on; its thread ends
+            else:
+                t0 = time.perf_counter()
+                self._host_pool(pairs, channels, results)
+                t_host = time.perf_counter() - t0
 
         # wait for the first class (the compute not yet hidden), then
         # unpack class by class while later ones still run
@@ -308,12 +378,34 @@ class BatchDecoder:
         t0 = time.perf_counter()
         if fallback:
             self._host_pool(fallback, channels, results)
-        t_host = time.perf_counter() - t0
-        stats["host_rows"] = len(fallback)
+        if host_job is not None:
+            host_job.result()
+        t_host += time.perf_counter() - t0
+        stats["host_rows"] = len(fallback) + len(host_items)
         self.last_timings = {"stage": t_stage, "compute": t_compute,
                              "fetch": t_fetch, "host": t_host}
         self.last_stats = stats
         return results
+
+    @staticmethod
+    def _route(items, colch, mode, host_items, stats):
+        """The items of a ``.qoi`` class that go to the card under ``mode``
+        (``0`` or ``auto``); the others join ``host_items``. ``auto`` sends a
+        color stream to the card when its probed INDEX-chain depth is below
+        the fixpoint's cap, and mono streams to the host."""
+        if mode == "0" or colch != 3:
+            host_items.extend(items)
+            return []
+        cap = decode_compat._MAX_ITERS
+        card = []
+        for it in items:
+            pr = native.compat_probe(bytes(it[1]))
+            (card if pr is not None and pr[0] < cap else host_items).append(
+                it)
+        stats["auto_cuda"] = stats.get("auto_cuda", 0) + len(card)
+        stats["auto_host"] = (stats.get("auto_host", 0) + len(items)
+                              - len(card))
+        return card
 
     @staticmethod
     def _host_pool(items, channels, results):
@@ -337,8 +429,8 @@ class BatchDecoder:
                 results[i] = r
 
 
-def corpus_decode(streams, channels: int = 0, device="cuda"):
-    return BatchDecoder(device)(streams, channels)
+def corpus_decode(streams, channels: int = 0, device="cuda", mesh=None):
+    return BatchDecoder(device, mesh=mesh)(streams, channels)
 
 
 @dataclasses.dataclass
@@ -353,9 +445,9 @@ class _Encoding:
 
 
 class BatchEncoder:
-    """Encode many images on one card (module docstring); returns a list
-    of file bytes, None for an image that is None, has an invalid desc or
-    did not fit in device memory.
+    """Encode many images on one card or a mesh (module docstring); returns
+    a list of file bytes, None for an image that is None, has an invalid
+    desc or did not fit in device memory.
 
     ``last_timings`` holds the seconds of the latest call spent staging and
     dispatching (``stage``), waiting for the first class's bytes
@@ -364,23 +456,23 @@ class BatchEncoder:
     drains, OOM re-dispatches and images that did not fit
     (``oom_errors``)."""
 
-    def __init__(self, device="cuda", max_outstanding_bytes: int | None = None):
-        self.device = resolve(device)
+    def __init__(self, device="cuda", max_outstanding_bytes: int | None = None,
+                 mesh=None):
+        self.mesh = _mesh(device, mesh)
         self.last_timings: dict = {}
         self.last_stats: dict = {}
         self.max_outstanding_bytes = (
             _MAX_OUTSTANDING if max_outstanding_bytes is None
             else int(max_outstanding_bytes))
-        self._copy_stream = None
+        self._copy_streams: dict = {}
 
     # --- one class ---------------------------------------------------------
 
-    def _run(self, items, key):
-        """Stage and encode one class on the card. Returns (stream bytes,
+    def _run(self, items, key, dev):
+        """Stage and encode one class on ``dev``. Returns (stream bytes,
         exact totals, device bytes of the input and packed pixels)."""
         colch, has_alpha, compat, n_pad = key
         stride = colch + int(has_alpha)
-        dev = self.device
         pin = dev.type == "cuda"
         b = len(items)
         buf = torch.empty((b, n_pad * stride), dtype=torch.uint8,
@@ -402,23 +494,23 @@ class BatchEncoder:
         in_bytes = buf.numel() + (0 if stride == 4 else 4 * packed.numel())
         return out, total, in_bytes
 
-    def _dispatch(self, items, key) -> _Encoding:
-        """Stage and encode one class and queue the copy of its bytes."""
-        out, total, in_bytes = self._run(items, key)
+    def _dispatch(self, items, key, dev) -> _Encoding:
+        """Stage and encode one class on ``dev`` and queue the copy of its
+        bytes."""
+        out, total, in_bytes = self._run(items, key, dev)
         nbytes = out.numel() + in_bytes
-        if self.device.type != "cuda":
+        if dev.type != "cuda":
             return _Encoding(items, out, total, None, nbytes, ())
-        if self._copy_stream is None:
-            self._copy_stream = torch.cuda.Stream(self.device)
+        copy = _copy_stream(self._copy_streams, dev)
         host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
         host_total = torch.empty(total.shape, dtype=total.dtype,
                                  pin_memory=True)
-        self._copy_stream.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(self._copy_stream):
+        copy.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(copy):
             host.copy_(out, non_blocking=True)
             host_total.copy_(total, non_blocking=True)
             done = torch.cuda.Event()
-            done.record()
+            done.record(copy)
         return _Encoding(items, host, host_total, done, nbytes, (out, total))
 
     @staticmethod
@@ -452,19 +544,19 @@ class BatchEncoder:
         t_fetch_early = 0.0
         is_oom = torch.cuda.OutOfMemoryError
 
-        def recover(items, key):
+        def recover(items, key, dev):
             """OOM degradation: re-run the class synchronously (everything
             else has drained), halving it while it still does not fit; a
             single image that does not fit gets None."""
             stats["oom_redispatch"] += 1
             try:
-                entry = self._dispatch(items, key)
+                entry = self._dispatch(items, key, dev)
             except is_oom:
                 if len(items) == 1:
                     stats["oom_errors"] += 1
                     return
-                recover(items[: len(items) // 2], key)
-                recover(items[len(items) // 2:], key)
+                recover(items[: len(items) // 2], key, dev)
+                recover(items[len(items) // 2:], key, dev)
                 return
             self._finish(entry, results)
 
@@ -476,24 +568,27 @@ class BatchEncoder:
 
         t0 = time.perf_counter()
         for key, items in groups.items():
-            try:
-                entry = self._dispatch(items, key)
-            except is_oom:
-                # free the queue (each drain gives its bytes back, so
-                # ``outstanding`` restarts from 0), then run degraded
-                while pending:
+            for dev, lo, hi in batch_sharding(self.mesh, len(items)):
+                part = items[lo:hi]
+                try:
+                    entry = self._dispatch(part, key, dev)
+                except is_oom:
+                    # free the queue (each drain gives its bytes back, so
+                    # ``outstanding`` restarts from 0), then run degraded
+                    while pending:
+                        drain_one()
+                    if dev.type == "cuda":
+                        torch.cuda.empty_cache()
+                    recover(part, key, dev)
+                    continue
+                pending.append(entry)
+                outstanding += entry.nbytes
+                while (outstanding > self.max_outstanding_bytes
+                       and len(pending) > 1):
+                    tf = time.perf_counter()
                     drain_one()
-                if self.device.type == "cuda":
-                    torch.cuda.empty_cache()
-                recover(items, key)
-                continue
-            pending.append(entry)
-            outstanding += entry.nbytes
-            while outstanding > self.max_outstanding_bytes and len(pending) > 1:
-                tf = time.perf_counter()
-                drain_one()
-                stats["early_drains"] += 1
-                t_fetch_early += time.perf_counter() - tf
+                    stats["early_drains"] += 1
+                    t_fetch_early += time.perf_counter() - tf
         t_stage = time.perf_counter() - t0 - t_fetch_early
 
         # wait for the first class (the compute not yet hidden), then
@@ -513,5 +608,5 @@ class BatchEncoder:
         return results
 
 
-def corpus_encode(images, descs, device="cuda"):
-    return BatchEncoder(device)(images, descs)
+def corpus_encode(images, descs, device="cuda", mesh=None):
+    return BatchEncoder(device, mesh=mesh)(images, descs)

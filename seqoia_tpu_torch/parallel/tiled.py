@@ -1,9 +1,14 @@
-"""Large single images (100-400 Mpx) on one card.
+"""Large single images (100-400 Mpx) on a card or a mesh of devices.
 
-Port of ``seqoia_tpu/parallel/tiled.py``. ``encode_large`` and
-``decode_large`` are its one-device branches: the raw bytes go up once, K4
-expands them to packed pixels, K3 and K2 encode (K1 and K2 decode), and the
-stream (the pixels) comes back through ``utils.transfer.fetch_flat``.
+Port of ``seqoia_tpu/parallel/tiled.py``. On one device ``encode_large``
+and ``decode_large`` take its one-device branches: the raw bytes go up
+once, K4 expands them to packed pixels, K3 and K2 encode (K1 and K2
+decode), and the stream (the pixels) comes back through
+``utils.transfer.fetch_flat``. Given a mesh (``parallel.mesh``) of more
+than one entry they run the shard forms below over it, one shard an
+entry: the port has no partitioner, so the carried state crosses the
+shard boundaries explicitly where the JAX package lets GSPMD partition
+its scans.
 
 Pinned memory: on a card the decoders return their pixels as a view of the
 pinned (page-locked) buffer they arrived in, ``n_pixels * channels`` bytes
@@ -18,10 +23,11 @@ copy (first touch of fresh pages) took several times the whole decode
 that crosses a boundary carried explicitly: a host prepass finds it (the
 pixel before the shard, the run in progress, which shard ends the image;
 for the decode an op-aligned byte range per shard from one native token
-hop), and the shards run as the rows of one batch. The JAX package runs one
-shard per device under ``shard_map``; here the rows share the card, and the
-same form is what a later multi-GPU version spreads over devices. Results
-are byte-identical to the unsharded functions at any shard count.
+hop). The JAX package runs one shard per device under ``shard_map``. Here
+``mesh=`` gives one shard per mesh entry, and the shards of one device run
+as the rows of one batch there; without a mesh all ``n_shards`` rows run
+on ``device=``. Results are byte-identical to the unsharded functions at
+any shard count and mesh.
 
 Offsets on the card are int32 (keys, byte positions, pixel slots), so a
 stream buffer or a worst-case output past 2**31 - 1 bytes raises
@@ -43,6 +49,7 @@ from ..codec import decode_v2, encode_v2
 from ..codec.encode import normalize_pixels_packed
 from ..ops import pack
 from ..utils import transfer
+from .mesh import default_mesh
 
 INT32_LIMIT = 2**31 - 1
 _INIT_PACKED = decode_v2._INIT_PACKED
@@ -90,16 +97,62 @@ def _file_bytes(desc, body: np.ndarray) -> bytes:
     return b"".join([spec.pack_header(desc), memoryview(body)])
 
 
-def encode_large(pixels, desc: spec.SqoaDesc, device="cuda") -> bytes | None:
-    """Encode one large image. Returns the file bytes, or None on invalid
-    arguments."""
-    dev = resolve(device)
+def _shard_mesh(device, mesh, n_shards: int) -> tuple:
+    """The entries the shards run on, one a shard: the mesh, or ``device``
+    ``n_shards`` times."""
+    if mesh is not None:
+        return default_mesh(mesh)
+    if n_shards < 1:
+        raise ValueError("n_shards must be at least 1")
+    return (resolve(device),) * n_shards
+
+
+def _by_device(mesh) -> list:
+    """[(device, [shard indices])], the devices in order of first entry."""
+    groups: dict = {}
+    for s, dev in enumerate(mesh):
+        groups.setdefault(dev, []).append(s)
+    return list(groups.items())
+
+
+def _rows(host: torch.Tensor, idx: list) -> torch.Tensor:
+    """Rows ``idx`` of a (shards, width) host tensor: a view when they are
+    consecutive (the pinned buffer itself), else a copy."""
+    if idx == list(range(idx[0], idx[-1] + 1)):
+        return host[idx[0]: idx[-1] + 1]
+    return host[idx]
+
+
+def _fetch_in_order(pieces) -> np.ndarray:
+    """Rank-1 tensors, on one device or several, concatenated in order on
+    the host, with one copy down a device."""
+    devs = list(dict.fromkeys(p.device for p in pieces))
+    if len(devs) == 1:
+        return transfer.fetch_flat(torch.cat(pieces))
+    parts = {}
+    for d in devs:
+        mine = [p for p in pieces if p.device == d]
+        host = transfer.fetch_flat(torch.cat(mine))
+        cuts = np.cumsum([p.numel() for p in mine])[:-1]
+        parts[d] = iter(np.split(host, cuts))
+    return np.concatenate([next(parts[p.device]) for p in pieces])
+
+
+def encode_large(pixels, desc: spec.SqoaDesc, device="cuda",
+                 mesh=None) -> bytes | None:
+    """Encode one large image on ``device``, or with its pixels sharded over
+    a mesh of more than one entry (``encode_large_shardmap``). Returns the
+    file bytes, or None on invalid arguments."""
+    mesh = default_mesh(mesh) if mesh is not None else None
+    dev = mesh[0] if mesh is not None else resolve(device)
     if pixels is None or not spec.validate_encode_desc(desc):
         return None
     if desc.qoi_compat:
         return native.encode(
             np.asarray(pixels, np.uint8).ravel(), desc.width, desc.height,
             desc.channels, desc.colorspace, 1)
+    if mesh is not None and len(mesh) > 1:
+        return encode_large_shardmap(pixels, desc, mesh=mesh)
     n = desc.n_pixels
     n_pad = _pad_to(n, _TILE)
     worst = _pad_to(n_pad * (desc.norm_channels + 1) + spec.PADDING_SIZE + 1,
@@ -131,9 +184,10 @@ def _last_anchor(packed: np.ndarray, end: int) -> int:
 
 
 def encode_large_shardmap(pixels, desc: spec.SqoaDesc, n_shards: int = 4,
-                          device="cuda") -> bytes | None:
-    """encode_large with the pixels cut into ``n_shards`` ranges that encode
-    independently as rows of one batch.
+                          device="cuda", mesh=None) -> bytes | None:
+    """encode_large with the pixels cut into ``n_shards`` ranges (with
+    ``mesh=``: one a mesh entry) that encode independently, the ranges of
+    one device as rows of one batch.
 
     The state at a boundary is exact and tiny: the pixel before it, the
     length mod 512 of the run in progress (BIGRUN phase and pending flush,
@@ -141,13 +195,12 @@ def encode_large_shardmap(pixels, desc: spec.SqoaDesc, n_shards: int = 4,
     concatenate into the byte-exact whole because a run that crosses a
     boundary flushes at the next change pixel, which lies in the next shard
     (seqoia.h:554-561)."""
-    dev = resolve(device)
+    mesh = _shard_mesh(device, mesh, n_shards)
     if pixels is None or not spec.validate_encode_desc(desc):
         return None
     if desc.qoi_compat:
-        return encode_large(pixels, desc, device=dev)
-    if n_shards < 1:
-        raise ValueError("n_shards must be at least 1")
+        return encode_large(pixels, desc, device=mesh[0])
+    n_shards = len(mesh)
     n = desc.n_pixels
     n_pad = _pad_to(max(n, n_shards), n_shards * _TILE)
     chunk = n_pad // n_shards
@@ -155,7 +208,7 @@ def encode_large_shardmap(pixels, desc: spec.SqoaDesc, n_shards: int = 4,
                     4096)
     _require_int32("a shard's worst-case stream size", worst)
     host = torch.zeros(n_pad, dtype=torch.int32,
-                       pin_memory=dev.type == "cuda")
+                       pin_memory=mesh[0].type == "cuda")
     packed = host.numpy()
     packed[:n] = normalize_pixels_packed(pixels, desc)
 
@@ -171,22 +224,31 @@ def encode_large_shardmap(pixels, desc: spec.SqoaDesc, n_shards: int = 4,
     last_shard = max(0, -(-n // chunk) - 1)
     emit_tail = np.arange(n_shards) == last_shard
 
-    rows = host.to(dev, non_blocking=True).view(n_shards, chunk)
-    ip, ri, nv, et = (_i32(a, dev)
-                      for a in (init_prev, run_in, n_local, emit_tail))
-    outs, tots = encode_v2.encode_stream_batched(
-        rows, nv, colch=desc.col_channels, init_prev=ip, run_in=ri,
-        emit_tail=et)
-    tots = tots.tolist()
-    body = torch.cat([outs[s, : tots[s]] for s in range(n_shards)])
-    return _file_bytes(desc, transfer.fetch_flat(body))
+    pieces = [None] * n_shards
+    for dev, idx in _by_device(mesh):
+        rows = _rows(host.view(n_shards, chunk), idx).to(dev,
+                                                         non_blocking=True)
+        ip, ri, nv, et = (_i32(a[idx], dev)
+                          for a in (init_prev, run_in, n_local, emit_tail))
+        outs, tots = encode_v2.encode_stream_batched(
+            rows, nv, colch=desc.col_channels, init_prev=ip, run_in=ri,
+            emit_tail=et)
+        for r, t in enumerate(tots.tolist()):
+            pieces[idx[r]] = outs[r, :t]
+    return _file_bytes(desc, _fetch_in_order(pieces))
 
 
-def decode_large(data: bytes, channels: int = 0, device="cuda"):
+def decode_large(data: bytes, channels: int = 0, device="cuda", mesh=None):
     """Decode one large SQOA stream: K1, then K2 with the pixels emitted as
-    words. Returns (flat uint8 pixels, SqoaDesc) or (None, None); on a card
-    the pixels are a view of a pinned buffer (module docstring). A stream
-    with REF ops (which no SQOA encoder emits) goes to the native codec."""
+    words; over a mesh of more than one entry, ``decode_large_shardmap``.
+    Returns (flat uint8 pixels, SqoaDesc) or (None, None); on a card the
+    pixels are a view of a pinned buffer (module docstring). A stream with
+    REF ops (which no SQOA encoder emits) goes to the native codec."""
+    if mesh is not None:
+        mesh = default_mesh(mesh)
+        if len(mesh) > 1:
+            return decode_large_shardmap(data, channels, mesh=mesh)
+        device = mesh[0]
     dev = resolve(device)
     desc = _header(data)
     if desc is None or channels < 0 or channels > 4:
@@ -220,9 +282,10 @@ def _lanes(out_ch: int):
 
 
 def decode_large_shardmap(data: bytes, channels: int = 0, n_shards: int = 4,
-                          device="cuda"):
-    """decode_large with the stream cut into ``n_shards`` op-aligned byte
-    ranges that decode independently as rows of one batch.
+                          device="cuda", mesh=None):
+    """decode_large with the stream cut into ``n_shards`` (with ``mesh=``:
+    one a mesh entry) op-aligned byte ranges that decode independently, the
+    ranges of one device as rows of one batch.
 
     One native token hop (``native.scan_chunks``: op lengths and pixel
     counts, no values) finds the ranges; the alpha modifier is consumed with
@@ -230,20 +293,20 @@ def decode_large_shardmap(data: bytes, channels: int = 0, n_shards: int = 4,
     Each row decodes as a fresh stream; the only state it lacks, the pixel
     carried into it (seqoia.h:716-719), is an additive delta per channel
     on the pixels before the row's first absolute anchor (RGB/RGBA op),
-    chained from row to row and applied on the card before the one copy
-    back. REF, malformed and compat streams go to the sequential paths."""
-    dev = resolve(device)
+    chained from row to row (and device to device) and applied on the
+    card before the one copy back a device. REF, malformed and compat
+    streams go to the sequential paths."""
+    mesh = _shard_mesh(device, mesh, n_shards)
     desc = _header(data)
     if desc is None or channels < 0 or channels > 4:
         return None, None
-    if n_shards < 1:
-        raise ValueError("n_shards must be at least 1")
+    n_shards = len(mesh)
     colch = desc.col_channels
     out_ch = _out_channels(desc, channels)
     # a color stream forced to gray drops r and b, so the pixel carried
     # across a boundary cannot be rebuilt from the output
     if desc.qoi_compat or n_shards == 1 or (colch == 3 and out_ch < 3):
-        return decode_large(data, channels, device=dev)
+        return decode_large(data, channels, device=mesh[0])
     n = desc.n_pixels
     chunks = native.scan_chunks(bytes(data), n_shards)
     if chunks is None:
@@ -257,25 +320,30 @@ def decode_large_shardmap(data: bytes, channels: int = 0, n_shards: int = 4,
     m_pad = _pad_to(start + int(shard_lens.max()) + 1, _TILE)
     _require_int32("a shard's stream buffer", m_pad)
     raw = np.frombuffer(data, np.uint8)
-    host = _stage(n_shards * m_pad, dev)
-    rows = host.numpy().reshape(n_shards, m_pad)
+    host = _stage(n_shards * m_pad, mesh[0]).view(n_shards, m_pad)
+    rows = host.numpy()
     for s in range(n_shards):
         rows[s, start: start + shard_lens[s]] = raw[byte_pos[s]: ends[s]]
     n_max = _pad_to(max(int(counts.max()), 1), _TILE)
 
-    out, _ = decode_v2.decode_stream_batched(
-        host.to(dev, non_blocking=True).view(n_shards, m_pad),
-        _i32(start + shard_lens, dev), _i32(counts, dev), colch=colch,
-        out_ch=out_ch,
-        n_max=int(n_max), src_alpha=bool(desc.has_alpha))
+    outs = [None] * n_shards
+    for dev, idx in _by_device(mesh):
+        out, _ = decode_v2.decode_stream_batched(
+            _rows(host, idx).to(dev, non_blocking=True),
+            _i32((start + shard_lens)[idx], dev), _i32(counts[idx], dev),
+            colch=colch, out_ch=out_ch, n_max=int(n_max),
+            src_alpha=bool(desc.has_alpha))
+        for r, s in enumerate(idx):
+            outs[s] = out[r]
 
     # --- chained head fix-ups: add the carried pixel to every row's head ----
     n_color, alpha_lane = _lanes(out_ch)
-    prev = torch.tensor([0, 0, 0, 255], dtype=torch.uint8, device=dev)
+    prev = torch.tensor([0, 0, 0, 255], dtype=torch.uint8, device=mesh[0])
     pieces = []
     for s in range(n_shards):
         cnt = int(counts[s])
-        px = out[s, : cnt * out_ch].view(cnt, out_ch)
+        px = outs[s][: cnt * out_ch].view(cnt, out_ch)
+        prev = prev.to(px.device)
         if cnt:
             k_r = int(anch_r[s] - px_start[s]) if anch_r[s] >= 0 else cnt
             # mono carries its gray in g; uint8 adds wrap mod 256
@@ -291,5 +359,4 @@ def decode_large_shardmap(data: bytes, channels: int = 0, n_shards: int = 4,
             if alpha_lane is not None:
                 prev[3] = last[alpha_lane]
         pieces.append(px.reshape(-1))
-    pixels = transfer.fetch_flat(torch.cat(pieces), n * out_ch)
-    return pixels, desc
+    return _fetch_in_order(pieces)[: n * out_ch], desc

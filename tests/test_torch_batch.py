@@ -170,11 +170,11 @@ def test_oom_ladder_halves_down_to_an_error_slot(monkeypatch):
     run = dec._run
     seen = []
 
-    def tight(items, key):
+    def tight(items, *key_dev):
         seen.append(len(items))
         if len(items) > 2 or any(it[0] == 4 for it in items):  # 4 never fits
             raise torch.cuda.OutOfMemoryError("mocked")
-        return run(items, key)
+        return run(items, *key_dev)
 
     monkeypatch.setattr(dec, "_run", tight)
     monkeypatch.setattr(
@@ -204,12 +204,12 @@ def test_oom_at_dispatch_drains_the_queue_and_resets_outstanding(monkeypatch):
     run = dec._run
     state = {"failed": False, "order": []}
 
-    def flaky(items, key):
+    def flaky(items, *key_dev):
         state["order"].append(items[0][0])
         if not state["failed"] and items[0][0] == 1:  # at its dispatch
             state["failed"] = True
             raise torch.cuda.OutOfMemoryError("mocked")
-        return run(items, key)
+        return run(items, *key_dev)
 
     monkeypatch.setattr(dec, "_run", flaky)
     _same(dec(streams), streams)
@@ -357,11 +357,11 @@ def test_encoder_oom_ladder_halves_down_to_none(monkeypatch):
     run = enc._run
     seen = []
 
-    def tight(items, key):
+    def tight(items, *key_dev):
         seen.append(len(items))
         if len(items) > 2 or any(it[0] == 4 for it in items):  # 4 never fits
             raise torch.cuda.OutOfMemoryError("mocked")
-        return run(items, key)
+        return run(items, *key_dev)
 
     monkeypatch.setattr(enc, "_run", tight)
     monkeypatch.setattr(native, "encode", lambda *a: pytest.fail(

@@ -100,10 +100,8 @@ class _Launch:
             self.args[key, stream] = (
                 P(self.data), self.data.numel(), self.clen, self.n,
                 self.colch, self.out_ch, P(self.out[key]),
-                *((P(self.rec),) if with_rec else ()), P(self.stat[key]),
-                _build.stream_ptr(dev))
-        _build.check(lib.k10_ref_decode(*self.args[key, stream]),
-                     "k10_ref_decode")
+                *((P(self.rec),) if with_rec else ()), P(self.stat[key]))
+        _build.launch(lib, "k10_ref_decode", dev, *self.args[key, stream])
 
     def result(self, key):
         s = self.stat[key].cpu()

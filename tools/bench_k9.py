@@ -80,10 +80,11 @@ def _launch(lib, args, dev):
     lo, hi, tot, colch = args
     out = torch.zeros_like(lo)
     P = _build.ptr
-    _build.check(lib.k9_sequential_decode(
+    _build.launch(
+        lib, "k9_sequential_decode", dev,
         P(lo.contiguous()), P(None if hi is None else hi.contiguous()),
         P(tot.to(torch.int32).contiguous()), lo.shape[0], lo.shape[1], colch,
-        P(out), _build.stream_ptr(dev)), "k9_sequential_decode")
+        P(out))
     return out
 
 
