@@ -109,7 +109,16 @@
    --cuda BENCH_RUNS times more outside the counters' census, for its
    tables and their spread. Then times BatchDecoder on the photos and the
    icons as .qoi under each .qoi batch policy (SEQOIA_COMPAT_CUDA 1, 0 and
-   auto; the paths above run with 1). Every stream
+   auto; the paths above run with 1). Resets the counters again and drives
+   the stream-end path: the edge streams of tests/test_torch_stream_end.py
+   (every last op at channels 1-4, an alpha-range byte at each byte of the
+   end marker, where the reference's alpha peek after the last op may land)
+   and END_FUZZ seeded malformed streams through decode, decode_large,
+   decode_large_shardmap (4 shards, and mesh=(cuda:0,) * 4), BatchDecoder
+   and decode with SEQOIA_REF_CUDA=1, at out_ch 0, 2 and 4, every output
+   equal to native.decode's; then holds each of its K1 (both modes, all
+   three modes of the automaton) and K10 launches against the plain
+   version on host copies of the launch's arguments, bitwise. Every stream
    and every pixel the card returns is held byte-exact against the port's
    native C codec. Fails if a kernel of a
    path was not launched on it, if a .qoi stream or an icon went to the host
@@ -126,8 +135,9 @@
    steps of the 134 Mpx encode and decode one by one, the peak device
    memory, the bench --cuda table, the fuzz verdicts with the decodes that
    reached K10, the mesh path's seconds without and with the mesh, the
-   policies' seconds beside os.cpu_count(), each kernel's time beside its
-   bound, each kernel's summed gap over the nine paths' launches (Σ(ms − bound), every launch timed in place
+   policies' seconds beside os.cpu_count(), the stream-end path's decodes,
+   mismatches, launches held and seconds, each kernel's time beside its
+   bound, each kernel's summed gap over the ten paths' launches (Σ(ms − bound), every launch timed in place
    by CUDA events around its C entry point and bounded at its own shape:
    _census), a JSON ``kernels`` line and, last, ``{"ok": true, "device":
    {...}}``.
@@ -196,6 +206,7 @@ MONO_KERNELS = ("K5", "K6", "K8", "K9mono")
 REF_KERNELS = ("K1", "K2", "K10")
 TOOL_KERNELS = ("K1", "K2", "K3", "K5", "K6", "K7", "K8", "K10")
 MESH_KERNELS = ("K1", "K1seg", "K2", "K3", "K4", "K5", "K6", "K7", "K8")
+END_KERNELS = ("K1", "K1seg", "K2", "K6", "K10")
 
 
 def _images(seed: int = 0):
@@ -1060,10 +1071,14 @@ def check_edge_front(stages, dev):
     4097 and 3 * 4096 + 1 bytes with the stream's end at the row's end and 8
     bytes before it, a stream padded far past its end, an n_max that cuts
     the last op, 37 short rows, and the synthetic stream with tokens across
-    the tile edges. Returns [records]."""
+    the tile edges; in mode noalpha also rows whose last op ends or is cut
+    at a tile's or a thread's edge with an alpha-range byte where the
+    reference peeks after it (corpus.end_peek_rows), their flags held to
+    the rows' own. Returns [records]."""
     import torch
 
     from seqoia_tpu_torch.ops import frontend
+    from seqoia_tpu_torch.utils import corpus
 
     rows = []
     for s in stages:
@@ -1086,6 +1101,10 @@ def check_edge_front(stages, dev):
         edge = _edge_tokens(s.mode)
         cases.append(("tokens across tile edges", np.stack([edge, edge]),
                       [len(edge) - 8, 2 * 4096 + 1], 1 << 20))
+        if s.mode == "noalpha":  # the alpha peek after the last op
+            data, clen, hits = corpus.end_peek_rows(frontend.TILE)
+            cases.append(("end peek at tile and thread edges", data,
+                          list(clen), 1 << 16))
         for name, data, clen, n_max in cases:
             data = torch.from_numpy(np.array(data)).to(dev)
             clen = torch.tensor(clen, dtype=torch.int32, device=dev)
@@ -1095,11 +1114,13 @@ def check_edge_front(stages, dev):
                 n_max = int(keys[0, int(tot[0]) - 1])
             got = frontend.decode_front_compact(data, clen, n_max, s.mode)
             want = frontend.decode_front_plain(data, clen, n_max, s.mode)
+            err = max(_max_err(a, b) for a, b in zip(_front_view(got),
+                                                     _front_view(want)))
+            if name.startswith("end peek"):  # flagged where it should be
+                err = max(err, _max_err(want[3].cpu(), torch.tensor(hits)))
             rows.append(dict(
                 shape=f"edge {s.name} {s.mode} {name} {tuple(data.shape)}",
-                err=max(_max_err(a, b) for a, b in zip(
-                    _front_view(got), _front_view(want))),
-                main=False))
+                err=err, main=False))
     return rows
 
 
@@ -1465,7 +1486,9 @@ def check_edge_segments(dev):
     enough to cross the 4096-byte tiles where the segment allows), with
     empty segments, 72x64 images whose ops pass seg_px (cut there),
     streams of very different lengths side by side, and one segment whose
-    length runs to its end. Returns [records]."""
+    length runs to its end; in mode noalpha at seg 128 and 8192 the rows
+    of corpus.end_peek_segments, their flags held to the rows' own.
+    Returns [records]."""
     import torch
 
     from seqoia_tpu_torch import native
@@ -1522,6 +1545,25 @@ def check_edge_segments(dev):
                     lambda: frontend.decode_front_compact(d, sl, k * 4096,
                                                           **kw),
                     _front_view, got, 5)))
+    # mode noalpha: segments whose last op is followed by an alpha-range
+    # byte where the reference peeks (the packed row flagged), and the same
+    # row with only the segments that must not flag
+    for seg in (128, 8192):
+        data, slens, quiet = corpus.end_peek_segments(seg, frontend.TILE)
+        k = data.shape[1] // seg
+        d = torch.from_numpy(data).to(dev)
+        for name, sl, flag in (("end peek", slens, 1), ("no end peek", quiet,
+                                                         0)):
+            sl = torch.from_numpy(sl).to(dev)
+            got = frontend.decode_front_compact(d, sl, k * 4096, "noalpha",
+                                                seg, 4096)
+            want = frontend.decode_front_plain_seg(d, sl, k * 4096,
+                                                   "noalpha", seg, 4096)
+            rows.append(dict(
+                shape=f"edge noalpha seg={seg} {name} {tuple(data.shape)}",
+                err=max([_max_err(a, b) for a, b in zip(
+                    _front_view(got), _front_view(want))]
+                    + [abs(int(want[3][0]) - flag)]), main=False))
     return rows
 
 
@@ -2768,6 +2810,205 @@ def _qoi_images(images):
     ]
 
 
+# --- the stream's end: every decode entry point against native.decode -------
+
+END_FUZZ = 2000  # seeded malformed streams through each entry point
+END_OUT_CH = (0, 2, 4)
+
+
+def _end_edges():
+    """The edge streams of tests/test_torch_stream_end.py, as {entry
+    group: [streams]}: every last op of ``corpus.END_OPS`` at channels 1-4
+    with a clean marker and an alpha-range byte at each of its 8 bytes, as
+    icons (``icon``: a power-of-two pixel count, packed by BatchDecoder),
+    one column wider (``plain``: a BatchDecoder class of rows) and with
+    a REF op in the body (``ref``: all of them reach K10 under
+    SEQOIA_REF_CUDA=1)."""
+    from seqoia_tpu_torch.utils import corpus
+
+    return {g: [corpus.stream_end_stream(ch, last, pos, ref=g == "ref",
+                                         icon=g != "plain")
+                for last in corpus.END_OPS for ch in (1, 2, 3, 4)
+                for pos in (None,) + tuple(range(8))]
+            for g in ("icon", "plain", "ref")}
+
+
+class _Recorded:
+    """A kernel wrapper that keeps host copies of each launch's arguments
+    and outputs (``keep(out, *args)``) in ``log``, to run the plain version
+    on after the counted run. Its counters are the wrapped function's, as
+    _Timed's are."""
+
+    launches = property(lambda s: s.fn.launches,
+                        lambda s, v: setattr(s.fn, "launches", v))
+    seg_launches = property(lambda s: s.fn.seg_launches,
+                            lambda s, v: setattr(s.fn, "seg_launches", v))
+
+    def __init__(self, fn, keep, log):
+        self.fn, self.keep, self.log = fn, keep, log
+
+    def __call__(self, *a, **k):
+        out = self.fn(*a, **k)
+        self.log.append(self.keep(out, *a, **k))
+        return out
+
+
+def _keep_k1(out, data, chunks_len, n_max, mode="alpha", seg=None,
+             seg_px=None):
+    """A K1 launch on the host: in row mode each row up to 8 bytes past the
+    longest stream (the plain version reads no further) and the ops below
+    the largest total."""
+    keys, pays, tot, ref = out
+    t = int(tot.max()) if tot.numel() else 0
+    if seg is None:
+        data = data[:, : max(int(chunks_len.max()), 0) + 8]
+    return ("K1" if seg is None else "K1seg", data.cpu(), chunks_len.cpu(),
+            n_max, mode, seg, seg_px, keys[:, :t].cpu(), pays[:, :t].cpu(),
+            tot.cpu(), ref.cpu())
+
+
+def _keep_k10(out, data, chunks_len, n_pixels, *, colch, out_ch, n_max):
+    px, err, ops = out
+    return ("K10", data.cpu(), chunks_len, n_pixels, colch, out_ch, n_max,
+            px.cpu(), bool(err), int(ops))
+
+
+def stream_end_path(dev):
+    """Every decode entry point on the card at the end of the stream, where
+    the reference peeks for an alpha modifier after the last op
+    (seqoia.h:777-783): the edge streams (_end_edges) at out_ch 0, 2 and 4
+    and END_FUZZ seeded malformed streams (corpus.malformed_streams: body
+    bytes overwritten, bodies cut short, marker bytes overwritten; out_ch
+    0, 2, 4 in turn) through decode, decode_large, decode_large_shardmap at
+    4 shards and with mesh=(dev,) * 4, BatchDecoder (the icons, which it
+    packs, with the plain class; the fuzz streams in one call an out_ch)
+    and decode with SEQOIA_REF_CUDA=1 (the edge streams with a REF op, and
+    the fuzz), every output equal to native.decode's (None where it
+    refuses the stream). K1 and K10 keep host copies of each launch
+    (_Recorded) for _end_launches_held. Returns ({entry: decodes},
+    {entry: mismatches}, the launch log, seconds)."""
+    import seqoia_tpu_torch as st
+    from seqoia_tpu_torch import native
+    from seqoia_tpu_torch.ops import frontend, ref
+    from seqoia_tpu_torch.utils import corpus
+
+    t0 = time.perf_counter()
+    edges = _end_edges()
+    fuzz = corpus.malformed_streams(END_FUZZ)
+    calls = {
+        "decode": lambda s, c: st.decode(s, c, device=dev)[0],
+        "decode_large": lambda s, c: st.decode_large(s, c, device=dev)[0],
+        "decode_large_shardmap": lambda s, c: st.decode_large_shardmap(
+            s, c, n_shards=4, device=dev)[0],
+        "decode_large_shardmap mesh": lambda s, c: st.decode_large_shardmap(
+            s, c, mesh=(dev,) * 4)[0],
+        "decode SEQOIA_REF_CUDA=1": lambda s, c: st.decode(s, c,
+                                                           device=dev)[0],
+    }
+    dec = st.BatchDecoder(device=dev)
+    # (entry, streams, out_ch) a run; BatchDecoder takes a list a call
+    work = []
+    for oc in END_OUT_CH:
+        k = END_OUT_CH.index(oc)
+        for entry in calls:
+            edge = edges["ref" if "REF" in entry else "icon"]
+            work.append((entry, edge + fuzz[k::3], oc))
+        work.append(("BatchDecoder", edges["icon"] + edges["plain"], oc))
+        work.append(("BatchDecoder", fuzz[k::3], oc))
+    log, saved = [], []
+    for mod, name, keep in ((frontend, "decode_front_compact", _keep_k1),
+                            (ref, "ref_decode", _keep_k10)):
+        fn = getattr(mod, name)
+        saved.append((mod, name, fn))
+        setattr(mod, name, _Recorded(fn, keep, log))
+    decodes, bad = {}, {}
+    old = os.environ.get("SEQOIA_REF_CUDA")
+    try:
+        for entry, streams, oc in work:
+            os.environ["SEQOIA_REF_CUDA"] = "1" if "REF" in entry else ""
+            if entry == "BatchDecoder":
+                got = [r.pixels for r in dec(streams, oc)]
+            else:
+                got = [calls[entry](s, oc) for s in streams]
+            want = [native.decode(s, oc)[0] for s in streams]
+            decodes[entry] = decodes.get(entry, 0) + len(streams)
+            bad[entry] = bad.get(entry, 0) + sum(
+                (g is None) != (w is None)
+                or w is not None and not np.array_equal(g, w)
+                for g, w in zip(got, want))
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+        if old is None:
+            del os.environ["SEQOIA_REF_CUDA"]
+        else:
+            os.environ["SEQOIA_REF_CUDA"] = old
+    return decodes, bad, log, time.perf_counter() - t0
+
+
+def _end_launches_held(log, dev, rows=256):
+    """Each K1 and K10 launch of stream_end_path against its plain version
+    on the copies of its arguments, bitwise: K1's totals, flags, and keys
+    and payloads below the totals, the plain version on the card (row
+    mode: the rows of one n_max and mode, sorted by length, ``rows`` at a
+    time through one plain call); K10's pixels, err and ops walked, the
+    plain walk on the host. Returns ({kernel: launches held}, {kernel:
+    modes seen}, the largest difference, seconds)."""
+    import torch
+    import torch.nn.functional as F
+
+    from seqoia_tpu_torch.ops import frontend, ref
+
+    t0 = time.perf_counter()
+    held, modes, err = {"K1": 0, "K1seg": 0, "K10": 0}, {}, 0
+    groups = {}
+    for r in log:
+        kid = r[0]
+        held[kid] += 1
+        if kid == "K10":
+            _, data, clen, n, colch, oc, n_max, px, e, ops = r
+            want, w_err, w_ops = ref.ref_decode_plain(
+                data, clen, n, colch=colch, out_ch=oc, n_max=n_max)
+            err = max(err, _max_err(px, want), int(e != bool(w_err)),
+                      abs(ops - int(w_ops)))
+            continue
+        data, clen, n_max, mode, seg, seg_px = r[1:7]
+        modes.setdefault(kid, set()).add(mode)
+        if kid == "K1seg":
+            plain = frontend.decode_front_plain_seg(
+                data.to(dev), clen.to(dev), n_max, mode, seg, seg_px)
+            err = max(err, _k1_err(r[7:], *(t.cpu() for t in plain)))
+        else:
+            groups.setdefault((n_max, mode), []).append(r)
+    for (n_max, mode), recs in groups.items():
+        recs.sort(key=lambda r: r[1].shape[1])
+        for i in range(0, len(recs), rows):
+            part = recs[i: i + rows]
+            width = part[-1][1].shape[1]
+            data = torch.cat([F.pad(r[1], (0, width - r[1].shape[1]))
+                              for r in part])
+            pk, pp, pt, pr = (t.cpu() for t in frontend.decode_front_plain(
+                data.to(dev), torch.cat([r[2] for r in part]).to(dev), n_max,
+                mode))
+            at = 0
+            for r in part:
+                b = r[1].shape[0]
+                s = slice(at, at + b)
+                err = max(err, _k1_err(r[7:], pk[s], pp[s], pt[s], pr[s]))
+                at += b
+    return held, modes, err, time.perf_counter() - t0
+
+
+def _k1_err(got, pk, pp, pt, pr):
+    """The largest difference between a K1 launch's host outputs (keys and
+    payloads up to the largest total, totals, flags) and the plain ones."""
+    keys, pays, tot, ref = got
+    t = keys.shape[1]
+    return max(_max_err(tot, pt), _max_err(ref, pr),
+               _max_err(_live(keys, tot), pk[:, :t]),
+               _max_err(_live(pays, tot), pp[:, :t]))
+
+
 # per kernel wrapper: (its kernel id from its bound arguments, the launch's
 # shape, the bytes its bound counts: an int plus 0-d tensors summed later)
 _CENSUS = {
@@ -3185,6 +3426,33 @@ def main() -> int:
             _bench(corpus_dir, dev) for _ in range(BENCH_RUNS)])
     dispatch = timed("dispatch_timing", dispatch_timing, qstages, qoi_icons,
                      dev)
+    end_launches, (end_decodes, end_bad, end_log, end_s), _ = _counted(
+        counters, lambda: timed("stream_end_path", stream_end_path, dev),
+        gaps)
+    end_held, end_modes, end_err, held_s = timed(
+        "end_launches_held", _end_launches_held, end_log, dev)
+    del end_log
+    print(f"stream_end_path: {len(_end_edges()['icon'])} edge streams a "
+          f"group (icon, plain, REF) and {END_FUZZ} fuzz streams, out_ch "
+          f"0/2/4; decodes {end_decodes}; mismatches against native.decode "
+          f"{end_bad}; launches held against the plain versions {end_held} "
+          f"(K1 modes {({k: sorted(v) for k, v in end_modes.items()})}), "
+          f"largest difference {end_err}; {end_s:.1f} s driving, "
+          f"{held_s:.1f} s holding")
+    if any(end_bad.values()) or end_err:
+        raise AssertionError("the stream-end path differs from native.decode "
+                             "or a kernel from its plain version")
+    if (end_held["K1"] + end_held["K1seg"] != end_launches["K1"]
+            or end_held["K1seg"] != end_launches["K1seg"]
+            or end_held["K10"] != end_launches["K10"]
+            or any(end_modes.get(k) != {"alpha", "noalpha", "mono"}
+                   for k in ("K1", "K1seg"))
+            or min(end_decodes.values()) < END_FUZZ):
+        raise AssertionError(f"the stream-end path held {end_held} of "
+                             f"{end_launches}, modes {end_modes}")
+    for k in ("K1", "K1seg", "K10"):
+        rec[k].append(dict(shape=f"stream_end_path, {end_held[k]} launches",
+                           err=end_err, main=False))
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     steps = large_steps(large[0], rgb_stream, dev)
     paths = (("SQOA", sqoa_launches, SQOA_KERNELS),
@@ -3195,7 +3463,8 @@ def main() -> int:
              ("mono .qoi", mono_launches, MONO_KERNELS),
              ("REF", ref_launches, REF_KERNELS),
              ("tooling", tool_launches, TOOL_KERNELS),
-             ("mesh", mesh_launches, MESH_KERNELS))
+             ("mesh", mesh_launches, MESH_KERNELS),
+             ("stream-end", end_launches, END_KERNELS))
     for path, launches, kernels in paths:
         missing = [k for k in kernels if launches[k] == 0]
         if missing:
@@ -3241,6 +3510,7 @@ def main() -> int:
     print(f"launches on the REF path: {ref_launches}")
     print(f"launches on the tooling path: {tool_launches}")
     print(f"launches on the mesh path: {mesh_launches}")
+    print(f"launches on the stream-end path: {end_launches}")
     print(f"mesh path on {mesh_what}; seconds without the mesh, with it:")
     for name, t1, tm in mesh_rows:
         print(f"  {name}: {t1:.4f} s, {tm:.4f} s")
@@ -3314,7 +3584,12 @@ def main() -> int:
                                      batch_encode=enc_launches,
                                      mono_qoi=mono_launches,
                                      ref=ref_launches, tooling=tool_launches,
-                                     mesh=mesh_launches),
+                                     mesh=mesh_launches,
+                                     stream_end=end_launches),
+                       stream_end=dict(decodes=end_decodes,
+                                       mismatches=end_bad, held=end_held,
+                                       err=end_err, seconds=end_s,
+                                       held_s=held_s),
                        mesh=dict(mesh=mesh_what, seconds=mesh_rows),
                        dispatch=dict(cpu_count=os.cpu_count(),
                                      runs=DISPATCH_RUNS, seconds=dispatch),

@@ -325,6 +325,24 @@ __device__ __forceinline__ Chan elem_at(const uint8_t* s, int p, bool* f,
   return op_elem_b(r.b(0), r.b(1), r.b(2), r.b(3), r.b(4), att, MODE, f);
 }
 
+// The reference peeks for an alpha modifier after every op, the last one
+// too (seqoia.h:777-783): at the first byte at or past the stream's end
+// where the automaton is at state 0, in the end marker or past a last op
+// whose body runs into it. Mode noalpha parses no modifier, so an
+// alpha-range byte there flags the row, as one at an op position does.
+// Its offset in the run of the one thread whose bytes 0 .. hi - 1 end the
+// stream: the run's first state-0 byte from hi on (tz), or past the run,
+// as many bytes on as the state after it (st). It lies at most 3 bytes
+// past the end.
+__device__ __forceinline__ int end_peek(uint32_t tz, int hi, int st) {
+  const uint32_t up = tz >> hi;
+  return up ? hi + __ffs(up) - 1 : IPT + st;
+}
+
+__device__ __forceinline__ bool is_alpha(int b) {
+  return b >= 0x60 && b < 0x80;
+}
+
 // Six blocks an SM: 37 KB of shared memory each (the byte tile and the two
 // staging arrays), at most 40 registers a thread (measured faster than
 // four or five blocks on the 227 MB row, with no spills).
@@ -398,14 +416,22 @@ __global__ void __launch_bounds__(NT, 6)
   const int state0 = (int)((ex_map >> (3 * (s_map & 7u))) & 7u);
 
   // --- the tile's ops in order: their bytes, listed in shared memory ----
-  uint32_t tm = 0;  // bit j: byte j starts an op
+  uint32_t tz = 0;  // bit j: the automaton is at state 0 at byte j
   int state = state0;
 #pragma unroll
   for (int j = 0; j < IPT; ++j) {
-    if (state == 0 && j >= lo && j < hi) tm |= 1u << j;
+    if (state == 0) tz |= 1u << j;
     state = state == 0 ? (int)((lm1[j >> 2] >> (8 * (j & 3))) & 7u)
                        : state - 1;
   }
+  // bit j: byte j starts an op (past the header, before the stream's end)
+  uint32_t tm = tz & ((1u << hi) - 1u) & ~((1u << lo) - 1u);
+  // mode noalpha: the thread whose bytes end the stream flags the row if
+  // the alpha peek after the last op reads an alpha-range byte (staged up
+  // to the end's halo; zero at and past M, so a stream cut by M is not)
+  if (MODE == MODE_NOALPHA && (unsigned long long)(live_end - p0 - 1) < IPT &&
+      live_end > HDR1 && is_alpha(s[i0 + end_peek(tz, hi, state)]))
+    atomicOr(has_ref + row, 1);
   int n_ops;
   int o = lb::block_scan_warp(__popc(tm), 0, itot, &n_ops, lb::WordSum());
   for (; tm; tm &= tm - 1) stage_p[o++] = i0 + __ffs(tm) - 1;
@@ -711,12 +737,21 @@ __global__ void __launch_bounds__(NT, 6)
   }
 
   // --- the tile's ops in order: their bytes, listed in shared memory ----
-  uint32_t tm = 0;  // bit j: byte j starts an op
+  uint32_t tz = 0;  // bit j: the automaton is at state 0 at byte j
 #pragma unroll
   for (int j = 0; j < IPT; ++j) {
-    if (state == 0 && j >= lo && j < hi) tm |= 1u << j;
+    if (state == 0) tz |= 1u << j;
     state = state == 0 ? (int)((lm1[j >> 2] >> (8 * (j & 3))) & 7u)
                        : state - 1;
+  }
+  // bit j: byte j starts an op (past the header, before the segment's end)
+  uint32_t tm = tz & ((1u << hi) - 1u) & ~((1u << lo) - 1u);
+  // mode noalpha: the alpha peek after the segment's last op (k1_tiles);
+  // a byte past the segment's end reads as 0
+  if (MODE == MODE_NOALPHA && hi > 0 && loc0 + hi == crow[jt] &&
+      crow[jt] > HDR1) {
+    const int e = end_peek(tz, hi, state);
+    if (loc0 + e < seg && is_alpha(s[i0 + e])) atomicOr(has_ref + row, 1);
   }
   int n_ops;
   int o = lb::block_scan_warp(__popc(tm), 0, itot, &n_ops, lb::WordSum());

@@ -14,7 +14,10 @@ fused front's mode semantics:
 * ``"alpha"``: an op absorbs one following alpha-range byte (the
   reference's alpha peek, seqoia.h:777-783) into its token length;
 * ``"noalpha"`` (header channels == 3): alpha-range and RGBA tokens flag
-  the stream foreign; RGBA parses as one byte;
+  the stream foreign; RGBA parses as one byte. So does an alpha-range byte
+  where the reference peeks after the stream's last op: the first
+  position at or past ``chunks_len`` where the automaton is at state 0
+  (in the end marker, or past a last op whose body runs into it);
 * ``"mono"``: LUMA is 1 byte, RGB 2, RGBA 3, no alpha peek; gray rides
   byte 0 of the packed payload and alpha byte 3.
 
@@ -109,8 +112,12 @@ def decode_front_plain(data, chunks_len, n_max: int, mode: str = "alpha",
     zero = torch.zeros((bsz, 1), dtype=torch.int64, device=dev)
     carry = (zero, zero, (zero, zero))
     clen = chunks_len.long()[:, None]
-    for lo in range(0, m, block):
-        n = min(block, m - lo)
+    # no op starts at or past a row's stream end, so the blocks past the
+    # longest stream hold none (the block before reads their first bytes
+    # as its halo)
+    live = min(m, max(int(chunks_len.max()), 0)) if bsz else 0
+    for lo in range(0, live, block):
+        n = min(block, live - lo)
         b = data[:, lo: lo + n + _PLAIN_HALO].long()
         keep, keys, packed, ref, carry = _front_block(
             b, lo, n, clen, n_max, mode, carry)
@@ -165,6 +172,15 @@ def _front_block(b, lo: int, n: int, clen, n_max: int, mode: str, carry):
     else:
         foreign = b < spec.OP_ALPHA
     has_ref = (token & foreign)[:, :n].any(dim=-1)
+    if noalpha:  # the alpha peek after the last op, in the block of clen - 1
+        w = b.shape[-1]
+        at = clen - lo
+        end = state.gather(-1, at.clamp(1, w - 1))
+        q = (at + end).clamp(0, w - 1)
+        peek = b.gather(-1, q)
+        hit = ((at >= 1) & (at <= n) & (at + end < w) & (clen > _HDR1)
+               & (peek >= spec.OP_ALPHA) & (peek < spec.OP_LUMA))
+        has_ref = has_ref | hit[:, 0]
 
     # --- pixel counts and offsets ------------------------------------------
     npix = (b & 0x3F) + 1

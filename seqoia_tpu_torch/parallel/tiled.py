@@ -295,7 +295,7 @@ def decode_large_shardmap(data: bytes, channels: int = 0, n_shards: int = 4,
     on the pixels before the row's first absolute anchor (RGB/RGBA op),
     chained from row to row (and device to device) and applied on the
     card before the one copy back a device. REF, malformed and compat
-    streams go to the sequential paths."""
+    streams, and those K1 flags, go to the sequential paths."""
     mesh = _shard_mesh(device, mesh, n_shards)
     desc = _header(data)
     if desc is None or channels < 0 or channels > 4:
@@ -317,24 +317,35 @@ def decode_large_shardmap(data: bytes, channels: int = 0, n_shards: int = 4,
     shard_lens = ends - byte_pos
 
     start = spec.HEADER_SIZE + 1
-    m_pad = _pad_to(start + int(shard_lens.max()) + 1, _TILE)
+    pad = spec.PADDING_SIZE
+    m_pad = _pad_to(start + int(shard_lens.max()) + pad, _TILE)
     _require_int32("a shard's stream buffer", m_pad)
     raw = np.frombuffer(data, np.uint8)
     host = _stage(n_shards * m_pad, mesh[0]).view(n_shards, m_pad)
     rows = host.numpy()
+    # each row is followed by the 8 bytes that follow its range in the
+    # stream, as every decode stages its stream: the end marker after the
+    # row that ends the stream, where the reference peeks for an alpha
+    # modifier after the last op (seqoia.h:777-783)
     for s in range(n_shards):
-        rows[s, start: start + shard_lens[s]] = raw[byte_pos[s]: ends[s]]
+        rows[s, start: start + shard_lens[s] + pad] = \
+            raw[byte_pos[s]: ends[s] + pad]
     n_max = _pad_to(max(int(counts.max()), 1), _TILE)
 
-    outs = [None] * n_shards
+    outs, refs = [None] * n_shards, []
     for dev, idx in _by_device(mesh):
-        out, _ = decode_v2.decode_stream_batched(
+        out, ref = decode_v2.decode_stream_batched(
             _rows(host, idx).to(dev, non_blocking=True),
             _i32((start + shard_lens)[idx], dev), _i32(counts[idx], dev),
             colch=colch, out_ch=out_ch, n_max=int(n_max),
             src_alpha=bool(desc.has_alpha))
+        refs.append(ref)
         for r, s in enumerate(idx):
             outs[s] = out[r]
+    # a row K1 flags (an RGB stream with an alpha modifier or an RGBA op)
+    # goes whole to the native codec, as in decode_large
+    if any(bool(r.any()) for r in refs):
+        return _host_decode(data, channels)
 
     # --- chained head fix-ups: add the carried pixel to every row's head ----
     n_color, alpha_lane = _lanes(out_ch)

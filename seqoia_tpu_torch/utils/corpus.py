@@ -31,6 +31,7 @@ no encoder produces but the decoder reads (seqoia.h:690-693).
 
 from __future__ import annotations
 
+import functools
 import struct
 
 import numpy as np
@@ -610,3 +611,206 @@ def ref_edge_streams(chunk: int, seed: int = 11):
         if native.decode(s, 0)[0] is None:
             raise AssertionError(f"edge stream {name} does not decode")
     return out
+
+
+#: the last ops of ``stream_end_stream``: name -> (color bytes, mono bytes,
+#: pixels). The cut ones stop short of their operands, which the decoder
+#: then reads from the end marker, and the byte it peeks for an alpha
+#: modifier after them too (color: marker byte 3 after ``cut_rgba``, 1
+#: after ``cut_luma``)
+END_OPS = {
+    "rgb": ([0xFE, 9, 200, 77], [0xFE, 9], 1),
+    "rgba": ([0xFF, 9, 200, 77, 140], [0xFF, 9, 140], 1),
+    "luma": ([0x9B, 0x4C], [0x9B], 1),
+    "run": ([0xC3], [0xC3], 4),
+    "bigrun": ([0xFD], [0xFD], 512),
+    "cut_rgba": ([0xFF, 9], [0xFF], 1),
+    "cut_luma": ([0x9B], [0xFE], 1),
+}
+
+
+def _smooth(rng, n, ch):
+    """n pixels of ch channels in small steps, every other pixel repeated:
+    the encoder writes LUMA, RUN and (alpha sources) alpha-modifier ops."""
+    base = rng.integers(0, 256, ch)
+    d = rng.integers(-3, 4, (n, ch)) * (rng.random((n, 1)) < 0.5)
+    return ((base + np.cumsum(d, 0)) % 256).astype(np.uint8).reshape(-1)
+
+
+def end_marker(pos):
+    """The 8-byte end marker with an alpha-range byte at ``pos`` (0-7; None:
+    the marker as encoders write it)."""
+    from .. import spec
+
+    marker = bytearray(spec.PADDING)
+    if pos is not None:
+        marker[pos] = 0x60 | (7 * pos + 10) % 32
+    return bytes(marker)
+
+
+def stream_end_stream(channels: int, last: str, pos, ref: bool = False,
+                      icon: bool = True, seed: int = 13) -> bytes:
+    """A SQOA stream of header ``channels`` (1-4) that ends in the op
+    ``END_OPS[last]`` and the marker ``end_marker(pos)``. The reference
+    peeks for an alpha modifier after every op of a color stream
+    (seqoia.h:777-783), the last one too, so an alpha-range byte where that
+    peek lands changes the last pixels' alpha; elsewhere in the marker
+    only a cut op's operands are read. The ops before the last come from a native encode of
+    ``_smooth`` pixels, with a REF op spliced in (``ref_sqoa``, the first
+    body of the seed's that has a site) where ``ref``; the image is 16
+    pixels wide (64 with a BIGRUN) and 16 high, one column wider where not
+    ``icon``: ``BatchDecoder`` packs the icon ones (a pixel count that is a
+    power of two) and decodes the others as rows of a class of their own
+    (the next power of two). The streams of one (channels, last, ref,
+    icon) differ only in their marker."""
+    from .. import spec
+
+    color, mono, _ = END_OPS[last]
+    w = (64 if last == "bigrun" else 16) + (not icon)
+    body = _end_body(channels, last, ref, w, seed)
+    op = color if channels >= 3 else mono
+    return (spec.pack_header(spec.SqoaDesc(w, 16, channels, 0, 0))
+            + body[spec.HEADER_SIZE + 1: -spec.PADDING_SIZE] + bytes(op)
+            + end_marker(pos))
+
+
+@functools.lru_cache(maxsize=None)
+def _end_body(channels, last, ref, w, seed):
+    """The native stream of the ops before ``stream_end_stream``'s last."""
+    from .. import native
+
+    rng = np.random.default_rng(
+        [seed, channels, list(END_OPS).index(last), ref, w])
+    n0 = 16 * w - END_OPS[last][2]
+    for _ in range(64):  # a body with a REF site, where one is asked for
+        pix = _smooth(rng, n0, channels).reshape(n0, channels)
+        # the body's last pixel changes: the encoder writes a run that
+        # reaches the image's end as a BIGRUN, which would swallow the op
+        pix[-1, 0] = (int(pix[-2, 0]) + 1) % 256
+        body = native.encode(pix.reshape(-1), n0, 1, channels, 0, 0)
+        if not ref:
+            return body
+        body = ref_sqoa(body, rng)
+        if body is not None:
+            return body
+    raise AssertionError("no REF site in 64 bodies")
+
+
+def malformed_streams(n: int, seed: int = 17):
+    """n seeded malformed SQOA streams, a fuzzer's mix: native encodes of
+    1-4-channel images of up to 32x32 pixels (smooth, noise or runs; two in
+    five of them 8x8, 16x16 or 32x32, which ``BatchDecoder`` packs), each
+    with one of: 1-4 bytes of its body overwritten; its body cut short at
+    a random byte, the marker after it; 1-2 bytes of its marker
+    overwritten, the first one time in two. A written byte is alpha-range
+    one time in two."""
+    from .. import native, spec
+
+    rng = np.random.default_rng(seed)
+
+    def byte():
+        return int(rng.integers(0x60, 0x80) if rng.random() < 0.5
+                   else rng.integers(256))
+
+    out = []
+    for i in range(n):
+        ch = 1 + i % 4
+        if rng.random() < 0.4:
+            w = h = int(rng.choice([8, 16, 32]))
+        else:
+            w, h = (int(v) for v in rng.integers(1, 33, 2))
+        kind = int(rng.integers(3))
+        if kind == 0:
+            px = _smooth(rng, w * h, ch)
+        elif kind == 1:
+            px = rng.integers(0, 256, w * h * ch).astype(np.uint8)
+        else:
+            px = np.repeat(rng.integers(0, 256, (w * h // 37 + 1, ch)), 37,
+                           0)[: w * h].astype(np.uint8).reshape(-1)
+        s = bytearray(native.encode(px, w, h, ch, 0, 0))
+        start, end = spec.HEADER_SIZE + 1, len(s) - spec.PADDING_SIZE
+        how = int(rng.integers(3))
+        if how == 0:
+            for _ in range(int(rng.integers(1, 5))):
+                s[int(rng.integers(start, end))] = byte()
+        elif how == 1:
+            s = s[: int(rng.integers(start, end + 1))] + s[end:]
+        else:  # the first marker byte (where most peeks land) one in two
+            for _ in range(int(rng.integers(1, 3))):
+                k = 0 if rng.random() < 0.5 else int(rng.integers(8))
+                s[end + k] = byte()
+        out.append(bytes(s))
+    return out
+
+
+def end_peek_rows(tile: int = 4096):
+    """K1's edge cases for the alpha peek after a stream's last op (mode
+    noalpha, RGB sources): rows of one-byte runs whose last op ends, or is
+    cut, at an edge of K1's ``tile``-byte tiles or of a thread's 16 bytes,
+    with an alpha-range byte where the reference peeks after it, one byte
+    further on, or past the row's end. Returns ((rows, 2 * tile + 64)
+    uint8, chunks_len (rows,) int32, [1 where the peek reads it])."""
+    m = 2 * tile + 64
+    rows = [  # (the last op's position, its bytes, chunks_len, flagged)
+        (tile - 1, [0xC1], tile, 1),  # the peek: the next tile's first byte
+        (tile - 2, [0xFE, 1, 2, 3], tile - 1, 1),  # cut across the edge
+        (tile - 1, [0xFE, 1, 2, 3], tile + 1, 1),  # the last tile: no op
+        (tile + 40, [0x9A, 0x37], tile + 42, 1),  # mid-thread
+        (tile + 45, [0x9A, 0x37], tile + 46, 1),  # the thread's last byte
+        (tile + 46, [0xFE, 1, 2, 3], tile + 47, 1),  # the next thread's
+        (tile + 40, [0x9A, 0x37], tile + 42, 0),  # one byte on
+        (m - 2, [0xFE, 1], m - 1, 0),  # past the row's end
+    ]
+    data = np.full((len(rows), m), 0xC1, np.uint8)
+    data[:, :15] = 0
+    for r, (at, op, clen, hit) in enumerate(rows):
+        data[r, at: at + len(op)] = op
+        peek = at + {0xC1: 1, 0x9A: 2, 0xFE: 4}[op[0]]
+        if peek + 1 - hit < m:
+            data[r, peek: peek + 2] = [0x6A, 0xC1] if hit else [0xC1, 0x6A]
+    return (data, np.array([r[2] for r in rows], np.int32),
+            [r[3] for r in rows])
+
+
+def end_peek_segments(seg: int, tile: int = 4096, seed: int = 19):
+    """K1's segment-mode edge cases for the alpha peek after a segment's
+    last op (mode noalpha): native RGB encodes packed ``seg`` bytes apart
+    in a 32768-byte row, one in four with its marker's first byte
+    alpha-range, one with a cut RGB op whose operands and peek lie in the
+    marker, one with the byte one past the peek alpha-range; at seg 128 a
+    segment whose cut RGB op peeks past its end (where the next image's
+    header reads 'q', alpha-range), at seg > tile one whose cut op crosses
+    the first tile's edge. Returns ((1, 32768) uint8, segment lengths (1,
+    32768 // seg) int32 of the flagged row, and the lengths of only the
+    segments that must not flag)."""
+    from .. import native
+
+    rng = np.random.default_rng([seed, seg])
+    k = 32768 // seg
+    streams = []
+    for j in range(min(k, 16)):
+        n = 2 * (j + 2)
+        s = bytearray(native.encode(_smooth(rng, n, 3), n, 1, 3, 0, 0))
+        if j % 4 == 1:
+            s = s[:-8] + bytes([0xFE, 5, 6, 7, 0x6A, 0, 0, 0, 1])
+        else:
+            s[-8 + (j % 4 == 3)] = 0x6A
+        streams.append(bytes(s))
+    quiet = [j for j in range(len(streams)) if j % 4 == 3]
+    if seg == 128:  # the RGB op at 125: the peek would be at 129
+        streams[5] = streams[5][:15] + bytes([0xC1] * 110 + [0xFE, 1, 2])
+        quiet.append(5)
+    elif seg > tile:
+        streams[0] = (streams[0][:15] + bytes([0xC1] * (tile - 17))
+                      + bytes([0xFE, 1, 2, 3, 0x6A, 0, 0, 0, 0, 0, 0, 1]))
+    data = np.zeros((1, 32768), np.uint8)
+    slens = np.zeros((1, k), np.int32)
+    for j, s in enumerate(streams):
+        if len(s) > seg:
+            raise AssertionError(f"a stream of {len(s)} bytes in seg {seg}")
+        data[0, j * seg: j * seg + len(s)] = np.frombuffer(s, np.uint8)
+        slens[0, j] = len(s) - 8 if not (seg == 128 and j == 5) else 126
+    calm = np.zeros_like(slens)
+    calm[:, quiet] = slens[:, quiet]
+    return data, slens, calm
+

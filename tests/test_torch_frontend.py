@@ -20,6 +20,7 @@ from conftest import gen_pixels
 from seqoia_tpu import native
 from seqoia_tpu_torch import convert
 from seqoia_tpu_torch.ops import frontend
+from seqoia_tpu_torch.utils import corpus
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -285,6 +286,14 @@ def _tok(t, i, mode):
     return n, 0
 
 
+def end_peek(tz, hi, st):
+    """end_peek: in the run of the thread whose bytes 0 .. hi - 1 end the
+    stream (tz: its state-0 bytes, st: the state after it), the offset of
+    the byte the reference peeks for an alpha modifier after the last op."""
+    up = tz >> hi
+    return hi + (up & -up).bit_length() - 1 if up else IPT + st
+
+
 def _elem(t, i, att, mode):
     """op_elem_b: (val, flg, cnt, npix) and the foreign flag of the op at
     staged byte i."""
@@ -315,10 +324,12 @@ def lookback_front(data, clen, n_max, mode, seed=0, p_prefix=0.05):
     """csrc/frontend.cu's single-row path in Python, tile by tile in the
     counter's order: the staged bytes (zero from the stream's end + HALO
     on), each thread's map by step6, the block's exclusive scans, the three
-    look-backs (map; (val, flg); (cnt, npix)), the tile's op list dealt out
-    as equal runs of consecutive ops, the ops below n_max at their ranks,
-    and totals from the tile where the pixel count reaches n_max, or else
-    the row's last tile before the stream's end.
+    look-backs (map; (val, flg); (cnt, npix)), the tile's op list (and in
+    mode noalpha the alpha peek after the stream's last op) from each
+    thread's state-0 bytes, dealt out as equal runs of consecutive ops, the
+    ops below n_max at their ranks, and totals from the tile where the
+    pixel count reaches n_max, or else the row's last tile before the
+    stream's end.
     Returns (keys, payloads, totals, has_ref) as numpy arrays, the entries
     past totals 0; and the tiles entered inside a token."""
     rng = np.random.default_rng(seed)
@@ -368,12 +379,19 @@ def lookback_front(data, clen, n_max, mode, seed=0, p_prefix=0.05):
 
             ops = []  # the tile's ops in order: their staged bytes
             for th in range(NT):
-                state = states[th]
+                state, p0, tz = states[th], base + th * IPT, 0
                 for j in range(IPT):
-                    i, pos = th * IPT + j, base + th * IPT + j
-                    if state == 0 and HDR1 <= pos < live_end:
-                        ops.append(i)
+                    tz |= (state == 0) << j
+                    i = th * IPT + j
                     state = lens[i] - 1 if state == 0 else state - 1
+                lo = min(max(HDR1 - p0, 0), IPT)
+                hi = min(max(live_end - p0, 0), IPT)
+                tm = tz & ((1 << hi) - 1) & ~((1 << lo) - 1)
+                ops += [th * IPT + j for j in range(IPT) if tm >> j & 1]
+                if (mode == "noalpha" and 0 < live_end - p0 <= IPT
+                        and live_end > HDR1):
+                    b = int(t[th * IPT + end_peek(tz, hi, state)])
+                    has_ref[row] |= 0x60 <= b < 0x80
             elems = [_elem(t, i, atts[i], mode) for i in ops]
             per = -(-len(ops) // NT)  # consecutive ops a thread
             runs = [range(min(th * per, len(ops)),
@@ -445,6 +463,9 @@ def _front_model_cases():
             # that cuts the last ops
             clen=np.array([len(s) - 8, 2 * TILE + 1, len(s) - 8], np.int32),
             n_max=16000 if mode != "mono" else 1 << 20)
+    data, clen, _ = corpus.end_peek_rows(TILE)
+    cases["end_peek_noalpha"] = dict(data=data, clen=clen, mode="noalpha",
+                                     n_max=1 << 16)
     return cases
 
 
@@ -461,6 +482,16 @@ def test_lookback_front_model_matches_plain(name):
             assert np.array_equal(g, w.numpy())
         if name.startswith("edges"):
             assert inside >= 3  # tiles entered inside a token
+
+
+def test_end_peek_case_is_flagged():
+    """The plain version flags the rows of the end-peek case where the
+    alpha-range byte sits where the reference peeks, and no other."""
+    data, clen, hits = corpus.end_peek_rows(TILE)
+    ref = frontend.decode_front_plain(torch.from_numpy(data),
+                                      torch.from_numpy(clen), 1 << 16,
+                                      "noalpha")[3]
+    assert ref.tolist() == hits
 
 
 def test_chan_split_is_exact():

@@ -22,6 +22,7 @@ from seqoia_tpu import native, spec
 from seqoia_tpu_torch import convert
 from seqoia_tpu_torch.codec import decode_v2
 from seqoia_tpu_torch.ops import frontend
+from seqoia_tpu_torch.utils import corpus
 
 # one thread per process: the suite runs several workers, and the plain
 # versions' many small tensor ops only contend when each takes every core
@@ -273,7 +274,8 @@ def test_decode_stream_packed_flags_the_ref_row():
 # --- the single-launch segment mode's design (csrc/frontend.cu, k > 1) -----
 
 from test_torch_frontend import (HALO, HDR1, I32MAX, IDENT6, IPT, NT, PACK,  # noqa: E402
-                                 TILE, _elem, _tok, compose6, step6, val_op)
+                                 TILE, _elem, _tok, compose6, end_peek, step6,
+                                 val_op)
 
 SEG_START = 4  # the start flag of a segmented channel element
 
@@ -332,7 +334,8 @@ def lookback_front_seg(data, slens, mode, seg, seg_px, seed=0, p_prefix=0.2):
     """csrc/frontend.cu's segment mode in Python, tile by tile in the
     counter's order: dead tiles, the live bytes staged by 16-byte vectors,
     the segmented map scan (a long segment's look-back over its tiles),
-    the op list dealt out as equal runs, the segmented channel fold and the
+    the op list (and in mode noalpha the alpha peek after each segment's
+    last op) from each thread's state-0 bytes, dealt out as equal runs, the segmented channel fold and the
     long segment's (val, flg) and pixel-count look-backs, keys and payloads
     in place with the ops past seg_px dropped, and the kept ops ranked by
     a look-back over the packed row. Returns (keys, payloads, totals,
@@ -411,11 +414,18 @@ def lookback_front_seg(data, slens, mode, seg, seg_px, seed=0, p_prefix=0.2):
                 lo = min(max(HDR1 - p0 % seg, 0), IPT)
                 hi = min(max(live[p0 // seg] - p0 % seg, 0), IPT) \
                     if p0 < m else 0
+                tz = 0
                 for j in range(IPT):
-                    i = th * IPT + j
-                    if state == 0 and lo <= j < hi:
-                        ops.append(i)
-                    state = lens[i] - 1 if state == 0 else state - 1
+                    tz |= (state == 0) << j
+                    state = lens[th * IPT + j] - 1 if state == 0 else state - 1
+                tm = tz & ((1 << hi) - 1) & ~((1 << lo) - 1)
+                ops += [th * IPT + j for j in range(IPT) if tm >> j & 1]
+                c = int(slens[row][p0 // seg]) if p0 < m else 0
+                if (mode == "noalpha" and hi > 0 and p0 % seg + hi == c
+                        and c > HDR1):
+                    e = end_peek(tz, hi, state)
+                    b = int(t[th * IPT + e])
+                    has_ref[row] |= p0 % seg + e < seg and 0x60 <= b < 0x80
             elems, prev = [], -1 if tis <= 0 else 0
             for i in ops:
                 sg = (base + i) // seg - j0
@@ -525,10 +535,33 @@ def _seg_model_cases():
                              for k_ in ("solid", "luma", "solid", "alpha_churn",
                                         "runs", "luma", "solid")], 4096)
     cases["seg 4096 alpha mixed"] = (data, slens, "alpha", 4096)
+    # RGB segments whose last op is followed by an alpha-range byte in the
+    # marker (corpus.end_peek_segments), and the same row with only the
+    # segments that must not flag
+    for seg in (128, 8192):
+        data, slens, quiet = corpus.end_peek_segments(seg, TILE)
+        cases[f"seg {seg} noalpha end peek"] = (data, slens, "noalpha", seg)
+        cases[f"seg {seg} noalpha no end peek"] = (data, quiet, "noalpha",
+                                                   seg)
     return cases
 
 
 SEG_MODEL_CASES = _seg_model_cases()
+
+
+def test_segment_end_peek_cases_are_flagged():
+    """The plain version flags each packed row of the end-peek cases, where
+    a segment ends with the reference's peek on an alpha-range byte, and
+    no row of the cases whose segments peek only one byte short of one or
+    past their segment's end (where the next image's header starts)."""
+    for seg in (128, 8192):
+        for name, want in (("end peek", 1), ("no end peek", 0)):
+            data, slens, mode, _ = SEG_MODEL_CASES[f"seg {seg} noalpha {name}"]
+            k = data.shape[1] // seg
+            ref = frontend.decode_front_plain_seg(
+                torch.from_numpy(data), torch.from_numpy(slens), k * N, mode,
+                seg, N)[3]
+            assert ref.tolist() == [want] * data.shape[0]
 
 
 @pytest.mark.parametrize("name", list(SEG_MODEL_CASES))
