@@ -2833,29 +2833,9 @@ def _end_edges():
             for g in ("icon", "plain", "ref")}
 
 
-class _Recorded:
-    """A kernel wrapper that keeps host copies of each launch's arguments
-    and outputs (``keep(out, *args)``) in ``log``, to run the plain version
-    on after the counted run. Its counters are the wrapped function's, as
-    _Timed's are."""
-
-    launches = property(lambda s: s.fn.launches,
-                        lambda s, v: setattr(s.fn, "launches", v))
-    seg_launches = property(lambda s: s.fn.seg_launches,
-                            lambda s, v: setattr(s.fn, "seg_launches", v))
-
-    def __init__(self, fn, keep, log):
-        self.fn, self.keep, self.log = fn, keep, log
-
-    def __call__(self, *a, **k):
-        out = self.fn(*a, **k)
-        self.log.append(self.keep(out, *a, **k))
-        return out
-
-
 def _keep_k1(out, data, chunks_len, n_max, mode="alpha", seg=None,
              seg_px=None):
-    """A K1 launch on the host: in row mode each row up to 8 bytes past the
+    """A K1 launch on the host (a ``keep`` function of _census): in row mode each row up to 8 bytes past the
     longest stream (the plain version reads no further) and the ops below
     the largest total."""
     keys, pays, tot, ref = out
@@ -2884,12 +2864,11 @@ def stream_end_path(dev):
     packs, with the plain class; the fuzz streams in one call an out_ch)
     and decode with SEQOIA_REF_CUDA=1 (the edge streams with a REF op, and
     the fuzz), every output equal to native.decode's (None where it
-    refuses the stream). K1 and K10 keep host copies of each launch
-    (_Recorded) for _end_launches_held. Returns ({entry: decodes},
-    {entry: mismatches}, the launch log, seconds)."""
+    refuses the stream). Returns ({entry: decodes}, {entry: mismatches},
+    seconds); main runs it under _census, which keeps host copies of each
+    K1 and K10 launch (_keep_k1, _keep_k10) for _end_launches_held."""
     import seqoia_tpu_torch as st
     from seqoia_tpu_torch import native
-    from seqoia_tpu_torch.ops import frontend, ref
     from seqoia_tpu_torch.utils import corpus
 
     t0 = time.perf_counter()
@@ -2915,12 +2894,6 @@ def stream_end_path(dev):
             work.append((entry, edge + fuzz[k::3], oc))
         work.append(("BatchDecoder", edges["icon"] + edges["plain"], oc))
         work.append(("BatchDecoder", fuzz[k::3], oc))
-    log, saved = [], []
-    for mod, name, keep in ((frontend, "decode_front_compact", _keep_k1),
-                            (ref, "ref_decode", _keep_k10)):
-        fn = getattr(mod, name)
-        saved.append((mod, name, fn))
-        setattr(mod, name, _Recorded(fn, keep, log))
     decodes, bad = {}, {}
     old = os.environ.get("SEQOIA_REF_CUDA")
     try:
@@ -2937,13 +2910,11 @@ def stream_end_path(dev):
                 or w is not None and not np.array_equal(g, w)
                 for g, w in zip(got, want))
     finally:
-        for mod, name, fn in saved:
-            setattr(mod, name, fn)
         if old is None:
             del os.environ["SEQOIA_REF_CUDA"]
         else:
             os.environ["SEQOIA_REF_CUDA"] = old
-    return decodes, bad, log, time.perf_counter() - t0
+    return decodes, bad, time.perf_counter() - t0
 
 
 def _end_launches_held(log, dev, rows=256):
@@ -3103,10 +3074,11 @@ class _LibProxy:
 
 class _Timed:
     """A kernel wrapper that notes each of its launches: its shape, the
-    bytes its bound counts and the events its library recorded (_LibProxy).
-    The wrapper it replaces still counts its own launches: it increments
-    ``<its name>.launches``, which resolves to this object, whose counters
-    are the wrapped function's."""
+    bytes its bound counts and the events its library recorded (_LibProxy),
+    and, given ``keep``, calls ``keep(out, **arguments)`` after each launch
+    (host copies to check later). The wrapper it replaces still counts its
+    own launches: it increments ``<its name>.launches``, which resolves to
+    this object, whose counters are the wrapped function's."""
 
     launches = property(lambda s: s.fn.launches,
                         lambda s, v: setattr(s.fn, "launches", v))
@@ -3115,11 +3087,11 @@ class _Timed:
     mono_launches = property(lambda s: s.fn.mono_launches,
                              lambda s, v: setattr(s.fn, "mono_launches", v))
 
-    def __init__(self, fn, spec, log, pending):
+    def __init__(self, fn, spec, log, pending, keep=None):
         import inspect
 
         self.fn, self.spec, self.log, self.pending = fn, spec, log, pending
-        self.sig = inspect.signature(fn)
+        self.keep, self.sig = keep, inspect.signature(fn)
 
     def _n(self):
         """The wrapper's launches (K9 counts its two steps apart)."""
@@ -3137,12 +3109,15 @@ class _Timed:
             args = b.arguments
             self.log.append((kid_of(args), shape_of(args, out),
                              bytes_of(args, out), ev))
+            if self.keep is not None:
+                self.keep(out, **args)
         return out
 
 
-def _census(run):
+def _census(run, keep=None):
     """Run ``run()`` with every kernel wrapper noting its launches (_Timed)
-    and every kernel library timing its C entry points (_LibProxy). Returns
+    and every kernel library timing its C entry points (_LibProxy); ``keep``
+    ({wrapper name: function}) gives wrappers their _Timed ``keep``. Returns
     ({kernel: {shape: [launches, ms, bound ms]}}, run's result): each
     launch's time on the card, in place, and its bound at its own shape."""
     import torch
@@ -3160,7 +3135,8 @@ def _census(run):
             if fn is not None and getattr(fn, "__module__", "") == \
                     mod.__name__:
                 saved.append((mod, name, fn))
-                setattr(mod, name, _Timed(fn, spec, log, pending))
+                setattr(mod, name, _Timed(fn, spec, log, pending,
+                                          (keep or {}).get(name)))
     _build._libs.update({n: _LibProxy(lib, pending)
                          for n, lib in libs.items()})
     try:
@@ -3180,15 +3156,15 @@ def _census(run):
     return table, out
 
 
-def _counted(counters, run, gaps):
+def _counted(counters, run, gaps, keep=None):
     """Launches of each kernel during run(), the counters ((function,
     attribute) pairs) set to 0 just before it and read just after; each
     launch's time and bound are added to gaps ({kernel: {shape: [launches,
-    ms, bound ms]}}, _census). Returns (launches, run's result, the run's
-    own census table)."""
+    ms, bound ms]}}, _census, which takes ``keep``). Returns (launches,
+    run's result, the run's own census table)."""
     for fn, attr in counters.values():
         setattr(fn, attr, 0)
-    table, out = _census(run)
+    table, out = _census(run, keep)
     for kid, shapes in table.items():
         for shape, (n, ms, bound) in shapes.items():
             row = gaps.setdefault(kid, {}).setdefault(shape, [0, 0.0, 0.0])
@@ -3426,9 +3402,14 @@ def main() -> int:
             _bench(corpus_dir, dev) for _ in range(BENCH_RUNS)])
     dispatch = timed("dispatch_timing", dispatch_timing, qstages, qoi_icons,
                      dev)
-    end_launches, (end_decodes, end_bad, end_log, end_s), _ = _counted(
+    end_log = []
+    end_launches, (end_decodes, end_bad, end_s), _ = _counted(
         counters, lambda: timed("stream_end_path", stream_end_path, dev),
-        gaps)
+        gaps, keep={
+            "decode_front_compact": lambda out, **a: end_log.append(
+                _keep_k1(out, **a)),
+            "ref_decode": lambda out, **a: end_log.append(
+                _keep_k10(out, **a))})
     end_held, end_modes, end_err, held_s = timed(
         "end_launches_held", _end_launches_held, end_log, dev)
     del end_log

@@ -5,8 +5,11 @@ The reference peeks for an alpha modifier after every op of a color SQOA
 stream (seqoia.h:777-783) and checks no bound there, so after the last op
 it reads the end marker: its first byte, or the byte after a last op whose
 body runs into it. A valid marker starts with 0, so only malformed streams
-show it. The port follows the native codec (``native.decode``), which
-copies that peek; mono and ``.qoi`` streams have none. Entry points:
+show it. The port follows the native codec, which copies that peek; mono
+and ``.qoi`` streams have none. The oracle is the reference package's
+``seqoia_tpu.native.decode`` (its peek is at sqoa_native.c:584), not the
+port's own copy of the C runtime, which the port's host route calls: the
+port's copy only builds the input streams, in ``utils/corpus``. Entry points:
 ``decode``, ``decode_large``, ``decode_large_shardmap(n_shards=4)``,
 ``corpus_decode`` on an icon class (K1's segment mode) and on a plain
 class, and ``decode`` with ``SEQOIA_REF_CUDA=1`` on streams with a REF op
@@ -22,7 +25,8 @@ import torch
 
 import seqoia_tpu as sq
 import seqoia_tpu_torch as st
-from seqoia_tpu_torch import native
+from seqoia_tpu import native
+from seqoia_tpu_torch import native as port_native
 from seqoia_tpu_torch.parallel import tiled
 from seqoia_tpu_torch.utils import corpus
 
@@ -34,6 +38,8 @@ ENTRIES = ("decode", "decode_large", "shardmap", "corpus_icon",
 CHANNELS = (1, 2, 3, 4)
 OUT_CH = (0, 2, 4)
 MARKER = tuple(range(8))
+
+FUZZ = 300
 
 #: the first repro: a 4x1 RGB image (RGB 0A 14 1E, a RUN of 3) whose end
 #: marker starts with 0x6A, an alpha modifier of -6
@@ -89,6 +95,20 @@ def test_alpha_byte_in_the_marker(entry, last, monkeypatch):
         for oc in OUT_CH:
             assert _mismatches(entry, streams, oc, monkeypatch) == [], (
                 channels, oc)
+
+
+@pytest.mark.parametrize("oc", OUT_CH)
+def test_port_native_peeks_as_the_reference(oc):
+    """The port's copy of the C runtime, which decodes every flagged stream
+    on the host route, gives the reference package's pixels on every edge
+    stream and on the seeded fuzz."""
+    streams = [corpus.stream_end_stream(channels, last, pos)
+               for last in corpus.END_OPS for channels in CHANNELS
+               for pos in MARKER] + corpus.malformed_streams(FUZZ)
+    for s in streams:
+        want, got = native.decode(s, oc)[0], port_native.decode(s, oc)[0]
+        assert (got is None) == (want is None)
+        assert want is None or np.array_equal(got, want)
 
 
 def test_edge_streams_reach_the_peek():
@@ -209,9 +229,6 @@ def test_qoi_ignores_the_marker(entry, monkeypatch):
         want = native.decode(clean, oc)[0]
         for got in _decode(entry, streams, oc, monkeypatch):
             assert np.array_equal(got, want)
-
-
-FUZZ = 300
 
 
 @pytest.mark.parametrize("entry", ENTRIES)

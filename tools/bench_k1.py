@@ -4,10 +4,10 @@ on one NVIDIA GPU.
 
     python3 tools/bench_k1.py --parent DIR
 
-DIR holds another checkout of the repository (for example the parent commit
-unpacked with ``git archive``). The script builds DIR's ``frontend.cu``
-beside this tree's and calls each library's ``k1_decode_front`` on the
-arguments of K1 launches that ``chip_smoke.py``'s paths make:
+DIR holds another checkout of the repository (``tools/_parent_bench.py``).
+The script builds DIR's ``frontend.cu`` beside this tree's and calls each
+library's ``k1_decode_front`` on the arguments of K1 launches that
+``chip_smoke.py``'s paths make:
 
 - ``batch_rgb``: the 32 1024x1024 RGB photos as one batch (mode noalpha,
   ``decode_stream_batched``);
@@ -27,35 +27,12 @@ name and power limit and one line a shape, and writes
 
 from __future__ import annotations
 
-import argparse
-import ctypes
-import json
-import os
-import subprocess
 import sys
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+import _parent_bench as pb
+
 REPS = 20
-ORDER = ("parent", "this tree", "this tree", "parent") * 2
-
-
-def _libraries(parent):
-    """{label: ctypes library}: DIR's K1 and this tree's."""
-    from seqoia_tpu_torch.ops import _build
-
-    out_dir = os.path.join(_build.BUILD_DIR, "bench_k1")
-    os.makedirs(out_dir, exist_ok=True)
-    proc = _build.compile_shared(
-        _build.nvcc_command(os.path.join(parent, "seqoia_tpu_torch", "csrc",
-                                         "frontend.cu")),
-        os.path.join(out_dir, "parent.so"))
-    this = _build.load("frontend")
-    _build.finish_shared(proc)
-    lib = ctypes.CDLL(proc.out_path)
-    sig = _build._SIGNATURES["frontend"]["k1_decode_front"]
-    lib.k1_decode_front.argtypes = [_build._CTYPES[c] for c in sig]
-    lib.k1_decode_front.restype = ctypes.c_int
-    return {"parent": lib, "this tree": this}
+ORDER = pb.ORDER * 2
 
 
 def _rows(streams, dev):
@@ -115,37 +92,27 @@ def _shapes(dev):
 
 
 def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--parent", required=True,
-                    help="a checkout whose K1 to compare with")
-    args = ap.parse_args()
+    started = pb.start("bench_k1", __doc__, "K1")
+    if started is None:
+        return 2
+    parent, dev = started
     import torch
 
-    if not torch.cuda.is_available():
-        print("bench_k1: no CUDA device", file=sys.stderr)
-        return 2
-    sys.path.insert(0, ROOT)
     import chip_smoke as cs
     from seqoia_tpu_torch.ops import _build, frontend
 
-    dev = torch.device("cuda", 0)
-    libs = _libraries(args.parent)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    libs = pb.libraries(parent, "frontend", "k1_decode_front")
+    smi = pb.card()
     print(smi)
     rows = []
     for name, data, clen, n_max, mode, k, seg_px in _shapes(dev):
         bsz, m = data.shape
         i32 = dict(dtype=torch.int32, device=dev)
-        outs = {}
-        for key in libs:
-            outs[key] = (torch.empty((bsz, m), **i32),
-                         torch.empty((bsz, m), **i32),
-                         torch.zeros(bsz, **i32), torch.zeros(bsz, **i32),
-                         torch.empty(frontend.scratch_words(bsz, m, k),
-                                     **i32))
+        outs = {key: (torch.empty((bsz, m), **i32),
+                      torch.empty((bsz, m), **i32),
+                      torch.zeros(bsz, **i32), torch.zeros(bsz, **i32),
+                      torch.empty(frontend.scratch_words(bsz, m, k), **i32))
+                for key in libs}
 
         def run(key):
             keys, pays, tot, ref, scratch = outs[key]
@@ -157,21 +124,17 @@ def main() -> int:
                           frontend.MODES[mode], k, seg_px, P(scratch),
                           P(keys), P(pays), P(tot), P(ref))
 
-        ms = {key: [] for key in libs}
-        for key in ORDER:
-            ms[key].append(cs._timed(lambda: run(key), REPS))
+        ms = pb.turns(run, REPS, order=ORDER)
         want = cs._front_view(outs["parent"][:4])
-        same = all(torch.equal(a, b) for a, b in
-                   zip(cs._front_view(outs["this tree"][:4]), want))
-        if not same:
+        if not all(torch.equal(a, b) for a, b in
+                   zip(cs._front_view(outs["this tree"][:4]), want)):
             raise AssertionError(f"{name}: this tree's K1 differs from the "
                                  "parent's")
         nbytes = int(clen.sum()) + 4 * clen.numel() + 8 * int(
             outs["parent"][2].sum()) + 8 * bsz
         row = dict(shape=name, rows=bsz, m=m, mode=mode, k=k,
                    bound_ms=nbytes / cs.HBM_BYTES_PER_S * 1e3,
-                   has_ref=int(outs["parent"][3].sum()),
-                   ms={key: v for key, v in ms.items()})
+                   has_ref=int(outs["parent"][3].sum()), ms=ms)
         rows.append(row)
         print(f"K1 {name} ({bsz}, {m}) {mode}" + (f" seg={m // k}" if k > 1
                                                    else "")
@@ -181,10 +144,7 @@ def main() -> int:
                   for key, v in ms.items()) + ", outputs equal")
         del outs, data, clen
         torch.cuda.empty_cache()
-    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(ROOT, "chiprun_out", "bench_k1.json"), "w") as f:
-        json.dump(dict(card=smi, reps=REPS, order=ORDER, shapes=rows), f,
-                  indent=1)
+    pb.write("bench_k1", card=smi, reps=REPS, order=ORDER, shapes=rows)
     return 0
 
 

@@ -4,8 +4,8 @@ one NVIDIA GPU.
 
     python3 tools/bench_k10.py --parent DIR
 
-DIR holds another checkout of the repository (for example the parent commit
-unpacked with ``git archive``). The script builds DIR's
+DIR holds another checkout of the repository (``tools/_parent_bench.py``).
+The script builds DIR's
 ``seqoia_tpu_torch/csrc/ref.cu`` beside this tree's and calls each
 library's C entry point with the arguments its tree's ``_build.py``
 declares (the scratch of records that this tree's design takes is passed
@@ -30,44 +30,12 @@ two full-size streams, host clock ended by a synchronize. Prints one line a grou
 
 from __future__ import annotations
 
-import argparse
-import ctypes
-import importlib.util
-import json
 import os
-import subprocess
 import sys
 import time
 import types
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-def _libraries(parent):
-    """{label: (ctypes library, takes the records' scratch)}: DIR's K10 and
-    this tree's, each bound by its own tree's signature."""
-    from seqoia_tpu_torch.ops import _build
-
-    spec = importlib.util.spec_from_file_location(
-        "parent_build", os.path.join(parent, "seqoia_tpu_torch", "ops",
-                                     "_build.py"))
-    parent_build = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(parent_build)
-    out_dir = os.path.join(_build.BUILD_DIR, "bench_k10")
-    os.makedirs(out_dir, exist_ok=True)
-    proc = _build.compile_shared(
-        _build.nvcc_command(os.path.join(parent, "seqoia_tpu_torch", "csrc",
-                                         "ref.cu")),
-        os.path.join(out_dir, "parent.so"))
-    this = _build.load("ref")
-    _build.finish_shared(proc)
-    lib = ctypes.CDLL(proc.out_path)
-    sig = parent_build._SIGNATURES["ref"]["k10_ref_decode"]
-    lib.k10_ref_decode.argtypes = [_build._CTYPES[c] for c in sig]
-    lib.k10_ref_decode.restype = ctypes.c_int
-    mine = _build._SIGNATURES["ref"]["k10_ref_decode"]
-    return {"parent": (lib, len(sig) == len(mine)),
-            "this tree": (this, True)}
+import _parent_bench as pb
 
 
 class _Launch:
@@ -139,22 +107,21 @@ def _fuzz_launches(dev):
 
 
 def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--parent", required=True,
-                    help="a checkout whose K10 to compare with")
-    args = ap.parse_args()
+    started = pb.start("bench_k10", __doc__, "K10")
+    if started is None:
+        return 2
+    parent, dev = started
     import torch
 
-    if not torch.cuda.is_available():
-        print("bench_k10: no CUDA device", file=sys.stderr)
-        return 2
-    sys.path.insert(0, ROOT)
     import chip_smoke as cs
     import seqoia_tpu_torch as st
     from seqoia_tpu_torch import native
 
-    dev = torch.device("cuda", 0)
-    libs = _libraries(args.parent)
+    libs = pb.libraries(parent, "ref", "k10_ref_decode")
+    # a library takes the records' scratch where its tree declares it
+    libs = {k: (lib, len(lib.k10_ref_decode.argtypes) == len(
+        libs["this tree"].k10_ref_decode.argtypes))
+        for k, lib in libs.items()}
     stages = [types.SimpleNamespace(name=name, streams=[native.encode(
         px[0], w, h, ch, 0, 0)]) for name, px, w, h, ch in cs._images()]
     small, big = cs._ref_inputs(stages)
@@ -166,15 +133,11 @@ def main() -> int:
     groups.append(("cli fuzz 1000 --cuda, SEQOIA_REF_CUDA=1",
                    [_Launch(a, dev) for a in _fuzz_launches(dev)]))
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = pb.card()
     load_ns, load_cycles = cs.smem_load_ns(dev)
     print(smi)
     print(f"one dependent shared-memory load: {load_ns:.4f} ns, "
           f"{load_cycles:.2f} SM cycles")
-    order = ("parent", "this tree", "this tree", "parent")
     rows = []
     for what, launches in groups:
         for L in launches:  # the parent's outputs: the ones to hold to
@@ -182,31 +145,29 @@ def main() -> int:
         want = [L.result("parent")[:3] for L in launches]
         big_group = max(L.n for L in launches) > 1 << 20
         reps = 1 if big_group else 5
-        ms = {k: [] for k in libs}
-        for k in order:
-            lib, with_rec = libs[k]
 
-            def run():
-                for L in launches:
-                    L.run(k, lib, with_rec, dev)
-            ms[k].append(cs._timed(run, reps) / len(launches))
+        def run(k):
+            for L in launches:
+                L.run(k, *libs[k], dev)
+
+        def check(k):
             for L, (wpx, werr, wops) in zip(launches, want):
                 px, err, ops, fault = L.result(k)
                 if (not torch.equal(px, wpx) or err != werr or ops != wops
                         or k != "parent" and fault):
                     raise AssertionError(f"{what}: {k} differs from the "
                                          f"parent (fault word {fault})")
+        ms = {k: [x / len(launches) for x in v]
+              for k, v in pb.turns(run, reps, check).items()}
         graph = {k: [] for k in libs}
         if not big_group:
             graphs = {}
             for k in libs:
                 graphs[k] = torch.cuda.CUDAGraph()
                 with torch.cuda.graph(graphs[k]):
-                    for L in launches:
-                        L.run(k, *libs[k], dev)
-            for k in order:
-                graph[k].append(cs._timed(graphs[k].replay, 5)
-                                / len(launches))
+                    run(k)
+            graph = {k: [x / len(launches) for x in v] for k, v in pb.turns(
+                lambda k: graphs[k].replay(), 5).items()}
             for L, (wpx, werr, wops) in zip(launches, want):
                 px, err, ops_, _ = L.result("this tree")
                 if not torch.equal(px, wpx) or err != werr or ops_ != wops:
@@ -253,11 +214,8 @@ def main() -> int:
                                 mpx_s=rate))
                 print(f"{name} channels={channels} {what}: {rate:.2f} Mpx/s")
 
-    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(ROOT, "chiprun_out", "bench_k10.json"), "w") as f:
-        json.dump(dict(card=smi, smem_load_ns=load_ns,
-                       smem_load_cycles=load_cycles, groups=rows,
-                       end_to_end=e2e), f, indent=1)
+    pb.write("bench_k10", card=smi, smem_load_ns=load_ns,
+             smem_load_cycles=load_cycles, groups=rows, end_to_end=e2e)
     return 0
 
 

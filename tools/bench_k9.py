@@ -4,8 +4,8 @@ K9 on one NVIDIA GPU.
 
     python3 tools/bench_k9.py --parent DIR
 
-DIR holds another checkout of the repository (for example the parent commit
-unpacked with ``git archive``). The script builds DIR's
+DIR holds another checkout of the repository (``tools/_parent_bench.py``).
+The script builds DIR's
 ``seqoia_tpu_torch/csrc/sequential.cu`` beside this tree's, and records the
 K9 launches of
 ``chip_smoke.py``'s mono path (the 4096x4096 stream's ``decode`` and the
@@ -21,35 +21,10 @@ same order. Prints one line a launch and library, and writes
 
 from __future__ import annotations
 
-import argparse
-import ctypes
-import json
-import os
-import subprocess
 import sys
 import time
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-def _libraries(parent):
-    """{label: ctypes library}: DIR's K9 and this tree's, as the port builds
-    it."""
-    from seqoia_tpu_torch.ops import _build
-
-    out_dir = os.path.join(_build.BUILD_DIR, "bench_k9")
-    os.makedirs(out_dir, exist_ok=True)
-    proc = _build.compile_shared(
-        _build.nvcc_command(os.path.join(parent, "seqoia_tpu_torch", "csrc",
-                                         "sequential.cu")),
-        os.path.join(out_dir, "parent.so"))
-    this = _build.load("sequential")
-    _build.finish_shared(proc)
-    lib = ctypes.CDLL(proc.out_path)
-    sig = _build._SIGNATURES["sequential"]["k9_sequential_decode"]
-    lib.k9_sequential_decode.argtypes = [_build._CTYPES[c] for c in sig]
-    lib.k9_sequential_decode.restype = ctypes.c_int
-    return {"parent": lib, "this tree": this}
+import _parent_bench as pb
 
 
 def _record(run):
@@ -89,25 +64,20 @@ def _launch(lib, args, dev):
 
 
 def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--parent", required=True,
-                    help="a checkout whose K9 to compare with")
-    args = ap.parse_args()
+    started = pb.start("bench_k9", __doc__, "K9")
+    if started is None:
+        return 2
+    parent, dev = started
     import numpy as np
     import torch
 
-    if not torch.cuda.is_available():
-        print("bench_k9: no CUDA device", file=sys.stderr)
-        return 2
-    sys.path.insert(0, ROOT)
     import chip_smoke as cs
     import seqoia_tpu_torch as st
     from seqoia_tpu_torch import native
     from seqoia_tpu_torch.ops import _build
     from seqoia_tpu_torch.utils import corpus
 
-    dev = torch.device("cuda", 0)
-    libs = _libraries(args.parent)
+    libs = pb.libraries(parent, "sequential", "k9_sequential_decode")
     big, mixed = cs._mono_streams([None] * 32)
     mono = [x for x in mixed if x is not None]
     px, n = cs._value_chain(2000)
@@ -124,26 +94,22 @@ def main() -> int:
     launches.append(("2048 mono rows of 64x64, off the path",
                      (lo, None, tot, 1)))
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = pb.card()
     load_ns, load_cycles = cs.smem_load_ns(dev)
     print(smi)
     print(f"one dependent shared-memory load: {load_ns:.4f} ns, "
           f"{load_cycles:.2f} SM cycles")
-    order = ("parent", "this tree", "this tree", "parent")
     rows = []
     for what, a in launches:
         lo, _, tot, colch = a
         longest = min(int(tot.max()), lo.shape[1])
         reps = 3 if longest > 100_000 else 10
         want = _launch(libs["parent"], a, dev)
-        ms = {k: [] for k in libs}
-        for k in order:
+
+        def check(k):
             if not torch.equal(_launch(libs[k], a, dev), want):
                 raise AssertionError(f"{what}: {k} differs from the parent")
-            ms[k].append(cs._timed(lambda: _launch(libs[k], a, dev), reps))
+        ms = pb.turns(lambda k: _launch(libs[k], a, dev), reps, check)
         for k, v in ms.items():
             mean = sum(v) / len(v)
             rows.append(dict(launch=what, shape=tuple(lo.shape), colch=colch,
@@ -155,7 +121,7 @@ def main() -> int:
                   f"{mean * 1e6 / longest:.2f} ns an op")
 
     e2e = []
-    for k in order:
+    for k in pb.ORDER:
         _build._libs["sequential"] = libs[k]
         for what, n_px, run in (
                 ("mono .qoi 4096x4096 decode", 4096 * 4096,
@@ -173,11 +139,8 @@ def main() -> int:
             print(f"{what} with {k}: {rate:.2f} Mpx/s")
     _build._libs.pop("sequential")
 
-    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(ROOT, "chiprun_out", "bench_k9.json"), "w") as f:
-        json.dump(dict(card=smi, smem_load_ns=load_ns,
-                       smem_load_cycles=load_cycles, launches=rows,
-                       end_to_end=e2e), f, indent=1)
+    pb.write("bench_k9", card=smi, smem_load_ns=load_ns,
+             smem_load_cycles=load_cycles, launches=rows, end_to_end=e2e)
     return 0
 
 
