@@ -1,0 +1,8 @@
+"""Σ (raw pixel bytes read once + stream bytes written once) of the encoded
+images ÷ 3.35 TB/s, as a share of Σ kernel time on the cards in the traced
+window (torch.profiler)."""
+from benchmark.harness.readings import roofline_pct
+
+
+def read(rec):
+    return roofline_pct(rec, "encoded_px")
