@@ -695,9 +695,6 @@ def _capture(run):
             seen.setdefault(_key(a, k), (a, k))
             return _fn(*a, **k)
 
-        # the wrapper counts its launches under its module name: while
-        # recording, that name is rec
-        rec.launches = rec.mono_launches = 0
         saved.append((mod, name, fn))
         setattr(mod, name, rec)
     try:
@@ -1715,7 +1712,6 @@ def _checked(run, where, rec):
                              (pack, "pack_words", k4)):
         fn = getattr(mod, name)
         rep = functools.partial(check, fn)
-        rep.launches = rep.seg_launches = 0
         saved.append((mod, name, fn))
         setattr(mod, name, rep)
     try:
@@ -2230,9 +2226,6 @@ def check_mono_k9(big, mixed, dev):
             launches.append((lo, tot))
         return fn(lo, hi, tot, colch)
 
-    # the wrapper counts its launches under its module name: while
-    # recording, that name is rec
-    rec.launches = rec.mono_launches = 0
     sequential.sequential_decode = rec
     try:
         st.decode(big[0], device=dev)
@@ -2566,7 +2559,7 @@ def tool_path(tmp, dev):
     directory, 3 runs; `fuzz --cuda` at 1000 iterations, unset and with
     SEQOIA_REF_CUDA=1. Returns (the corpus directory, {phase: seconds},
     K10 launches of the fuzz with SEQOIA_REF_CUDA=1)."""
-    from seqoia_tpu_torch.ops import ref
+    from seqoia_tpu_torch.utils import trace
 
     secs, on = {}, ["--device", str(dev)]
     corpus_dir = os.path.join(tmp, "corpus")
@@ -2606,7 +2599,7 @@ def tool_path(tmp, dev):
     for ref_cuda in ("", "1"):
         old = os.environ.get("SEQOIA_REF_CUDA")
         os.environ["SEQOIA_REF_CUDA"] = ref_cuda
-        n0 = ref.ref_decode.launches
+        n0 = trace.counters().get("kernels.launches.K10", 0)
         try:
             rc, out = _cli("fuzz", "1000", "--cuda", *on)
         finally:
@@ -2617,7 +2610,8 @@ def tool_path(tmp, dev):
         if rc != 0:
             raise AssertionError(f"cli fuzz --cuda (SEQOIA_REF_CUDA="
                                  f"{ref_cuda!r}): {out.strip()}")
-        fuzz[ref_cuda] = ref.ref_decode.launches - n0
+        fuzz[ref_cuda] = (trace.counters().get("kernels.launches.K10", 0)
+                          - n0)
         print(f"fuzz --cuda, SEQOIA_REF_CUDA={ref_cuda!r}: {out.strip()}; "
               f"{fuzz[ref_cuda]} decodes reached K10")
     if fuzz[""] or not fuzz["1"]:
@@ -3076,16 +3070,8 @@ class _Timed:
     """A kernel wrapper that notes each of its launches: its shape, the
     bytes its bound counts and the events its library recorded (_LibProxy),
     and, given ``keep``, calls ``keep(out, **arguments)`` after each launch
-    (host copies to check later). The wrapper it replaces still counts its
-    own launches: it increments ``<its name>.launches``, which resolves to
-    this object, whose counters are the wrapped function's."""
-
-    launches = property(lambda s: s.fn.launches,
-                        lambda s, v: setattr(s.fn, "launches", v))
-    seg_launches = property(lambda s: s.fn.seg_launches,
-                            lambda s, v: setattr(s.fn, "seg_launches", v))
-    mono_launches = property(lambda s: s.fn.mono_launches,
-                             lambda s, v: setattr(s.fn, "mono_launches", v))
+    (host copies to check later). A call launched when the program's
+    launch counters (``kernels.launches.*``) moved over it."""
 
     def __init__(self, fn, spec, log, pending, keep=None):
         import inspect
@@ -3093,9 +3079,14 @@ class _Timed:
         self.fn, self.spec, self.log, self.pending = fn, spec, log, pending
         self.keep, self.sig = keep, inspect.signature(fn)
 
-    def _n(self):
-        """The wrapper's launches (K9 counts its two steps apart)."""
-        return self.fn.launches + getattr(self.fn, "mono_launches", 0)
+    @staticmethod
+    def _n():
+        """Every kernel launch so far (K1's segment mode counted once)."""
+        from seqoia_tpu_torch.utils import trace
+
+        return sum(v for k, v in trace.counters().items()
+                   if k.startswith("kernels.launches.")
+                   and k != "kernels.launches.K1.seg")
 
     def __call__(self, *a, **k):
         n0, p0 = self._n(), len(self.pending)
@@ -3157,22 +3148,24 @@ def _census(run, keep=None):
 
 
 def _counted(counters, run, gaps, keep=None):
-    """Launches of each kernel during run(), the counters ((function,
-    attribute) pairs) set to 0 just before it and read just after; each
+    """Launches of each kernel during run(), ``counters`` ({kernel: the
+    program's counter name}) read just before it and just after; each
     launch's time and bound are added to gaps ({kernel: {shape: [launches,
     ms, bound ms]}}, _census, which takes ``keep``). Returns (launches,
     run's result, the run's own census table)."""
-    for fn, attr in counters.values():
-        setattr(fn, attr, 0)
+    from seqoia_tpu_torch.utils import trace
+
+    before = trace.counters()
     table, out = _census(run, keep)
+    after = trace.counters()
     for kid, shapes in table.items():
         for shape, (n, ms, bound) in shapes.items():
             row = gaps.setdefault(kid, {}).setdefault(shape, [0, 0.0, 0.0])
             row[0] += n
             row[1] += ms
             row[2] += bound
-    return ({k: getattr(fn, attr) for k, (fn, attr) in counters.items()},
-            out, table)
+    return ({k: after.get(c, 0) - before.get(c, 0)
+             for k, c in counters.items()}, out, table)
 
 
 def _one_front_one_k2(path, table, calls):
@@ -3212,9 +3205,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
-        from seqoia_tpu_torch.ops import (_build, compact, encode_front,
-                                          engine, frontend, pack, ref, scan,
-                                          sequential, slots)
+        from seqoia_tpu_torch.ops import _build
     except ImportError as e:
         print(f"chip_smoke: the port is not here ({e})", file=sys.stderr)
         return 2
@@ -3343,14 +3334,10 @@ def main() -> int:
         raise AssertionError(f"kernels differ from their plain versions or "
                              f"between launches: {bad}")
 
-    counters = {k: (fn, "launches") for k, fn in (
-        ("K1", frontend.decode_front_compact), ("K2", engine.place_emit),
-        ("K3", encode_front.encode_front_compact), ("K4", pack.pack_words),
-        ("K6", engine.place_fill), ("K5", compact.compact),
-        ("K7", slots.slot_last_writer), ("K8", scan.tile_scan),
-        ("K9", sequential.sequential_decode), ("K10", ref.ref_decode))}
-    counters["K1seg"] = (frontend.decode_front_compact, "seg_launches")
-    counters["K9mono"] = (sequential.sequential_decode, "mono_launches")
+    counters = {k: "kernels.launches." + k for k in (
+        "K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "K10")}
+    counters["K1seg"] = "kernels.launches.K1.seg"
+    counters["K9mono"] = "kernels.launches.K9.mono"
     torch.cuda.reset_peak_memory_stats()
     gaps = {}
     sqoa_launches, (rates, calls), table = _counted(

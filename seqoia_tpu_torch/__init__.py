@@ -19,6 +19,20 @@ forms), ``BatchDecoder`` / ``corpus_decode`` (many streams, icons packed
 many to a row) and ``BatchEncoder`` / ``corpus_encode`` (many images, one
 encode a class) come from ``seqoia_tpu_torch.parallel`` and load on first
 use.
+
+Tracing (``seqoia_tpu_torch.utils.trace``): each public call of the card
+path opens a root span (``api.decode``, ``api.encode``,
+``api.batch_decode``, ``api.batch_encode``, ``api.encode_large``,
+``api.decode_large`` and the shard forms), and its steps open spans under
+it (``parallel.*``: staging, dispatch, waits on the card, the copies down;
+``codec.*``: the ``.qoi`` fixpoint's passes, K9's rows). Spans are off
+until ``trace.enable()`` is called or a ``torch.profiler`` session records;
+off, a span is one check. Under a profiler every span is also a
+``seqoia/<name>`` range on the profiler's clock, beside the card's kernels
+and copies: the timeline. ``trace.calls()`` gives the recorded calls with
+their spans' self times and counter deltas: the numbers. The counters
+(``trace.counters()``: kernel launches, the codec's host reads of device
+values) count always.
 """
 
 from __future__ import annotations

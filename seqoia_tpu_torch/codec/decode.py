@@ -21,6 +21,7 @@ import torch
 from .. import native, spec
 from .._device import resolve
 from ..ops import ref
+from ..utils import trace
 from .decode_compat import decode_stream_compat_batched
 from .decode_v2 import decode_stream
 
@@ -36,6 +37,7 @@ def _host(data: bytes, channels: int):
     return pixels, spec.SqoaDesc(*d)
 
 
+@trace.entry_point("api.decode")
 def decode(data: bytes, channels: int = 0, device="cuda"):
     """Decode a SQOA or QOI-compat image. Returns (flat uint8 pixels,
     SqoaDesc) or (None, None) on malformed input, mirroring sqoa_decode's
@@ -64,11 +66,13 @@ def decode(data: bytes, channels: int = 0, device="cuda"):
         buf, clen, n_pix, colch=colch, out_ch=out_ch, n_max=n_max,
         src_alpha=desc.has_alpha,
     )
+    trace.host_sync("has_ref")
     if bool(has_ref):
         if os.environ.get("SEQOIA_REF_CUDA", "") != "1":
             return _host(data, channels)
         out, err, _ = ref.ref_decode(buf, clen, n_pix, colch=colch,
                                   out_ch=out_ch, n_max=n_max)
+        trace.host_sync("ref_error")
         if bool(err):
             return None, None
     return out[: n_pix * out_ch].cpu().numpy(), desc

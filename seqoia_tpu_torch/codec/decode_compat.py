@@ -48,6 +48,7 @@ import torch
 
 from .. import spec
 from ..ops import compact, engine, scan, scan_ops, sequential, slots
+from ..utils import trace
 from .decode_v2 import _INIT_PACKED, _emit_pixels, _tokenize
 
 # resolutions before a row is flagged unconverged: INDEX-light content
@@ -73,21 +74,37 @@ def _resolve(ops, valid, qslot, totals, iv):
     return new_iv, (new_iv == iv).all(dim=-1)
 
 
-def _settle(ops, valid, qslot, totals, iv):
-    """Resolve rows the fixpoint left unsettled, restarted from ``iv`` with
-    the alpha of every INDEX guess speculated (the alpha of the latest RGBA
-    op, 255 before any), until they are stable or ``_SETTLE_ITERS`` passes
-    ran. Returns (iv, passes, (B,) stable)."""
+def _unsettled(stable, kind: str) -> int:
+    """How many rows of a pass are not yet stable: one host read."""
+    trace.host_sync(kind)
+    return stable.shape[0] - int(stable.sum())
+
+
+def _settle(ops, valid, qslot, totals, iv, rows):
+    """Resolve ``rows``, which the fixpoint left unsettled, restarted from
+    ``iv`` with the alpha of every INDEX guess speculated (the alpha of the
+    latest RGBA op, 255 before any), until they are stable or
+    ``_SETTLE_ITERS`` passes ran. Returns (iv, passes, the rows of ``rows``
+    still unsettled)."""
     b0, b4 = ops[0], ops[4]
     alpha = scan.fill_forward(b4, (b0 == spec.OP_RGBA) & valid, 255)
     iv = torch.where((b0 < spec.QOI_INDEX_SIZE) & valid,
                      (iv & 0xFFFFFF) | (alpha << 24), 0)
     passes = 0
     while True:
-        iv, stable = _resolve(ops, valid, qslot, totals, iv)
-        passes += 1
-        if passes == _SETTLE_ITERS or bool(stable.all()):
-            return iv, passes, stable
+        with trace.span("codec.settle.pass", rows=len(rows)) as sp:
+            iv, stable = _resolve(ops, valid, qslot, totals, iv)
+            passes += 1
+            last = passes == _SETTLE_ITERS
+            if not last:
+                unsettled = _unsettled(stable, "settle")
+                sp.set(unsettled=unsettled)
+        if last or not unsettled:
+            break
+    late = rows[~stable]
+    trace.host_sync("late_rows")  # the boolean index reads its count
+    sp.set(unsettled=len(late))
+    return iv, passes, late
 
 
 def _op_values(ops, iv, valid):
@@ -146,6 +163,7 @@ def _ops(data, chunks_len, colch: int = 3):
     idx = torch.arange(m, dtype=torch.int32, device=dev).expand(bsz, m)
     pays = [lo] if colch == 1 else [lo, ahead(4)]
     _, pays_c, totals = compact.compact(token, idx, pays)
+    trace.host_sync("ops")
     mo = max(int(totals.max()), 1)
     hi_c = None if colch == 1 else pays_c[1][:, :mo]
     return pays_c[0][:, :mo], hi_c, totals
@@ -190,7 +208,8 @@ def decode_stream_compat_batched(data, chunks_len, n_pixels, *, colch: int,
     lo_c, hi_c, totals = _ops(data, chunks_len, colch)
     valid = torch.arange(lo_c.shape[1], device=dev)[None, :] < totals[:, None]
     if colch == 1:
-        px = sequential.sequential_decode(lo_c, None, totals, colch=1)
+        with trace.span("codec.sequential", rows=bsz):
+            px = sequential.sequential_decode(lo_c, None, totals, colch=1)
         if stats is not None:
             stats.update(passes=0, settled_rows=0, settle_passes=0,
                          sequential_rows=bsz)
@@ -203,22 +222,31 @@ def decode_stream_compat_batched(data, chunks_len, n_pixels, *, colch: int,
 
     # one resolution, then more until every row is stable or _MAX_ITERS
     # resolutions ran (the JAX package's body + while_loop)
-    iv, stable = _resolve(ops, valid, qslot, totals, torch.zeros_like(lo_c))
-    passes = 1
-    while passes < _MAX_ITERS and not bool(stable.all()):
-        iv, stable = _resolve(ops, valid, qslot, totals, iv)
-        passes += 1
+    iv = torch.zeros_like(lo_c)
+    passes = 0
+    while True:
+        with trace.span("codec.fixpoint.pass", rows=bsz) as sp:
+            iv, stable = _resolve(ops, valid, qslot, totals, iv)
+            passes += 1
+            last = passes >= _MAX_ITERS
+            if not last:
+                unsettled = _unsettled(stable, "fixpoint")
+                sp.set(unsettled=unsettled)
+        if last or not unsettled:
+            break
     rows = (~stable).nonzero()[:, 0]
+    trace.host_sync("unsettled_rows")  # nonzero reads its count
+    sp.set(unsettled=len(rows))
     more, late = 0, rows[:0]
     if len(rows):
-        iv[rows], more, settled = _settle(
+        iv[rows], more, late = _settle(
             tuple(o[rows] for o in ops), valid[rows], qslot[rows],
-            totals[rows], iv[rows])
-        late = rows[~settled]
+            totals[rows], iv[rows], rows)
     px, _ = _op_values(ops, iv, valid)
     if len(late):
-        px[late] = sequential.sequential_decode(lo_c[late], hi_c[late],
-                                                totals[late])
+        with trace.span("codec.sequential", rows=len(late)):
+            px[late] = sequential.sequential_decode(lo_c[late], hi_c[late],
+                                                    totals[late])
     if stats is not None:
         stats.update(passes=passes, settled_rows=len(rows),
                      settle_passes=more, sequential_rows=len(late))

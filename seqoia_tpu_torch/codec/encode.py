@@ -14,6 +14,7 @@ import torch
 
 from .. import spec
 from .._device import resolve
+from ..utils import trace
 from .encode_v2 import encode_stream
 
 
@@ -39,6 +40,7 @@ def pixel_bucket(n: int) -> int:
     return 1 << max(n - 1, 1).bit_length()
 
 
+@trace.entry_point("api.encode")
 def encode(pixels, desc: spec.SqoaDesc, device="cuda") -> bytes | None:
     """Encode to SQOA (or, with ``desc.qoi_compat``, QOI-compatible)
     bytes, or None on invalid arguments (mirrors sqoa_encode's contract,
@@ -54,5 +56,6 @@ def encode(pixels, desc: spec.SqoaDesc, device="cuda") -> bytes | None:
     rgba = torch.from_numpy(rgba_np).to(dev)
     out, total = encode_stream(rgba, n, colch=desc.col_channels,
                                compat=bool(desc.qoi_compat))
+    trace.host_sync("total")
     return (spec.pack_header(desc)
             + out[: int(total)].cpu().numpy().tobytes())

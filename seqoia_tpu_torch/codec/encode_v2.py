@@ -31,6 +31,7 @@ import torch
 
 from .. import spec
 from ..ops import compact, encode_front, engine, scan, scan_ops, slots
+from ..utils import trace
 
 _INIT_PACKED = encode_front.INIT_PACKED
 _wrap8 = encode_front._wrap8
@@ -126,7 +127,9 @@ def emit_scalars(n_valid, chunk_totals, last_c, maxrun=spec.SQOA_MAXRUN,
 def exact_cap(total) -> int:
     """K2's output length for exact stream totals ``total`` (B,): the
     largest, rounded up to K2's multiple of 4 (one device-to-host read)."""
-    return max(-(-int(total.max()) // 4) * 4, 4)
+    trace.host_sync("exact_cap")
+    with trace.span("parallel.wait", why="exact_total"):
+        return max(-(-int(total.max()) // 4) * 4, 4)
 
 
 def _channels(px):

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import trace
 from . import _build
 from ._plain import compact_rows
 from .scan import scratch_words
@@ -57,13 +58,10 @@ def compact(valid, key, payloads):
     totals = torch.empty(bsz, **i32)
     scratch = torch.empty(scratch_words(bsz, m), **i32)
     P = _build.ptr
-    compact.launches += 1
+    trace.count("kernels.launches.K5")
     _build.launch(
         "compact", "k5_compact", dev,
         P(valid.contiguous().view(torch.uint8)), P(ins[0]), P(ins[1]),
         P(ins[2]), bsz, m, P(scratch), P(outs[0]), P(outs[1]), P(outs[2]),
         P(totals))
     return outs[0], [o for o in outs[1:] if o is not None], totals
-
-
-compact.launches = 0

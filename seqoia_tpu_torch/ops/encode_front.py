@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import trace
 from . import _build
 from ._plain import compact_rows, hillis_steele
 
@@ -154,12 +155,9 @@ def encode_front_compact(packed, n_valid, colch: int = 3, init_prev=None,
     keys, curs, metas = (torch.empty((bsz, n), **i32) for _ in range(3))
     et, ct, lc = (torch.empty(bsz, **i32) for _ in range(3))
     P = _build.ptr
-    encode_front_compact.launches += 1
+    trace.count("kernels.launches.K3")
     _build.launch(
         "encode_front", "k3_encode_front", dev,
         P(packed), P(nv), P(ip), P(l0), bsz, n, colch, P(scratch), P(keys),
         P(curs), P(metas), P(et), P(ct), P(lc))
     return keys, [curs, metas], et, ct, lc
-
-
-encode_front_compact.launches = 0

@@ -24,6 +24,7 @@ from typing import Callable
 
 import torch
 
+from ..utils import trace
 from . import _build
 from ._plain import to_i32
 
@@ -119,7 +120,7 @@ def place_fill(keys, payloads, totals, n_out: int, inits, fill_keys=False):
     n_pay = len(payloads)
     extra = (outs[1] if n_pay >= 2 else None, outs[2] if n_pay == 3 else None,
              outs[-1] if fill_keys else None)
-    place_fill.launches += 1
+    trace.count("kernels.launches.K6")
     _launch(EPI_FILL, keys, payloads, totals.to(torch.int32).contiguous(),
             n_out, None, inits, fill_keys, outs[0], extra)
     return outs
@@ -146,12 +147,8 @@ def place_emit(keys, payloads, totals, scalars, n_out: int, inits,
     num, den = epilogue.units
     out = torch.empty((keys.shape[0], n_out * num // den),
                       dtype=epilogue.dtype, device=keys.device)
-    place_emit.launches += 1
+    trace.count("kernels.launches.K2")
     _launch(epilogue.kind, keys, payloads,
             totals.to(torch.int32).contiguous(), n_out,
             scalars.to(torch.int32).contiguous(), inits, fill_keys, out)
     return out
-
-
-place_fill.launches = 0
-place_emit.launches = 0

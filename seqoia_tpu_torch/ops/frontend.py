@@ -43,6 +43,7 @@ from __future__ import annotations
 import torch
 
 from .. import spec
+from ..utils import trace
 from . import _build
 from ._plain import compact_rows, hillis_steele, shift_left, to_i32
 
@@ -288,15 +289,12 @@ def decode_front_compact(data, chunks_len, n_max: int, mode: str = "alpha",
     totals = torch.zeros(bsz, dtype=torch.int32, device=dev)
     has_ref = torch.zeros(bsz, dtype=torch.int32, device=dev)
     P = _build.ptr
-    decode_front_compact.launches += 1
-    decode_front_compact.seg_launches += seg is not None
+    trace.count("kernels.launches.K1")
+    if seg is not None:
+        trace.count("kernels.launches.K1.seg")
     _build.launch(
         "frontend", "k1_decode_front", dev,
         P(data), P(clen), bsz, m, int(n_max), MODES[mode], k,
         int(seg_px or 0), P(scratch), P(keys), P(pays), P(totals),
         P(has_ref))
     return keys, pays, totals, has_ref
-
-
-decode_front_compact.launches = 0
-decode_front_compact.seg_launches = 0  # those of them in segment mode

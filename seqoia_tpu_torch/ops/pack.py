@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from .._device import resolve
+from ..utils import trace
 from . import _build
 
 TILE = 32768  # pixels a large image is padded to
@@ -65,13 +66,10 @@ def pack_words(words, stride: int):
     n = wlen * 4 // stride
     words = words.contiguous()
     out = torch.empty((bsz, n), dtype=torch.int32, device=words.device)
-    pack_words.launches += 1
+    trace.count("kernels.launches.K4")
     _build.launch("pack", "k4_pack_words", words.device, _build.ptr(words),
                   _build.ptr(out), bsz * n, stride)
     return out
-
-
-pack_words.launches = 0
 
 
 def normalize_pixels_device(pixels_u8, desc, device="cuda"):
@@ -82,18 +80,22 @@ def normalize_pixels_device(pixels_u8, desc, device="cuda"):
     target is a card) and views them as int32; one copy moves the raw bytes
     (stride per pixel, not 4) and K4 expands them there. The padding pixels
     come out as 0xFF000000 at stride 3, 0 at stride 2, 0xFF000000 at stride
-    1 and 0 at stride 4 (no kernel); the encoder reads none of them."""
+    1 and 0 at stride 4 (no kernel); the encoder reads none of them. Opens
+    the spans ``parallel.stage.fill`` (the host buffer) and
+    ``parallel.stage.dispatch`` (the copy up and K4)."""
     dev = resolve(device)
     stride = desc.norm_channels
     n = desc.n_pixels
     n_pad = -(-n // TILE) * TILE
-    raw = np.asarray(pixels_u8, np.uint8).reshape(-1)[: n * stride]
-    host = torch.empty(n_pad * stride, dtype=torch.uint8,
-                       pin_memory=dev.type == "cuda")
-    host_np = host.numpy()
-    host_np[: raw.size] = raw
-    host_np[raw.size:] = 0
-    words = host.to(dev, non_blocking=True).view(torch.int32)
-    if stride == 4:
-        return words
-    return pack_words(words[None], stride)[0]
+    with trace.span("parallel.stage.fill", bytes=n_pad * stride):
+        raw = np.asarray(pixels_u8, np.uint8).reshape(-1)[: n * stride]
+        host = torch.empty(n_pad * stride, dtype=torch.uint8,
+                           pin_memory=dev.type == "cuda")
+        host_np = host.numpy()
+        host_np[: raw.size] = raw
+        host_np[raw.size:] = 0
+    with trace.span("parallel.stage.dispatch", device=str(dev)):
+        words = host.to(dev, non_blocking=True).view(torch.int32)
+        if stride == 4:
+            return words
+        return pack_words(words[None], stride)[0]

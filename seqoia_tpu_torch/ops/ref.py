@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import trace
 from . import _build
 
 HEADER = 14  # header bytes; the start byte follows
@@ -392,16 +393,14 @@ def ref_decode(data, chunks_len: int, n_pixels: int, *, colch: int,
     out = torch.zeros(n_max * out_ch, dtype=torch.uint8, device=dev)
     rec = torch.empty(2 * (n_pixels + 1), dtype=torch.int32, device=dev)
     stat = torch.empty(4, dtype=torch.int32, device=dev)  # err, ops, fault
-    ref_decode.launches += 1
+    trace.count("kernels.launches.K10")
     _build.launch(
         "ref", "k10_ref_decode", dev,
         _build.ptr(data), data.numel(), chunks_len, n_pixels, colch, out_ch,
         _build.ptr(out), _build.ptr(rec), _build.ptr(stat))
+    trace.host_sync("ref_fault")
     fault = int(stat[3])
     if fault:
         raise RuntimeError(f"k10_ref_decode: a wait in the kernel ran out "
                            f"of its budget (fault word {fault})")
     return out, stat[0] != 0, stat[1]
-
-
-ref_decode.launches = 0

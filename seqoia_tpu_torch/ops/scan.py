@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import trace
 from . import _build
 from ._plain import hillis_steele, to_i32
 
@@ -115,13 +116,10 @@ def tile_scan(arrays, combine: str):
     scratch = torch.empty(scratch_words(bsz, m), dtype=torch.int32,
                           device=dev)
     P = _build.ptr
-    tile_scan.launches += 1
+    trace.count("kernels.launches.K8")
     _build.launch("scan", "k8_scan", dev, sel, P(xs[0]), P(xs[1]), bsz, m,
                   P(scratch), P(ys[0]), P(ys[1]))
     return tuple(ys[:n_arr])
-
-
-tile_scan.launches = 0
 
 
 def cummax(x):

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import trace
 from . import _build
 from ._plain import to_i32
 
@@ -117,17 +118,11 @@ def sequential_decode(lo, hi, totals, colch: int = 3):
         return sequential_decode_plain(lo, hi, totals, colch)
     out = torch.zeros((bsz, mo), dtype=torch.int32, device=dev)
     P = _build.ptr
-    if colch == 1:
-        sequential_decode.mono_launches += 1
-    else:
-        sequential_decode.launches += 1
+    trace.count("kernels.launches.K9.mono" if colch == 1
+                else "kernels.launches.K9")
     _build.launch(
         "sequential", "k9_sequential_decode", dev,
         P(lo.contiguous()), P(None if colch == 1 else hi.contiguous()),
         P(totals.to(dtype=torch.int32, device=dev).contiguous()), bsz, mo,
         colch, P(out))
     return out
-
-
-sequential_decode.launches = 0  # launches of the color step
-sequential_decode.mono_launches = 0  # launches of the mono step

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import trace
 from . import _build
 from ._plain import to_i32
 from .scan import n_tiles
@@ -81,13 +82,10 @@ def slot_last_writer(hashes, values, qslots, n_slots: int = 64, init: int = 0,
     out = torch.empty((bsz, m), **i32)
     scratch = torch.empty(scratch_words(bsz, m, n_slots), **i32)
     P = _build.ptr
-    slot_last_writer.launches += 1
+    trace.count("kernels.launches.K7")
     _build.launch(
         "slots", "k7_slots", dev,
         P(hashes.contiguous()), P(values.contiguous()),
         P(qslots.contiguous()), P(n_live.to(**i32).contiguous()), bsz, m,
         n_slots, int(init), P(scratch), P(out))
     return out
-
-
-slot_last_writer.launches = 0

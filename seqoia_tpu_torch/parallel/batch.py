@@ -55,6 +55,20 @@ as that image's error slot (decode) or None (encode, counted in
 ``last_stats["oom_errors"]``). Work the card fails at is never moved to the
 host: the native codec decodes only the rows the policy and the REF
 streams send it.
+
+Spans (``utils.trace``; on while ``trace.enable()`` is in force or a
+``torch.profiler`` session records, then also ``seqoia/<name>`` ranges in
+the profile): a call is the root ``api.batch_decode`` (``images``,
+``classes``) or ``api.batch_encode``. Under it, per class dispatched,
+``parallel.class`` (``key``, ``rows``, ``in_bytes``, ``out_bytes``,
+``device``) holds ``parallel.stage.fill`` (the pinned staging buffer and
+the copies into it) and ``parallel.stage.dispatch`` (the copy up and the
+codec's enqueue, with the codec's own spans: the ``.qoi`` fixpoint's
+passes, the encode's wait for its exact totals); per class unpacked,
+``parallel.wait`` (``why``: ``first`` for the first class, ``unpack`` for
+each; ``key``) and ``parallel.unpack.copy`` (the copy out of pinned memory
+and the results); ``parallel.host_pool`` around host decodes the caller
+runs or waits for (the pool's thread opens no span).
 """
 
 from __future__ import annotations
@@ -73,6 +87,7 @@ from .._device import resolve
 from ..codec import decode_compat, decode_v2, encode_v2
 from ..codec.encode import pixel_bucket
 from ..ops import pack
+from ..utils import trace
 from .mesh import batch_sharding, default_mesh
 
 #: default bound on device bytes held by dispatched work that was not
@@ -195,78 +210,95 @@ class BatchDecoder:
         if (not compat and len(items) >= 2 and _SEG_MIN <= m_pad <= _ICON_MAX
                 and n_max <= _ICON_MAX
                 and all(it[2].n_pixels == n_max for it in items)):
-            buf, slens = pack_segments([it[1] for it in items], m_pad, pin)
-            out, ref = decode_v2.decode_stream_packed(
-                up(buf), up(slens), colch=colch, out_ch=out_ch, seg=m_pad,
-                seg_px=n_max, src_alpha=src_alpha)
+            with trace.span("parallel.stage.fill", packed=True):
+                buf, slens = pack_segments([it[1] for it in items], m_pad,
+                                           pin)
+            with trace.span("parallel.stage.dispatch"):
+                out, ref = decode_v2.decode_stream_packed(
+                    up(buf), up(slens), colch=colch, out_ch=out_ch,
+                    seg=m_pad, seg_px=n_max, src_alpha=src_alpha)
             self._stats["packed_rows"] += buf.shape[0]
             return out, ref, _ROW_BYTES // m_pad, buf.numel()
         b = len(items)
-        buf = torch.zeros((b, m_pad), dtype=torch.uint8, pin_memory=pin)
-        meta = torch.zeros((2, b), dtype=torch.int32, pin_memory=pin)
-        buf_np, meta_np = buf.numpy(), meta.numpy()
-        for j, (_, data, desc) in enumerate(items):
-            buf_np[j, : len(data)] = np.frombuffer(data, np.uint8)
-            meta_np[0, j] = len(data) - spec.PADDING_SIZE
-            meta_np[1, j] = desc.n_pixels
-        clens, npix = up(meta)
-        if compat:
-            out, _ = decode_compat.decode_stream_compat_batched(
-                up(buf), clens, npix, colch=colch, out_ch=out_ch, n_max=n_max)
-            ref = torch.zeros(b, dtype=torch.bool, device=dev)
-        else:
-            out, ref = decode_v2.decode_stream_batched(
-                up(buf), clens, npix, colch=colch, out_ch=out_ch, n_max=n_max,
-                emit="words", src_alpha=src_alpha)
+        with trace.span("parallel.stage.fill"):
+            buf = torch.zeros((b, m_pad), dtype=torch.uint8, pin_memory=pin)
+            meta = torch.zeros((2, b), dtype=torch.int32, pin_memory=pin)
+            buf_np, meta_np = buf.numpy(), meta.numpy()
+            for j, (_, data, desc) in enumerate(items):
+                buf_np[j, : len(data)] = np.frombuffer(data, np.uint8)
+                meta_np[0, j] = len(data) - spec.PADDING_SIZE
+                meta_np[1, j] = desc.n_pixels
+        with trace.span("parallel.stage.dispatch"):
+            clens, npix = up(meta)
+            if compat:
+                out, _ = decode_compat.decode_stream_compat_batched(
+                    up(buf), clens, npix, colch=colch, out_ch=out_ch,
+                    n_max=n_max)
+                ref = torch.zeros(b, dtype=torch.bool, device=dev)
+            else:
+                out, ref = decode_v2.decode_stream_batched(
+                    up(buf), clens, npix, colch=colch, out_ch=out_ch,
+                    n_max=n_max, emit="words", src_alpha=src_alpha)
         return out, ref, None, buf.numel()
 
     def _dispatch(self, items, key, dev) -> _Pending:
         """Stage and decode one class on ``dev`` and queue the copy of its
         output."""
-        out, ref, seg_k, in_bytes = self._run(items, key, dev)
-        nbytes = out.numel() * out.element_size() + in_bytes
-        if dev.type != "cuda":
-            return _Pending(items, key, out, ref, None, seg_k, nbytes, ())
-        copy = _copy_stream(self._copy_streams, dev)
-        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-        flags = torch.empty(ref.shape, dtype=ref.dtype, pin_memory=True)
-        copy.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(copy):
-            host.copy_(out, non_blocking=True)
-            flags.copy_(ref, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(copy)
-        return _Pending(items, key, host, flags, done, seg_k, nbytes,
-                        (out, ref))
+        with trace.span("parallel.class", key=key, rows=len(items),
+                        device=str(dev)) as span:
+            out, ref, seg_k, in_bytes = self._run(items, key, dev)
+            out_bytes = out.numel() * out.element_size()
+            span.set(in_bytes=in_bytes, out_bytes=out_bytes)
+            nbytes = out_bytes + in_bytes
+            if dev.type != "cuda":
+                return _Pending(items, key, out, ref, None, seg_k, nbytes, ())
+            copy = _copy_stream(self._copy_streams, dev)
+            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+            flags = torch.empty(ref.shape, dtype=ref.dtype, pin_memory=True)
+            copy.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(copy):
+                host.copy_(out, non_blocking=True)
+                flags.copy_(ref, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(copy)
+            return _Pending(items, key, host, flags, done, seg_k, nbytes,
+                            (out, ref))
 
     def _finish(self, entry: _Pending, results, fallback) -> None:
         """Unpack one class's output into results; rows the card hands back
         go to ``fallback``."""
-        if entry.done is not None:
-            entry.done.synchronize()
+        with trace.span("parallel.wait", why="unpack", key=entry.key):
+            if entry.done is not None:
+                entry.done.synchronize()
         out_ch = entry.key[2]
-        # one copy out of the pinned buffer for the whole class; the images
-        # are views of it (a copy per image costs thousands of small
-        # allocations, and keeping the views on the pinned buffer would
-        # hold page-locked memory for as long as the results live)
-        out = entry.host.numpy().copy()
-        rows = out.shape[0]
-        out = out.view(np.uint8).reshape(rows, -1)  # words: a free view
-        if entry.seg_k is not None:  # packed rows: one image per segment
-            out = out.reshape(rows * entry.seg_k, -1)
-        need_fb = entry.need_fb.numpy()
-        for j, (i, data, desc) in enumerate(entry.items):
-            # a packed row is flagged as a whole: one foreign image sends
-            # its row mates to the same byte-exact host decoder
-            if need_fb[j // entry.seg_k if entry.seg_k else j]:
-                fallback.append((i, data))
-            else:
-                n = desc.n_pixels * out_ch
-                results[i] = DecodeResult(out[j, :n], desc)
+        with trace.span("parallel.unpack.copy", key=entry.key,
+                        bytes=entry.host.numel() * entry.host.element_size()):
+            # one copy out of the pinned buffer for the whole class; the
+            # images are views of it (a copy per image costs thousands of
+            # small allocations, and keeping the views on the pinned buffer
+            # would hold page-locked memory for as long as the results live)
+            out = entry.host.numpy().copy()
+            rows = out.shape[0]
+            out = out.view(np.uint8).reshape(rows, -1)  # words: a free view
+            if entry.seg_k is not None:  # packed rows: one image a segment
+                out = out.reshape(rows * entry.seg_k, -1)
+            need_fb = entry.need_fb.numpy()
+            for j, (i, data, desc) in enumerate(entry.items):
+                # a packed row is flagged as a whole: one foreign image sends
+                # its row mates to the same byte-exact host decoder
+                if need_fb[j // entry.seg_k if entry.seg_k else j]:
+                    fallback.append((i, data))
+                else:
+                    n = desc.n_pixels * out_ch
+                    results[i] = DecodeResult(out[j, :n], desc)
 
     # --- the call ----------------------------------------------------------
 
     def __call__(self, streams, channels: int = 0):
+        with trace.entry("api.batch_decode", images=len(streams)) as call:
+            return self._decode(streams, channels, call)
+
+    def _decode(self, streams, channels, call):
         results: list[DecodeResult | None] = [None] * len(streams)
         groups = defaultdict(list)
         for i, data in enumerate(streams):
@@ -286,6 +318,7 @@ class BatchDecoder:
                    _next_pow2(len(data)), _next_pow2(max(desc.n_pixels, 4)),
                    bool(desc.has_alpha))
             groups[key].append((i, data, desc))
+        call.set(classes=len(groups))
 
         stats = self._stats = {"early_drains": 0, "oom_redispatch": 0,
                                "packed_rows": 0, "host_rows": 0}
@@ -360,14 +393,18 @@ class BatchDecoder:
                 ex.shutdown(wait=False)  # the job runs on; its thread ends
             else:
                 t0 = time.perf_counter()
-                self._host_pool(pairs, channels, results)
+                with trace.span("parallel.host_pool", rows=len(pairs),
+                                why="policy"):
+                    self._host_pool(pairs, channels, results)
                 t_host = time.perf_counter() - t0
 
         # wait for the first class (the compute not yet hidden), then
         # unpack class by class while later ones still run
         t0 = time.perf_counter()
-        if pending and pending[0].done is not None:
-            pending[0].done.synchronize()
+        if pending:
+            with trace.span("parallel.wait", why="first", key=pending[0].key):
+                if pending[0].done is not None:
+                    pending[0].done.synchronize()
         t_compute = time.perf_counter() - t0
 
         t0 = time.perf_counter()
@@ -377,9 +414,14 @@ class BatchDecoder:
 
         t0 = time.perf_counter()
         if fallback:
-            self._host_pool(fallback, channels, results)
+            with trace.span("parallel.host_pool", rows=len(fallback),
+                            why="fallback"):
+                self._host_pool(fallback, channels, results)
         if host_job is not None:
-            host_job.result()
+            # the pool's thread ran it beside the card: the caller's wait
+            with trace.span("parallel.host_pool", rows=len(host_items),
+                            why="policy_thread"):
+                host_job.result()
         t_host += time.perf_counter() - t0
         stats["host_rows"] = len(fallback) + len(host_items)
         self.last_timings = {"stage": t_stage, "compute": t_compute,
@@ -475,58 +517,70 @@ class BatchEncoder:
         stride = colch + int(has_alpha)
         pin = dev.type == "cuda"
         b = len(items)
-        buf = torch.empty((b, n_pad * stride), dtype=torch.uint8,
-                          pin_memory=pin)
-        nval = torch.empty(b, dtype=torch.int32, pin_memory=pin)
-        buf_np, nval_np = buf.numpy(), nval.numpy()
-        for j, (_, pix, desc) in enumerate(items):
-            n = desc.n_pixels * stride
-            buf_np[j, :n] = np.asarray(pix, np.uint8).reshape(-1)
-            buf_np[j, n:] = 0
-            nval_np[j] = desc.n_pixels
-        words = buf.to(dev, non_blocking=True).view(torch.int32)
-        packed = words if stride == 4 else pack.pack_words(words, stride)
-        # K2 is sized from the front's exact totals: reading them waits for
-        # the front
-        out, total = encode_v2.encode_stream_batched(
-            packed, nval.to(dev, non_blocking=True), colch=colch,
-            compat=compat)
+        with trace.span("parallel.stage.fill"):
+            buf = torch.empty((b, n_pad * stride), dtype=torch.uint8,
+                              pin_memory=pin)
+            nval = torch.empty(b, dtype=torch.int32, pin_memory=pin)
+            buf_np, nval_np = buf.numpy(), nval.numpy()
+            for j, (_, pix, desc) in enumerate(items):
+                n = desc.n_pixels * stride
+                buf_np[j, :n] = np.asarray(pix, np.uint8).reshape(-1)
+                buf_np[j, n:] = 0
+                nval_np[j] = desc.n_pixels
+        with trace.span("parallel.stage.dispatch"):
+            words = buf.to(dev, non_blocking=True).view(torch.int32)
+            packed = words if stride == 4 else pack.pack_words(words, stride)
+            # K2 is sized from the front's exact totals: reading them waits
+            # for the front
+            out, total = encode_v2.encode_stream_batched(
+                packed, nval.to(dev, non_blocking=True), colch=colch,
+                compat=compat)
         in_bytes = buf.numel() + (0 if stride == 4 else 4 * packed.numel())
         return out, total, in_bytes
 
     def _dispatch(self, items, key, dev) -> _Encoding:
         """Stage and encode one class on ``dev`` and queue the copy of its
         bytes."""
-        out, total, in_bytes = self._run(items, key, dev)
-        nbytes = out.numel() + in_bytes
-        if dev.type != "cuda":
-            return _Encoding(items, out, total, None, nbytes, ())
-        copy = _copy_stream(self._copy_streams, dev)
-        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-        host_total = torch.empty(total.shape, dtype=total.dtype,
-                                 pin_memory=True)
-        copy.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(copy):
-            host.copy_(out, non_blocking=True)
-            host_total.copy_(total, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(copy)
-        return _Encoding(items, host, host_total, done, nbytes, (out, total))
+        with trace.span("parallel.class", key=key, rows=len(items),
+                        device=str(dev)) as span:
+            out, total, in_bytes = self._run(items, key, dev)
+            span.set(in_bytes=in_bytes, out_bytes=out.numel())
+            nbytes = out.numel() + in_bytes
+            if dev.type != "cuda":
+                return _Encoding(items, out, total, None, nbytes, ())
+            copy = _copy_stream(self._copy_streams, dev)
+            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+            host_total = torch.empty(total.shape, dtype=total.dtype,
+                                     pin_memory=True)
+            copy.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(copy):
+                host.copy_(out, non_blocking=True)
+                host_total.copy_(total, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(copy)
+            return _Encoding(items, host, host_total, done, nbytes,
+                             (out, total))
 
     @staticmethod
     def _finish(entry: _Encoding, results) -> None:
         """Unpack one class's bytes into results."""
-        if entry.done is not None:
-            entry.done.synchronize()
-        out, total = entry.host.numpy(), entry.total.numpy()
-        for j, (i, _, desc) in enumerate(entry.items):
-            # header + body in one copy out of the pinned buffer
-            results[i] = b"".join((spec.pack_header(desc),
-                                   memoryview(out[j, : total[j]])))
+        with trace.span("parallel.wait", why="unpack"):
+            if entry.done is not None:
+                entry.done.synchronize()
+        with trace.span("parallel.unpack.copy", bytes=entry.host.numel()):
+            out, total = entry.host.numpy(), entry.total.numpy()
+            for j, (i, _, desc) in enumerate(entry.items):
+                # header + body in one copy out of the pinned buffer
+                results[i] = b"".join((spec.pack_header(desc),
+                                       memoryview(out[j, : total[j]])))
 
     # --- the call ----------------------------------------------------------
 
     def __call__(self, images, descs):
+        with trace.entry("api.batch_encode", images=len(images)) as call:
+            return self._encode(images, descs, call)
+
+    def _encode(self, images, descs, call):
         results: list[bytes | None] = [None] * len(images)
         groups = defaultdict(list)
         for i, (pix, desc) in enumerate(zip(images, descs)):
@@ -537,6 +591,7 @@ class BatchEncoder:
             key = (desc.col_channels, desc.has_alpha, bool(desc.qoi_compat),
                    max(pixel_bucket(desc.n_pixels), 4))
             groups[key].append((i, pix, desc))
+        call.set(classes=len(groups))
 
         stats = {"early_drains": 0, "oom_redispatch": 0, "oom_errors": 0}
         pending: list[_Encoding] = []
@@ -594,8 +649,10 @@ class BatchEncoder:
         # wait for the first class (the compute not yet hidden), then
         # unpack class by class while later ones still run
         t0 = time.perf_counter()
-        if pending and pending[0].done is not None:
-            pending[0].done.synchronize()
+        if pending:
+            with trace.span("parallel.wait", why="first"):
+                if pending[0].done is not None:
+                    pending[0].done.synchronize()
         t_compute = time.perf_counter() - t0
 
         t0 = time.perf_counter()

@@ -30,7 +30,7 @@ import seqoia_tpu_torch as st
 from seqoia_tpu.codec import decode_jax
 from seqoia_tpu_torch import cli, native, spec
 from seqoia_tpu_torch.ops import frontend, ref
-from seqoia_tpu_torch.utils import corpus
+from seqoia_tpu_torch.utils import corpus, trace
 
 _M = 16384  # every stream padded to one buffer length: one jit a mode
 
@@ -155,14 +155,15 @@ def test_decode_routes_ref_streams_to_k10(monkeypatch):
         raise AssertionError("a REF stream went to the host codec")
     monkeypatch.setattr(native, "decode", host)
     monkeypatch.setenv("SEQOIA_REF_CUDA", "1")
-    n0 = ref.ref_decode.launches
+    n0 = trace.counters().get("kernels.launches.K10", 0)
     for (s, c), (wpx, wdesc) in want.items():
         got, desc = st.decode(s, c, device="cpu")
         assert (got is None) == (wpx is None), (s.hex(), c)
         if wpx is not None:
             assert np.array_equal(got, wpx), (s.hex(), c)
             assert (desc.width, desc.height, desc.channels) == wdesc[:3]
-    assert ref.ref_decode.launches == n0  # the CPU runs the plain version
+    # the CPU runs the plain version
+    assert trace.counters().get("kernels.launches.K10", 0) == n0
 
 
 def test_decode_sends_ref_streams_to_the_host_when_unset(monkeypatch):
@@ -214,10 +215,10 @@ def test_fuzz_command_on_the_plain_versions(monkeypatch, capsys, ref_cuda):
     plain versions) against the native codec, REF streams through K10 with
     SEQOIA_REF_CUDA=1 and through the host codec without."""
     monkeypatch.setenv("SEQOIA_REF_CUDA", ref_cuda)
-    n0 = ref.ref_decode.launches
+    n0 = trace.counters().get("kernels.launches.K10", 0)
     assert cli.main(["fuzz", "200", "--cuda", "--device", "cpu"]) == 0
     assert "0 mismatches" in capsys.readouterr().out
-    assert ref.ref_decode.launches == n0
+    assert trace.counters().get("kernels.launches.K10", 0) == n0
 
 
 def _walk_same(stream, channels, chunk):

@@ -90,7 +90,6 @@ def _fuzz_launches(dev):
         return fn(data, chunks_len, n_pixels, colch=colch, out_ch=out_ch,
                   n_max=n_max)
 
-    rec.launches = 0
     old = os.environ.get("SEQOIA_REF_CUDA")
     os.environ["SEQOIA_REF_CUDA"] = "1"
     ref.ref_decode = rec

@@ -37,7 +37,6 @@ def _record(run):
         seen.append((lo, hi, tot, colch))
         return fn(lo, hi, tot, colch)
 
-    rec.launches = rec.mono_launches = 0
     sequential.sequential_decode = rec
     try:
         run()

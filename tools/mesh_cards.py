@@ -136,10 +136,9 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     import chip_smoke as cs
-    from seqoia_tpu_torch.ops import (_build, compact, encode_front, engine,
-                                      frontend, pack, ref, scan, sequential,
-                                      slots)
+    from seqoia_tpu_torch.ops import _build
     from seqoia_tpu_torch.parallel import default_mesh
+    from seqoia_tpu_torch.utils import trace
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -156,27 +155,17 @@ def main() -> int:
         print("\n".join(lines))
         report["parent"] = lines
     _build.build_all()
-    counters = {
-        "K1": (frontend.decode_front_compact, "launches"),
-        "K1seg": (frontend.decode_front_compact, "seg_launches"),
-        "K2": (engine.place_emit, "launches"),
-        "K3": (encode_front.encode_front_compact, "launches"),
-        "K4": (pack.pack_words, "launches"),
-        "K5": (compact.compact, "launches"),
-        "K6": (engine.place_fill, "launches"),
-        "K7": (slots.slot_last_writer, "launches"),
-        "K8": (scan.tile_scan, "launches"),
-        "K9": (sequential.sequential_decode, "launches"),
-        "K9mono": (sequential.sequential_decode, "mono_launches"),
-        "K10": (ref.ref_decode, "launches")}
+    kernels = ("K1", "K1.seg", "K2", "K3", "K4", "K5", "K6", "K7", "K8",
+               "K9", "K9.mono", "K10")
     report["per_card"] = {}
     for i in range(n):
         dev = torch.device("cuda", i)
-        for fn, attr in counters.values():
-            setattr(fn, attr, 0)
+        before = trace.counters()
         secs = _battery(dev)
-        launches = {k: getattr(fn, attr) for k, (fn, attr) in
-                    counters.items()}
+        after = trace.counters()
+        launches = {k: after.get("kernels.launches." + k, 0)
+                    - before.get("kernels.launches." + k, 0)
+                    for k in kernels}
         missing = [k for k, v in launches.items() if not v]
         print(f"cuda:{i} (current device {torch.cuda.current_device()}): "
               f"launches {launches}")
