@@ -67,14 +67,35 @@ codec's enqueue, with the codec's own spans: the ``.qoi`` fixpoint's
 passes, the encode's wait for its exact totals); per class unpacked,
 ``parallel.wait`` (``why``: ``first`` for the first class, ``unpack`` for
 each; ``key``) and ``parallel.unpack.copy`` (the copy out of pinned memory
-and the results); ``parallel.host_pool`` around host decodes the caller
+and the results; ``reused``: whether the class's host array came from the
+decoder's pool); ``parallel.host_pool`` around host decodes the caller
 runs or waits for (the pool's thread opens no span).
+
+Where a decode's results live: each class's output is copied, in one copy,
+out of pinned memory (on the CPU, out of the output tensor) into an
+ordinary pageable numpy array, and the class's images are views of it.
+``BatchDecoder`` keeps the arrays it handed out in its last two calls and
+gives a class the smallest of them that is large enough and free: nothing
+else refers to it, no result, view of one, ``torch.from_numpy`` or
+``memoryview`` (a numpy view refers to the array that owns its memory).
+Pages written before take a copy several times faster than new ones,
+which a new array over glibc's 32 MiB mmap cap always gets, each faulted
+in by the kernel as it is first written. A caller that keeps each call's
+results until the next call returns, as a loader does, has by then let go
+of the call before last: its array is free. Otherwise the class gets a new
+array. Results are freed by reference counting alone (no reference cycle
+holds them: the garbage collector may run late). Counted
+always: ``parallel.unpack.reuse`` and ``parallel.unpack.fresh``, one a
+class. The decoder holds at most the output of its last two calls, one of
+which such a caller holds anyway.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import sys
+import threading
 import time
 from collections import defaultdict
 from concurrent.futures import ThreadPoolExecutor
@@ -128,6 +149,15 @@ def _copy_stream(streams: dict, dev):
     if s is None:
         s = streams[dev] = torch.cuda.Stream(dev)
     return s
+
+
+def _refs(arrays: list, k: int) -> int:
+    """References to ``arrays[k]``: ``_ALONE`` where the list is its only
+    owner."""
+    return sys.getrefcount(arrays[k])
+
+
+_ALONE = _refs([np.empty(0)], 0)
 
 
 def _next_pow2(x: int) -> int:
@@ -195,8 +225,44 @@ class BatchDecoder:
             _MAX_OUTSTANDING if max_outstanding_bytes is None
             else int(max_outstanding_bytes))
         self._copy_streams: dict = {}
+        # result memory (module docstring): the host arrays handed out, and
+        # the number of the call that last handed out each
+        self._pool: list[np.ndarray] = []
+        self._pool_calls: list[int] = []
+        self._pool_lock = threading.Lock()
+        self._calls = 0
 
     # --- one class ---------------------------------------------------------
+
+    def _result_memory(self, nbytes: int):
+        """A host array of at least ``nbytes`` for one class's results:
+        the smallest free one of the pool, else a new one; and whether it
+        was reused."""
+        with self._pool_lock:
+            pool, best = self._pool, None
+            for k in range(len(pool)):
+                if (pool[k].nbytes >= nbytes and _refs(pool, k) <= _ALONE
+                        and (best is None
+                             or pool[k].nbytes < pool[best].nbytes)):
+                    best = k
+            if best is None:
+                pool.append(np.empty(nbytes, np.uint8))
+                self._pool_calls.append(self._calls)
+                trace.count("parallel.unpack.fresh")
+                return pool[-1], False
+            self._pool_calls[best] = self._calls
+            trace.count("parallel.unpack.reuse")
+            return pool[best], True
+
+    def _forget(self) -> None:
+        """End a call: drop the arrays that neither it nor the call before
+        handed out."""
+        with self._pool_lock:
+            keep = [k for k, c in enumerate(self._pool_calls)
+                    if c >= self._calls - 1]
+            self._pool = [self._pool[k] for k in keep]
+            self._pool_calls = [self._pool_calls[k] for k in keep]
+            self._calls += 1
 
     def _run(self, items, key, dev):
         """Decode one staged class on ``dev``. Returns (output, per-row
@@ -271,13 +337,19 @@ class BatchDecoder:
             if entry.done is not None:
                 entry.done.synchronize()
         out_ch = entry.key[2]
+        nbytes = entry.host.numel() * entry.host.element_size()
         with trace.span("parallel.unpack.copy", key=entry.key,
-                        bytes=entry.host.numel() * entry.host.element_size()):
-            # one copy out of the pinned buffer for the whole class; the
-            # images are views of it (a copy per image costs thousands of
-            # small allocations, and keeping the views on the pinned buffer
-            # would hold page-locked memory for as long as the results live)
-            out = entry.host.numpy().copy()
+                        bytes=nbytes) as span:
+            # one copy out of the pinned buffer for the whole class into an
+            # array of the decoder's pool; the images are views of it (a
+            # copy per image costs thousands of small allocations, and
+            # keeping the views on the pinned buffer would hold page-locked
+            # memory for as long as the results live)
+            src = entry.host.numpy()
+            mem, reused = self._result_memory(nbytes)
+            span.set(reused=reused)
+            out = mem[:nbytes].view(src.dtype).reshape(src.shape)
+            np.copyto(out, src)
             rows = out.shape[0]
             out = out.view(np.uint8).reshape(rows, -1)  # words: a free view
             if entry.seg_k is not None:  # packed rows: one image a segment
@@ -296,7 +368,10 @@ class BatchDecoder:
 
     def __call__(self, streams, channels: int = 0):
         with trace.entry("api.batch_decode", images=len(streams)) as call:
-            return self._decode(streams, channels, call)
+            try:
+                return self._decode(streams, channels, call)
+            finally:
+                self._forget()
 
     def _decode(self, streams, channels, call):
         results: list[DecodeResult | None] = [None] * len(streams)
@@ -333,19 +408,25 @@ class BatchDecoder:
         def recover(items, key, dev):
             """OOM degradation: re-run the class synchronously (everything
             else has drained), halving it while it still does not fit; a
-            single image that does not fit is that image's error."""
-            stats["oom_redispatch"] += 1
-            try:
-                entry = self._dispatch(items, key, dev)
-            except is_oom:
-                if len(items) == 1:
-                    results[items[0][0]] = DecodeResult(
-                        None, None, "out of device memory")
-                    return
-                recover(items[: len(items) // 2], key, dev)
-                recover(items[len(items) // 2:], key, dev)
-                return
-            self._finish(entry, results, fallback)
+            single image that does not fit is that image's error. A stack
+            of parts, first half first, not a recursive closure: one would
+            hold itself, and so the results, in a reference cycle until the
+            garbage collector ran."""
+            todo = [items]
+            while todo:
+                part = todo.pop()
+                stats["oom_redispatch"] += 1
+                try:
+                    entry = self._dispatch(part, key, dev)
+                except is_oom:
+                    if len(part) == 1:
+                        results[part[0][0]] = DecodeResult(
+                            None, None, "out of device memory")
+                    else:
+                        half = len(part) // 2
+                        todo += [part[half:], part[:half]]
+                else:
+                    self._finish(entry, results, fallback)
 
         def drain_one():
             nonlocal outstanding

@@ -1,12 +1,16 @@
 """``BatchDecoder`` and ``BatchEncoder`` of the port against the JAX
 package's and the native oracle: mixed lists, the icon class on the packed
 route, error slots, one front and one K2 an encode class, the bound on
-outstanding device bytes and the out-of-memory ladders.
+outstanding device bytes, the out-of-memory ladders, and the decoder's
+pool of host arrays for results (never one a caller still holds, only
+the last two calls', freed by reference counting alone).
 
 The port runs with ``device="cpu"`` (the kernels' plain versions), the JAX
 decoder and encoder on conftest's virtual CPU devices. Images are made from a seed with
 numpy; pixels and streams are compared exactly (tolerance 0).
 """
+
+import gc
 
 import numpy as np
 import pytest
@@ -17,6 +21,7 @@ from conftest import KINDS, gen_pixels
 from seqoia_tpu import native
 from seqoia_tpu.parallel import batch as jbatch
 from seqoia_tpu_torch.parallel import batch
+from seqoia_tpu_torch.utils import trace
 from test_torch_packed_decode import gen as icon_pixels
 
 # one thread per process: the suite runs several workers, and the plain
@@ -225,6 +230,134 @@ def test_oom_at_dispatch_drains_the_queue_and_resets_outstanding(monkeypatch):
 def test_corpus_decode():
     streams = _mixed()[:4]
     _same(st.corpus_decode(streams, device="cpu"), streams)
+
+
+# --- the results' host memory ------------------------------------------------
+
+def _one_class(rng, count=3):
+    """``count`` noise photos of 40x30 RGB: different streams, one class."""
+    return [_image(rng, 40, 30, 3, "noise") for _ in range(count)]
+
+
+def _reuses():
+    return trace.counters().get("parallel.unpack.reuse", 0)
+
+
+# how a caller holds a result: (what it keeps of one, the pixels that
+# reads back, the same part of the reference's pixels)
+_HOLDS = {
+    "results": (lambda r: r, lambda h: h.pixels, lambda w: w),
+    "slice": (lambda r: r.pixels[7:300], lambda h: h, lambda w: w[7:300]),
+    "from_numpy": (lambda r: torch.from_numpy(r.pixels), lambda h: h.numpy(),
+                   lambda w: w),
+    "memoryview": (lambda r: memoryview(r.pixels),
+                   lambda h: np.asarray(h), lambda w: w),
+}
+
+
+@pytest.mark.parametrize("hold", sorted(_HOLDS))
+def test_a_held_result_is_never_overwritten(hold):
+    """Call A's results, held as results, slices, tensors or memoryviews,
+    stay byte-exact while calls B and C decode other streams of the same
+    class: C reuses B's array (the pool is in use), never A's."""
+    keep, read, part = _HOLDS[hold]
+    rng = np.random.default_rng(21)
+    a, b, c = _one_class(rng), _one_class(rng), _one_class(rng)
+    dec = st.BatchDecoder(device="cpu")
+    res = dec(a)
+    held = [keep(r) for r in res]
+    del res
+    reused = _reuses()
+    _same(dec(b), b)
+    assert _reuses() == reused
+    _same(dec(c), c)
+    assert _reuses() == reused + 1
+    for h, s in zip(held, a):
+        want, _ = native.decode(s, 0)
+        assert np.array_equal(read(h), part(want))
+
+
+def test_dropped_results_free_their_array_for_the_call_after_next():
+    """A caller that holds one call's results while the next decodes: the
+    first two calls take new arrays, every later one reuses the array of
+    the call before last, which reference counting alone frees (the
+    garbage collector is off); the span says so."""
+    rng = np.random.default_rng(22)
+    lists = [_one_class(rng) for _ in range(5)]
+    dec = st.BatchDecoder(device="cpu")
+    last = None
+    gc.disable()
+    trace.enable()
+    try:
+        for k, streams in enumerate(lists):
+            before = trace.counters()
+            out = dec(streams)
+            after = trace.counters()
+            _same(out, streams)
+            if last is not None:
+                _same(last, lists[k - 1])
+            reused = after.get("parallel.unpack.reuse", 0) - before.get(
+                "parallel.unpack.reuse", 0)
+            fresh = after.get("parallel.unpack.fresh", 0) - before.get(
+                "parallel.unpack.fresh", 0)
+            assert (reused, fresh) == ((1, 0) if k >= 2 else (0, 1)), k
+            copy, = [sp for sp in trace.calls(1)[0]["spans"]
+                     if sp["name"] == "parallel.unpack.copy"]
+            assert copy["attrs"]["reused"] is (k >= 2)
+            last = out
+            del out
+    finally:
+        trace.disable()
+        gc.enable()
+
+
+@pytest.mark.parametrize("classes", [1, 2])
+def test_the_pool_keeps_the_last_two_calls_arrays(classes):
+    """Every result held over eight calls: no array is reused, and the
+    decoder keeps only the arrays of its last two calls."""
+    rng = np.random.default_rng(23)
+    extra = [_image(rng, 8, 8, 1, "luma")] if classes == 2 else []
+    dec = st.BatchDecoder(device="cpu")
+    reused = _reuses()
+    held = [dec(_one_class(rng) + extra) for _ in range(8)]
+    assert _reuses() == reused
+    last_two = {id(r.pixels.base) for res in held[-2:] for r in res}
+    assert len(last_two) == 2 * classes
+    assert {id(a) for a in dec._pool} == last_two
+
+
+@pytest.mark.parametrize("route", ["mixed", "packed", "qoi"])
+def test_a_reused_array_gives_the_pixels_of_a_new_one(route):
+    """Mixed classes, the packed icon route and a .qoi class: a second
+    call, through the first's arrays (filled with junk first, so a byte
+    it does not write shows), gives the first's pixels."""
+    rng = np.random.default_rng(24)
+    streams = {
+        "mixed": _mixed,
+        "packed": lambda: [native.encode(icon_pixels(rng, "luma", 4), 64, 64,
+                                         4, 0, 0) for _ in range(6)],
+        "qoi": lambda: [_image(rng, 40, 30, 3, "luma", compat=1)
+                        for _ in range(3)],
+    }[route]()
+    dec = st.BatchDecoder(device="cpu")
+    first = dec(streams)
+    want = [None if r.pixels is None else r.pixels.copy() for r in first]
+    del first
+    for k in range(len(dec._pool)):
+        dec._pool[k].fill(0xA5)
+    before = trace.counters()
+    second = dec(streams)
+    after = trace.counters()
+    assert after.get("parallel.unpack.fresh", 0) == before.get(
+        "parallel.unpack.fresh", 0)
+    assert after["parallel.unpack.reuse"] > before.get(
+        "parallel.unpack.reuse", 0)
+    if route == "packed":
+        assert dec.last_stats["packed_rows"] > 0
+    for i, (r, w) in enumerate(zip(second, want)):
+        assert (r.pixels is None) == (w is None), i
+        assert w is None or np.array_equal(r.pixels, w), i
+    _same(second, streams)
 
 
 # --- BatchEncoder -----------------------------------------------------------
