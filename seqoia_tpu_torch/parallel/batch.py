@@ -64,7 +64,9 @@ the profile): a call is the root ``api.batch_decode`` (``images``,
 ``device``) holds ``parallel.stage.fill`` (the pinned staging buffer and
 the copies into it) and ``parallel.stage.dispatch`` (the copy up and the
 codec's enqueue, with the codec's own spans: the ``.qoi`` fixpoint's
-passes, the encode's wait for its exact totals); per class unpacked,
+passes, the encode's wait for its exact totals); before them, a decode's
+``parallel.classify`` (``images``, ``classes``: each header read and the
+streams grouped into classes, outside ``last_timings``); per class unpacked,
 ``parallel.wait`` (``why``: ``first`` for the first class, ``unpack`` for
 each; ``key``) and ``parallel.unpack.copy`` (the copy out of pinned memory
 and the results; ``reused``: whether the class's host array came from the
@@ -86,8 +88,10 @@ of the call before last: its array is free. Otherwise the class gets a new
 array. Results are freed by reference counting alone (no reference cycle
 holds them: the garbage collector may run late). Counted
 always: ``parallel.unpack.reuse`` and ``parallel.unpack.fresh``, one a
-class. The decoder holds at most the output of its last two calls, one of
-which such a caller holds anyway.
+class, and for each icon class on the packed route its images under
+``parallel.packed.images`` and its packed rows under
+``parallel.packed.rows``. The decoder holds at most the output of its last
+two calls, one of which such a caller holds anyway.
 """
 
 from __future__ import annotations
@@ -284,6 +288,8 @@ class BatchDecoder:
                     up(buf), up(slens), colch=colch, out_ch=out_ch,
                     seg=m_pad, seg_px=n_max, src_alpha=src_alpha)
             self._stats["packed_rows"] += buf.shape[0]
+            trace.count("parallel.packed.images", len(items))
+            trace.count("parallel.packed.rows", buf.shape[0])
             return out, ref, _ROW_BYTES // m_pad, buf.numel()
         b = len(items)
         with trace.span("parallel.stage.fill"):
@@ -376,23 +382,27 @@ class BatchDecoder:
     def _decode(self, streams, channels, call):
         results: list[DecodeResult | None] = [None] * len(streams)
         groups = defaultdict(list)
-        for i, data in enumerate(streams):
-            desc = (
-                spec.unpack_header(
-                    bytes(data[: spec.HEADER_SIZE + 1]) + b"\0" * 8)
-                if len(data) >= spec.HEADER_SIZE + spec.PADDING_SIZE else None)
-            if desc is None or channels < 0 or channels > 4:
-                results[i] = DecodeResult(None, None, "invalid header")
-                continue
-            colch = desc.col_channels
-            out_ch = channels if channels else colch + int(desc.has_alpha)
-            # power-of-two buckets keep the classes few; no kernel of the
-            # port needs a floor on the stream bucket, K2 needs the pixel
-            # slots to be a multiple of 4
-            key = (colch, bool(desc.qoi_compat), out_ch,
-                   _next_pow2(len(data)), _next_pow2(max(desc.n_pixels, 4)),
-                   bool(desc.has_alpha))
-            groups[key].append((i, data, desc))
+        with trace.span("parallel.classify", images=len(streams)) as span:
+            for i, data in enumerate(streams):
+                desc = (
+                    spec.unpack_header(
+                        bytes(data[: spec.HEADER_SIZE + 1]) + b"\0" * 8)
+                    if len(data) >= spec.HEADER_SIZE + spec.PADDING_SIZE
+                    else None)
+                if desc is None or channels < 0 or channels > 4:
+                    results[i] = DecodeResult(None, None, "invalid header")
+                    continue
+                colch = desc.col_channels
+                out_ch = channels if channels else colch + int(desc.has_alpha)
+                # power-of-two buckets keep the classes few; no kernel of the
+                # port needs a floor on the stream bucket, K2 needs the pixel
+                # slots to be a multiple of 4
+                key = (colch, bool(desc.qoi_compat), out_ch,
+                       _next_pow2(len(data)),
+                       _next_pow2(max(desc.n_pixels, 4)),
+                       bool(desc.has_alpha))
+                groups[key].append((i, data, desc))
+            span.set(classes=len(groups))
         call.set(classes=len(groups))
 
         stats = self._stats = {"early_drains": 0, "oom_redispatch": 0,
