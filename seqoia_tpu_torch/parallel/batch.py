@@ -33,6 +33,18 @@ failing the batch (per-image failure isolation). Routes, per class:
   one core), then the rows the card hands back (SQOA streams with REF
   ops); all counted in ``last_stats["host_rows"]``.
 
+The host work of a batch of many small streams is done once a batch where
+the data allows. A stream's first 15 bytes (the 14-byte header and the
+start byte, whose absence marks ``.qoi``) alone decide its desc and its
+class but for the stream bucket, so a call parses each distinct header
+once: a dict, kept for the call only, maps those bytes to the parse (None
+for a malformed header), and only the stream bucket is reckoned a stream.
+Each result still gets a desc object of its own. ``pack_segments`` fills
+the packed rows through one memoryview, one slice assignment a stream. A
+class with no flagged row and one pixel count (every packed class) gets
+its results from one list of row views; any other class goes image by
+image, and a flagged packed row sends its images to the host pool.
+
 Encode: images are grouped by (color channels, alpha, ``.qoi``, pixel
 bucket); each class's raw bytes are staged once into a pinned buffer and
 copied up, K4 packs them (strides 1-3; stride 4 is already packed), and one
@@ -66,7 +78,10 @@ the copies into it) and ``parallel.stage.dispatch`` (the copy up and the
 codec's enqueue, with the codec's own spans: the ``.qoi`` fixpoint's
 passes, the encode's wait for its exact totals); before them, a decode's
 ``parallel.classify`` (``images``, ``classes``: each header read and the
-streams grouped into classes, outside ``last_timings``); per class unpacked,
+streams grouped into classes, outside ``last_timings``; counted always:
+``parallel.classify.header_parses``, one a distinct header parsed, and
+``parallel.classify.header_hits``, one a stream whose header the call had
+already parsed); per class unpacked,
 ``parallel.wait`` (``why``: ``first`` for the first class, ``unpack`` for
 each; ``key``) and ``parallel.unpack.copy`` (the copy out of pinned memory
 and the results; ``reused``: whether the class's host array came from the
@@ -168,21 +183,45 @@ def _next_pow2(x: int) -> int:
     return 1 << (max(int(x), 1) - 1).bit_length()
 
 
+def _classify_header(head: bytes, channels: int):
+    """What a stream's class takes from its 15 header bytes, which alone
+    decide it: (the desc's fields, the class key before the stream bucket,
+    the key after it), or None for a malformed header or ``channels``."""
+    desc = spec.unpack_header(head + b"\0" * spec.PADDING_SIZE)
+    if desc is None or channels < 0 or channels > 4:
+        return None
+    colch = desc.col_channels
+    out_ch = channels if channels else colch + int(desc.has_alpha)
+    # power-of-two buckets keep the classes few; no kernel of the port needs
+    # a floor on the stream bucket, K2 needs the pixel slots to be a
+    # multiple of 4
+    return (dataclasses.astuple(desc),
+            (colch, bool(desc.qoi_compat), out_ch),
+            (_next_pow2(max(desc.n_pixels, 4)), bool(desc.has_alpha)))
+
+
 def pack_segments(streams, seg: int, pin: bool = False):
     """The streams of one icon class as packed rows: ((rows, 32768) uint8
     with stream j in segment j % k of row j // k, k = 32768 // seg, and the
     (rows, k) int32 segment lengths (stream length less the end marker; 0
     for the empty segments after the last stream). ``pin``: in pinned host
-    memory."""
+    memory. A stream is any 1-D buffer of bytes (``bytes``, ``bytearray``,
+    ``memoryview``, uint8 ``np.ndarray``)."""
     k = _ROW_BYTES // seg
-    rows = -(-len(streams) // k)
+    n = len(streams)
+    rows = -(-n // k)
     buf = torch.zeros((rows, _ROW_BYTES), dtype=torch.uint8, pin_memory=pin)
     slens = torch.zeros((rows, k), dtype=torch.int32, pin_memory=pin)
-    buf_np, slens_np = buf.numpy(), slens.numpy()
+    slens.numpy().reshape(-1)[:n] = (
+        np.fromiter(map(len, streams), np.int64, n) - spec.PADDING_SIZE)
+    # segment j % k of row j // k starts at byte j * seg of the rows
+    dst = memoryview(buf.numpy()).cast("B")
     for j, data in enumerate(streams):
-        r, c = divmod(j, k)
-        buf_np[r, c * seg: c * seg + len(data)] = np.frombuffer(data, np.uint8)
-        slens_np[r, c] = len(data) - spec.PADDING_SIZE
+        at = j * seg
+        try:
+            dst[at: at + len(data)] = data
+        except (TypeError, ValueError):  # a buffer whose format is not "B"
+            dst[at: at + len(data)] = memoryview(data).cast("B")
     return buf, slens
 
 
@@ -361,7 +400,16 @@ class BatchDecoder:
             if entry.seg_k is not None:  # packed rows: one image a segment
                 out = out.reshape(rows * entry.seg_k, -1)
             need_fb = entry.need_fb.numpy()
-            for j, (i, data, desc) in enumerate(entry.items):
+            items = entry.items
+            npix = items[0][2].n_pixels
+            # the packed route takes only classes of one pixel count
+            if not need_fb.any() and (entry.seg_k is not None or all(
+                    it[2].n_pixels == npix for it in items)):
+                views = list(out[: len(items), : npix * out_ch])
+                for (i, _, desc), view in zip(items, views):
+                    results[i] = DecodeResult(view, desc)
+                return
+            for j, (i, data, desc) in enumerate(items):
                 # a packed row is flagged as a whole: one foreign image sends
                 # its row mates to the same byte-exact host decoder
                 if need_fb[j // entry.seg_k if entry.seg_k else j]:
@@ -382,27 +430,32 @@ class BatchDecoder:
     def _decode(self, streams, channels, call):
         results: list[DecodeResult | None] = [None] * len(streams)
         groups = defaultdict(list)
+        # one parse a distinct header, for this call only (module docstring)
+        headers: dict = {}
+        hits = 0
         with trace.span("parallel.classify", images=len(streams)) as span:
             for i, data in enumerate(streams):
-                desc = (
-                    spec.unpack_header(
-                        bytes(data[: spec.HEADER_SIZE + 1]) + b"\0" * 8)
-                    if len(data) >= spec.HEADER_SIZE + spec.PADDING_SIZE
-                    else None)
-                if desc is None or channels < 0 or channels > 4:
+                n = len(data)
+                if n < spec.HEADER_SIZE + spec.PADDING_SIZE:
                     results[i] = DecodeResult(None, None, "invalid header")
                     continue
-                colch = desc.col_channels
-                out_ch = channels if channels else colch + int(desc.has_alpha)
-                # power-of-two buckets keep the classes few; no kernel of the
-                # port needs a floor on the stream bucket, K2 needs the pixel
-                # slots to be a multiple of 4
-                key = (colch, bool(desc.qoi_compat), out_ch,
-                       _next_pow2(len(data)),
-                       _next_pow2(max(desc.n_pixels, 4)),
-                       bool(desc.has_alpha))
-                groups[key].append((i, data, desc))
+                head = bytes(data[: spec.HEADER_SIZE + 1])
+                if head in headers:
+                    hits += 1
+                    parsed = headers[head]
+                else:
+                    parsed = headers[head] = _classify_header(head, channels)
+                if parsed is None:
+                    results[i] = DecodeResult(None, None, "invalid header")
+                    continue
+                fields, front, back = parsed
+                # the stream bucket is _next_pow2(n), n > 1 here; each
+                # result keeps a desc of its own: a caller may edit it
+                groups[front + (1 << (n - 1).bit_length(),) + back].append(
+                    (i, data, spec.SqoaDesc(*fields)))
             span.set(classes=len(groups))
+        trace.count("parallel.classify.header_hits", hits)
+        trace.count("parallel.classify.header_parses", len(headers))
         call.set(classes=len(groups))
 
         stats = self._stats = {"early_drains": 0, "oom_redispatch": 0,
