@@ -2,11 +2,26 @@
 
 Port of ``seqoia_tpu/parallel/batch.py`` (``DecodeResult``,
 ``BatchDecoder``, ``corpus_decode``, ``BatchEncoder``, ``corpus_encode``).
-With ``mesh=`` (``parallel.mesh``) each class's images are split into
-contiguous parts, one per mesh entry (``batch_sharding``), and each part
-is staged and coded on its entry's device as a class of its own; results
-come back in input order. Without a mesh everything runs on ``device=``
-(the JAX package's default mesh is every device).
+
+Both coders run one pipeline (``_Pipeline``). A call groups its images into
+classes. With ``mesh=`` (``parallel.mesh``) each class is split into
+contiguous parts, one per mesh entry (``batch_sharding``), and each part is
+staged and coded on its entry's device as a class of its own; without a
+mesh everything runs on ``device=`` (the JAX package's default mesh is
+every device). Results come back in input order. A class's kernels and the
+copy of its outputs into pinned host memory (on a second stream of its
+device) are queued, and the host goes on staging the next class; results
+are unpacked class by class as their copies complete. Device bytes held by
+queued work are bounded (``max_outstanding_bytes``): past the bound the
+oldest class drains first. A ``torch.cuda.OutOfMemoryError`` (PyTorch
+raises it where a class is dispatched, at an allocation) drains the queue
+and re-runs the class at half size, down to a single image; one that still
+does not fit comes back as that image's error slot (decode) or None
+(encode, counted in ``last_stats["oom_errors"]``). Work the card fails at
+is never moved to the host: the native codec decodes only the rows the
+policy and the REF streams send it. No reference cycle holds a call's
+results: reference counting alone frees them (the garbage collector may
+run late).
 
 Decode: streams are grouped into shape classes, each class is stacked and
 decoded by one batched call, and a malformed header is refused on the host
@@ -54,20 +69,6 @@ K2 sized from the exact stream totals the front computed
 class's front, so the host stages the next class once that front has run.
 An image whose pixels are None or whose desc is invalid gets None.
 
-Both pipelines overlap their phases: a class's kernels and the copy of its
-output into pinned host memory (on a second stream of its device) are
-queued, and the host goes on staging the next class; results are unpacked
-class by class as their copies complete. Device bytes held by queued work
-are bounded (``max_outstanding_bytes``): past the bound the oldest class
-drains first.
-A ``torch.cuda.OutOfMemoryError`` (PyTorch raises it where a class is
-dispatched, at an allocation) drains the queue and re-runs the class at
-half size, down to a single image; one that still does not fit comes back
-as that image's error slot (decode) or None (encode, counted in
-``last_stats["oom_errors"]``). Work the card fails at is never moved to the
-host: the native codec decodes only the rows the policy and the REF
-streams send it.
-
 Spans (``utils.trace``; on while ``trace.enable()`` is in force or a
 ``torch.profiler`` session records, then also ``seqoia/<name>`` ranges in
 the profile): a call is the root ``api.batch_decode`` (``images``,
@@ -100,13 +101,11 @@ which a new array over glibc's 32 MiB mmap cap always gets, each faulted
 in by the kernel as it is first written. A caller that keeps each call's
 results until the next call returns, as a loader does, has by then let go
 of the call before last: its array is free. Otherwise the class gets a new
-array. Results are freed by reference counting alone (no reference cycle
-holds them: the garbage collector may run late). Counted
-always: ``parallel.unpack.reuse`` and ``parallel.unpack.fresh``, one a
-class, and for each icon class on the packed route its images under
-``parallel.packed.images`` and its packed rows under
-``parallel.packed.rows``. The decoder holds at most the output of its last
-two calls, one of which such a caller holds anyway.
+array. Counted always: ``parallel.unpack.reuse`` and
+``parallel.unpack.fresh``, one a class, and for each icon class on the
+packed route its images under ``parallel.packed.images`` and its packed
+rows under ``parallel.packed.rows``. The decoder holds at most the output
+of its last two calls, one of which such a caller holds anyway.
 """
 
 from __future__ import annotations
@@ -155,19 +154,6 @@ def _compat_mode() -> str:
     if mode not in ("0", "1", "auto"):
         raise ValueError(f"SEQOIA_COMPAT_CUDA={mode!r}: use 0, 1 or auto")
     return mode
-
-
-def _mesh(device, mesh) -> tuple:
-    """The entries a pipeline runs on: the mesh, or ``device`` alone."""
-    return default_mesh(mesh) if mesh is not None else (resolve(device),)
-
-
-def _copy_stream(streams: dict, dev):
-    """The stream of ``dev`` that copies outputs down (made once)."""
-    s = streams.get(dev)
-    if s is None:
-        s = streams[dev] = torch.cuda.Stream(dev)
-    return s
 
 
 def _refs(arrays: list, k: int) -> int:
@@ -236,18 +222,134 @@ class DecodeResult:
 
 @dataclasses.dataclass
 class _Pending:
-    """One dispatched class: its output on its way to ``host``."""
+    """One dispatched class: its outputs on their way to ``host``."""
     items: list
     key: tuple
-    host: torch.Tensor       # pinned (or CPU) copy of the output
-    need_fb: torch.Tensor    # host copy of the per-row fallback flags
+    host: tuple              # pinned (or CPU) copies of the outputs
     done: object             # event after the copies (None on the CPU)
-    seg_k: int | None        # images per packed row, None off the icon route
-    nbytes: int              # device bytes held: input + output
+    nbytes: int              # device bytes held: input + first output
     keep: tuple              # device tensors the queued copies read
+    seg_k: int | None        # images per packed row, None off the icon route
 
 
-class BatchDecoder:
+class _Pipeline:
+    """The pipeline both coders run (module docstring). A coder gives
+    ``_run(items, key, dev)``, which stages and codes one class on ``dev``
+    and returns (its output tensors, the bytes of its input, images per
+    packed row or None); ``_finish``, which unpacks a ``_Pending`` into the
+    results; and ``_unfit(item, results)``, the outcome of an image that
+    alone does not fit in device memory. A call sets ``_stats``, with
+    ``early_drains`` and ``oom_redispatch`` among its counts, runs
+    ``_queue`` and then ``_drain``, with the same ``finish``."""
+
+    def __init__(self, device="cuda", max_outstanding_bytes: int | None = None,
+                 mesh=None):
+        self.mesh = (default_mesh(mesh) if mesh is not None
+                     else (resolve(device),))
+        self.last_timings: dict = {}
+        self.last_stats: dict = {}
+        self.max_outstanding_bytes = (
+            _MAX_OUTSTANDING if max_outstanding_bytes is None
+            else int(max_outstanding_bytes))
+        self._copy_streams: dict = {}   # per device, made once
+
+    def _dispatch(self, items, key, dev) -> _Pending:
+        """Stage and code one class on ``dev`` and queue the copy of its
+        outputs on the device's copy stream."""
+        with trace.span("parallel.class", key=key, rows=len(items),
+                        device=str(dev)) as span:
+            outs, in_bytes, seg_k = self._run(items, key, dev)
+            out_bytes = outs[0].numel() * outs[0].element_size()
+            span.set(in_bytes=in_bytes, out_bytes=out_bytes)
+            nbytes = out_bytes + in_bytes
+            if dev.type != "cuda":
+                return _Pending(items, key, outs, None, nbytes, (), seg_k)
+            copy = self._copy_streams.get(dev)
+            if copy is None:
+                copy = self._copy_streams[dev] = torch.cuda.Stream(dev)
+            host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                         for t in outs)
+            copy.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(copy):
+                for h, t in zip(host, outs):
+                    h.copy_(t, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(copy)
+            return _Pending(items, key, host, done, nbytes, outs, seg_k)
+
+    def _queue(self, classes, results, finish):
+        """Dispatch each (key, items) of ``classes`` in ``batch_sharding``'s
+        parts, in order. Past ``max_outstanding_bytes`` the oldest queued
+        class is finished (``finish(entry)``) first. Returns the queue, the
+        seconds spent staging and dispatching and those spent finishing
+        early."""
+        queue: list[_Pending] = []
+        outstanding, t_early = 0, 0.0
+        t0 = time.perf_counter()
+        for key, items in classes:
+            for dev, lo, hi in batch_sharding(self.mesh, len(items)):
+                part = items[lo:hi]
+                try:
+                    entry = self._dispatch(part, key, dev)
+                except torch.cuda.OutOfMemoryError:
+                    # free the queue and its bytes, then run degraded
+                    while queue:
+                        finish(queue.pop(0))
+                    outstanding = 0
+                    if dev.type == "cuda":
+                        torch.cuda.empty_cache()
+                    self._degrade(part, key, dev, results, finish)
+                    continue
+                queue.append(entry)
+                outstanding += entry.nbytes
+                while (outstanding > self.max_outstanding_bytes
+                       and len(queue) > 1):
+                    tf = time.perf_counter()
+                    outstanding -= queue[0].nbytes
+                    finish(queue.pop(0))
+                    self._stats["early_drains"] += 1
+                    t_early += time.perf_counter() - tf
+        return queue, time.perf_counter() - t0 - t_early, t_early
+
+    def _degrade(self, items, key, dev, results, finish):
+        """Re-run a class that did not fit, at once (the queue has drained),
+        halving it while it still does not fit; an image that alone does not
+        fit goes to ``_unfit``. A stack of parts, first half first: each half
+        runs after the ``except`` block of its parent's failure has ended,
+        so the failed dispatch's frames, and the device memory they hold,
+        are gone by then."""
+        todo = [items]
+        while todo:
+            part = todo.pop()
+            self._stats["oom_redispatch"] += 1
+            try:
+                entry = self._dispatch(part, key, dev)
+            except torch.cuda.OutOfMemoryError:
+                if len(part) == 1:
+                    self._unfit(part[0], results)
+                else:
+                    half = len(part) // 2
+                    todo += [part[half:], part[:half]]
+            else:
+                finish(entry)
+
+    @staticmethod
+    def _drain(queue, finish):
+        """Wait for the first queued class (the compute not yet hidden),
+        then finish the classes in order while later ones still run.
+        Returns the seconds of the wait and of the rest."""
+        t0 = time.perf_counter()
+        if queue:
+            with trace.span("parallel.wait", why="first", key=queue[0].key):
+                if queue[0].done is not None:
+                    queue[0].done.synchronize()
+        t1 = time.perf_counter()
+        while queue:
+            finish(queue.pop(0))
+        return t1 - t0, time.perf_counter() - t1
+
+
+class BatchDecoder(_Pipeline):
     """Decode many SQOA / QOI streams on one card or a mesh (module
     docstring).
 
@@ -261,13 +363,7 @@ class BatchDecoder:
 
     def __init__(self, device="cuda", max_outstanding_bytes: int | None = None,
                  mesh=None):
-        self.mesh = _mesh(device, mesh)
-        self.last_timings: dict = {}
-        self.last_stats: dict = {}
-        self.max_outstanding_bytes = (
-            _MAX_OUTSTANDING if max_outstanding_bytes is None
-            else int(max_outstanding_bytes))
-        self._copy_streams: dict = {}
+        super().__init__(device, max_outstanding_bytes, mesh)
         # result memory (module docstring): the host arrays handed out, and
         # the number of the call that last handed out each
         self._pool: list[np.ndarray] = []
@@ -308,8 +404,8 @@ class BatchDecoder:
             self._calls += 1
 
     def _run(self, items, key, dev):
-        """Decode one staged class on ``dev``. Returns (output, per-row
-        fallback flags, images per packed row or None, input bytes)."""
+        """Decode one staged class on ``dev``. Returns ((output, per-row
+        fallback flags), input bytes, images per packed row or None)."""
         colch, compat, out_ch, m_pad, n_max, src_alpha = key
         pin = dev.type == "cuda"
 
@@ -329,7 +425,7 @@ class BatchDecoder:
             self._stats["packed_rows"] += buf.shape[0]
             trace.count("parallel.packed.images", len(items))
             trace.count("parallel.packed.rows", buf.shape[0])
-            return out, ref, _ROW_BYTES // m_pad, buf.numel()
+            return (out, ref), buf.numel(), _ROW_BYTES // m_pad
         b = len(items)
         with trace.span("parallel.stage.fill"):
             buf = torch.zeros((b, m_pad), dtype=torch.uint8, pin_memory=pin)
@@ -350,30 +446,7 @@ class BatchDecoder:
                 out, ref = decode_v2.decode_stream_batched(
                     up(buf), clens, npix, colch=colch, out_ch=out_ch,
                     n_max=n_max, emit="words", src_alpha=src_alpha)
-        return out, ref, None, buf.numel()
-
-    def _dispatch(self, items, key, dev) -> _Pending:
-        """Stage and decode one class on ``dev`` and queue the copy of its
-        output."""
-        with trace.span("parallel.class", key=key, rows=len(items),
-                        device=str(dev)) as span:
-            out, ref, seg_k, in_bytes = self._run(items, key, dev)
-            out_bytes = out.numel() * out.element_size()
-            span.set(in_bytes=in_bytes, out_bytes=out_bytes)
-            nbytes = out_bytes + in_bytes
-            if dev.type != "cuda":
-                return _Pending(items, key, out, ref, None, seg_k, nbytes, ())
-            copy = _copy_stream(self._copy_streams, dev)
-            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-            flags = torch.empty(ref.shape, dtype=ref.dtype, pin_memory=True)
-            copy.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(copy):
-                host.copy_(out, non_blocking=True)
-                flags.copy_(ref, non_blocking=True)
-                done = torch.cuda.Event()
-                done.record(copy)
-            return _Pending(items, key, host, flags, done, seg_k, nbytes,
-                            (out, ref))
+        return (out, ref), buf.numel(), None
 
     def _finish(self, entry: _Pending, results, fallback) -> None:
         """Unpack one class's output into results; rows the card hands back
@@ -382,7 +455,8 @@ class BatchDecoder:
             if entry.done is not None:
                 entry.done.synchronize()
         out_ch = entry.key[2]
-        nbytes = entry.host.numel() * entry.host.element_size()
+        host, need_fb = entry.host
+        nbytes = host.numel() * host.element_size()
         with trace.span("parallel.unpack.copy", key=entry.key,
                         bytes=nbytes) as span:
             # one copy out of the pinned buffer for the whole class into an
@@ -390,7 +464,7 @@ class BatchDecoder:
             # copy per image costs thousands of small allocations, and
             # keeping the views on the pinned buffer would hold page-locked
             # memory for as long as the results live)
-            src = entry.host.numpy()
+            src = host.numpy()
             mem, reused = self._result_memory(nbytes)
             span.set(reused=reused)
             out = mem[:nbytes].view(src.dtype).reshape(src.shape)
@@ -399,7 +473,7 @@ class BatchDecoder:
             out = out.view(np.uint8).reshape(rows, -1)  # words: a free view
             if entry.seg_k is not None:  # packed rows: one image a segment
                 out = out.reshape(rows * entry.seg_k, -1)
-            need_fb = entry.need_fb.numpy()
+            need_fb = need_fb.numpy()
             items = entry.items
             npix = items[0][2].n_pixels
             # the packed route takes only classes of one pixel count
@@ -462,68 +536,15 @@ class BatchDecoder:
                                "packed_rows": 0, "host_rows": 0}
         mode = _compat_mode()
         host_items: list = []   # .qoi streams the policy sends to the host
-        pending: list[_Pending] = []
         fallback: list = []     # rows the card hands back
-        outstanding = 0
-        t_fetch_early = 0.0
-        is_oom = torch.cuda.OutOfMemoryError
 
-        def recover(items, key, dev):
-            """OOM degradation: re-run the class synchronously (everything
-            else has drained), halving it while it still does not fit; a
-            single image that does not fit is that image's error. A stack
-            of parts, first half first, not a recursive closure: one would
-            hold itself, and so the results, in a reference cycle until the
-            garbage collector ran."""
-            todo = [items]
-            while todo:
-                part = todo.pop()
-                stats["oom_redispatch"] += 1
-                try:
-                    entry = self._dispatch(part, key, dev)
-                except is_oom:
-                    if len(part) == 1:
-                        results[part[0][0]] = DecodeResult(
-                            None, None, "out of device memory")
-                    else:
-                        half = len(part) // 2
-                        todo += [part[half:], part[:half]]
-                else:
-                    self._finish(entry, results, fallback)
-
-        def drain_one():
-            nonlocal outstanding
-            entry = pending.pop(0)
-            outstanding -= entry.nbytes
+        def finish(entry):
             self._finish(entry, results, fallback)
 
-        t0 = time.perf_counter()
-        for key, items in groups.items():
-            colch, compat = key[0], key[1]
-            if compat and mode != "1":
-                items = self._route(items, colch, mode, host_items, stats)
-            for dev, lo, hi in batch_sharding(self.mesh, len(items)):
-                part = items[lo:hi]
-                try:
-                    entry = self._dispatch(part, key, dev)
-                except is_oom:
-                    # free the queue (each drain gives its bytes back, so
-                    # ``outstanding`` restarts from 0), then run degraded
-                    while pending:
-                        drain_one()
-                    if dev.type == "cuda":
-                        torch.cuda.empty_cache()
-                    recover(part, key, dev)
-                    continue
-                pending.append(entry)
-                outstanding += entry.nbytes
-                while (outstanding > self.max_outstanding_bytes
-                       and len(pending) > 1):
-                    tf = time.perf_counter()
-                    drain_one()
-                    stats["early_drains"] += 1
-                    t_fetch_early += time.perf_counter() - tf
-        t_stage = time.perf_counter() - t0 - t_fetch_early
+        # the policy takes its share of a .qoi class as the class comes up
+        classes = ((key, self._route(items, key, mode, host_items, stats))
+                   for key, items in groups.items())
+        queue, t_stage, t_early = self._queue(classes, results, finish)
 
         # the host's share of .qoi streams: on a thread of its own while
         # the card's classes run, inline when there is nothing to overlap
@@ -531,7 +552,7 @@ class BatchDecoder:
         host_job, t_host = None, 0.0
         if host_items:
             pairs = [(i, data) for i, data, _ in host_items]
-            if pending and (os.cpu_count() or 8) > 1:
+            if queue and (os.cpu_count() or 8) > 1:
                 ex = ThreadPoolExecutor(1)
                 host_job = ex.submit(self._host_pool, pairs, channels, results)
                 ex.shutdown(wait=False)  # the job runs on; its thread ends
@@ -542,19 +563,7 @@ class BatchDecoder:
                     self._host_pool(pairs, channels, results)
                 t_host = time.perf_counter() - t0
 
-        # wait for the first class (the compute not yet hidden), then
-        # unpack class by class while later ones still run
-        t0 = time.perf_counter()
-        if pending:
-            with trace.span("parallel.wait", why="first", key=pending[0].key):
-                if pending[0].done is not None:
-                    pending[0].done.synchronize()
-        t_compute = time.perf_counter() - t0
-
-        t0 = time.perf_counter()
-        while pending:
-            drain_one()
-        t_fetch = time.perf_counter() - t0 + t_fetch_early
+        t_compute, t_fetch = self._drain(queue, finish)
 
         t0 = time.perf_counter()
         if fallback:
@@ -569,16 +578,23 @@ class BatchDecoder:
         t_host += time.perf_counter() - t0
         stats["host_rows"] = len(fallback) + len(host_items)
         self.last_timings = {"stage": t_stage, "compute": t_compute,
-                             "fetch": t_fetch, "host": t_host}
+                             "fetch": t_fetch + t_early, "host": t_host}
         self.last_stats = stats
         return results
 
+    def _unfit(self, item, results):
+        results[item[0]] = DecodeResult(None, None, "out of device memory")
+
     @staticmethod
-    def _route(items, colch, mode, host_items, stats):
-        """The items of a ``.qoi`` class that go to the card under ``mode``
-        (``0`` or ``auto``); the others join ``host_items``. ``auto`` sends a
-        color stream to the card when its probed INDEX-chain depth is below
-        the fixpoint's cap, and mono streams to the host."""
+    def _route(items, key, mode, host_items, stats):
+        """The items of a class that go to the card: all of a SQOA class or
+        under ``mode`` ``1``; of a ``.qoi`` class under ``0`` or ``auto``,
+        the others join ``host_items``. ``auto`` sends a color stream to the
+        card when its probed INDEX-chain depth is below the fixpoint's cap,
+        and mono streams to the host."""
+        colch, compat = key[0], key[1]
+        if not compat or mode == "1":
+            return items
         if mode == "0" or colch != 3:
             host_items.extend(items)
             return []
@@ -619,18 +635,7 @@ def corpus_decode(streams, channels: int = 0, device="cuda", mesh=None):
     return BatchDecoder(device, mesh=mesh)(streams, channels)
 
 
-@dataclasses.dataclass
-class _Encoding:
-    """One dispatched encode class: its bytes on their way to ``host``."""
-    items: list
-    host: torch.Tensor       # pinned (or CPU) copy of the stream bytes
-    total: torch.Tensor      # pinned (or CPU) copy of the exact totals
-    done: object             # event after the copies (None on the CPU)
-    nbytes: int              # device bytes held: input, packed, output
-    keep: tuple              # device tensors the queued copies read
-
-
-class BatchEncoder:
+class BatchEncoder(_Pipeline):
     """Encode many images on one card or a mesh (module docstring); returns
     a list of file bytes, None for an image that is None, has an invalid
     desc or did not fit in device memory.
@@ -642,21 +647,11 @@ class BatchEncoder:
     drains, OOM re-dispatches and images that did not fit
     (``oom_errors``)."""
 
-    def __init__(self, device="cuda", max_outstanding_bytes: int | None = None,
-                 mesh=None):
-        self.mesh = _mesh(device, mesh)
-        self.last_timings: dict = {}
-        self.last_stats: dict = {}
-        self.max_outstanding_bytes = (
-            _MAX_OUTSTANDING if max_outstanding_bytes is None
-            else int(max_outstanding_bytes))
-        self._copy_streams: dict = {}
-
     # --- one class ---------------------------------------------------------
 
     def _run(self, items, key, dev):
-        """Stage and encode one class on ``dev``. Returns (stream bytes,
-        exact totals, device bytes of the input and packed pixels)."""
+        """Stage and encode one class on ``dev``. Returns ((stream bytes,
+        exact totals), device bytes of the input and packed pixels, None)."""
         colch, has_alpha, compat, n_pad = key
         stride = colch + int(has_alpha)
         pin = dev.type == "cuda"
@@ -680,39 +675,18 @@ class BatchEncoder:
                 packed, nval.to(dev, non_blocking=True), colch=colch,
                 compat=compat)
         in_bytes = buf.numel() + (0 if stride == 4 else 4 * packed.numel())
-        return out, total, in_bytes
-
-    def _dispatch(self, items, key, dev) -> _Encoding:
-        """Stage and encode one class on ``dev`` and queue the copy of its
-        bytes."""
-        with trace.span("parallel.class", key=key, rows=len(items),
-                        device=str(dev)) as span:
-            out, total, in_bytes = self._run(items, key, dev)
-            span.set(in_bytes=in_bytes, out_bytes=out.numel())
-            nbytes = out.numel() + in_bytes
-            if dev.type != "cuda":
-                return _Encoding(items, out, total, None, nbytes, ())
-            copy = _copy_stream(self._copy_streams, dev)
-            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-            host_total = torch.empty(total.shape, dtype=total.dtype,
-                                     pin_memory=True)
-            copy.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(copy):
-                host.copy_(out, non_blocking=True)
-                host_total.copy_(total, non_blocking=True)
-                done = torch.cuda.Event()
-                done.record(copy)
-            return _Encoding(items, host, host_total, done, nbytes,
-                             (out, total))
+        return (out, total), in_bytes, None
 
     @staticmethod
-    def _finish(entry: _Encoding, results) -> None:
+    def _finish(entry: _Pending, results) -> None:
         """Unpack one class's bytes into results."""
-        with trace.span("parallel.wait", why="unpack"):
+        with trace.span("parallel.wait", why="unpack", key=entry.key):
             if entry.done is not None:
                 entry.done.synchronize()
-        with trace.span("parallel.unpack.copy", bytes=entry.host.numel()):
-            out, total = entry.host.numpy(), entry.total.numpy()
+        out, total = entry.host
+        with trace.span("parallel.unpack.copy", key=entry.key,
+                        bytes=out.numel()):
+            out, total = out.numpy(), total.numpy()
             for j, (i, _, desc) in enumerate(entry.items):
                 # header + body in one copy out of the pinned buffer
                 results[i] = b"".join((spec.pack_header(desc),
@@ -737,76 +711,21 @@ class BatchEncoder:
             groups[key].append((i, pix, desc))
         call.set(classes=len(groups))
 
-        stats = {"early_drains": 0, "oom_redispatch": 0, "oom_errors": 0}
-        pending: list[_Encoding] = []
-        outstanding = 0
-        t_fetch_early = 0.0
-        is_oom = torch.cuda.OutOfMemoryError
+        stats = self._stats = {"early_drains": 0, "oom_redispatch": 0,
+                               "oom_errors": 0}
 
-        def recover(items, key, dev):
-            """OOM degradation: re-run the class synchronously (everything
-            else has drained), halving it while it still does not fit; a
-            single image that does not fit gets None."""
-            stats["oom_redispatch"] += 1
-            try:
-                entry = self._dispatch(items, key, dev)
-            except is_oom:
-                if len(items) == 1:
-                    stats["oom_errors"] += 1
-                    return
-                recover(items[: len(items) // 2], key, dev)
-                recover(items[len(items) // 2:], key, dev)
-                return
+        def finish(entry):
             self._finish(entry, results)
 
-        def drain_one():
-            nonlocal outstanding
-            entry = pending.pop(0)
-            outstanding -= entry.nbytes
-            self._finish(entry, results)
-
-        t0 = time.perf_counter()
-        for key, items in groups.items():
-            for dev, lo, hi in batch_sharding(self.mesh, len(items)):
-                part = items[lo:hi]
-                try:
-                    entry = self._dispatch(part, key, dev)
-                except is_oom:
-                    # free the queue (each drain gives its bytes back, so
-                    # ``outstanding`` restarts from 0), then run degraded
-                    while pending:
-                        drain_one()
-                    if dev.type == "cuda":
-                        torch.cuda.empty_cache()
-                    recover(part, key, dev)
-                    continue
-                pending.append(entry)
-                outstanding += entry.nbytes
-                while (outstanding > self.max_outstanding_bytes
-                       and len(pending) > 1):
-                    tf = time.perf_counter()
-                    drain_one()
-                    stats["early_drains"] += 1
-                    t_fetch_early += time.perf_counter() - tf
-        t_stage = time.perf_counter() - t0 - t_fetch_early
-
-        # wait for the first class (the compute not yet hidden), then
-        # unpack class by class while later ones still run
-        t0 = time.perf_counter()
-        if pending:
-            with trace.span("parallel.wait", why="first"):
-                if pending[0].done is not None:
-                    pending[0].done.synchronize()
-        t_compute = time.perf_counter() - t0
-
-        t0 = time.perf_counter()
-        while pending:
-            drain_one()
-        t_fetch = time.perf_counter() - t0 + t_fetch_early
+        queue, t_stage, t_early = self._queue(groups.items(), results, finish)
+        t_compute, t_fetch = self._drain(queue, finish)
         self.last_timings = {"stage": t_stage, "compute": t_compute,
-                             "fetch": t_fetch, "host": 0.0}
+                             "fetch": t_fetch + t_early, "host": 0.0}
         self.last_stats = stats
         return results
+
+    def _unfit(self, item, results):
+        self._stats["oom_errors"] += 1
 
 
 def corpus_encode(images, descs, device="cuda", mesh=None):

@@ -3,7 +3,8 @@ package's and the native oracle: mixed lists, the icon class on the packed
 route, error slots, one front and one K2 an encode class, the bound on
 outstanding device bytes, the out-of-memory ladders, and the decoder's
 pool of host arrays for results (never one a caller still holds, only
-the last two calls', freed by reference counting alone).
+the last two calls', freed by reference counting alone), and the lists
+both coders return, freed by reference counting alone too.
 
 The port runs with ``device="cpu"`` (the kernels' plain versions), the JAX
 decoder and encoder on conftest's virtual CPU devices. Images are made from a seed with
@@ -11,6 +12,7 @@ numpy; pixels and streams are compared exactly (tolerance 0).
 """
 
 import gc
+import sys
 
 import numpy as np
 import pytest
@@ -541,6 +543,45 @@ def test_encoder_oom_at_k2_drains_and_degrades(monkeypatch):
                    ("K2", 2), ("done", 2), ("done", 2), ("done", 2)]
     assert enc.last_stats == {"early_drains": 0, "oom_redispatch": 3,
                               "oom_errors": 0}
+
+
+@pytest.mark.parametrize("ladder", [False, True], ids=["plain", "ladder"])
+@pytest.mark.parametrize("coder", ["decoder", "encoder"])
+def test_results_are_freed_by_reference_counting_alone(coder, ladder,
+                                                       monkeypatch):
+    """With the garbage collector off, the list a call returns has no
+    referrer but the caller, after a plain call and after the out-of-memory
+    ladder (every part of more than one image fails): no reference cycle
+    of the call holds it."""
+    rng = np.random.default_rng(26)
+    if coder == "decoder":
+        coder = st.BatchDecoder(device="cpu")
+        args = (_one_class(rng),)
+    else:
+        coder = st.BatchEncoder(device="cpu")
+        args = ([gen_pixels(rng, 64, 3, "luma") for _ in range(3)],
+                [st.SqoaDesc(8, 8, 3)] * 3)
+    if ladder:
+        run = coder._run
+
+        def tight(items, *key_dev):
+            if len(items) > 1:
+                raise torch.cuda.OutOfMemoryError("mocked")
+            return run(items, *key_dev)
+
+        monkeypatch.setattr(coder, "_run", tight)
+    gc.disable()
+    try:
+        out = coder(*args)
+        refs = sys.getrefcount(out)
+    finally:
+        gc.enable()
+    assert refs == 2  # the caller's name and getrefcount's argument
+    # 3 fails, re-runs whole and fails again -> (1, 2 -> (1, 1)): five
+    # re-dispatches, and every image fits
+    assert coder.last_stats["oom_redispatch"] == (5 if ladder else 0)
+    assert all(r is not None and getattr(r, "error", None) is None
+               for r in out)
 
 
 def test_corpus_encode_and_the_exports():
