@@ -1,0 +1,15 @@
+"""The program's codec.fixpoint.fused counter (one for each .qoi fixpoint
+or restart pass that ran as one fused kernel pass on a card), its delta over
+each BatchDecoder call, mean per call; from the program's tracer over the
+traced window. None where no call of the window counted it: a program
+without the counter, as before it was added, leaves the metric out."""
+from benchmark.harness.program_spans import counter_per_call, window_calls
+
+COUNTER = "codec.fixpoint.fused"
+
+
+def read(rec):
+    calls = window_calls(rec, "api.batch_decode")
+    if calls is None or not any(COUNTER in c["counters"] for c in calls):
+        return None
+    return counter_per_call(rec, "api.batch_decode", COUNTER)

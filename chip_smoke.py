@@ -10,7 +10,9 @@
    bit-exact (tolerance 0). SQOA: K1 decode front, K2 placement with its
    decode and encode epilogues, K3 encode front, K6 placement fill. QOI
    (.qoi): the arguments of the first launch of K5 (compaction), K6, K7
-   (slot last writer) and each K8 (scan) combine, recorded during one
+   (slot last writer), each K8 (scan) combine and K11 (the fused fixpoint
+   pass: its first and last pass, the final values and its check),
+   recorded during one
    decode_stream_compat_batched / encode_stream_batched(compat=True) call
    per photo workload (K2's EPI_ENCQ launch also beside the K6 spread and
    torch byte emission it replaced), and of K9 (the sequential decoder) in
@@ -23,19 +25,21 @@
    64x64 streams of generated mono .qoi ops and one row at totals on the
    chunk and ring edges; every K9 launch re-launched REPEATS times; the
    latency of one dependent shared-memory load (K9's chain bound, a
-   one-thread chase through a 128-entry table); K8 sum and K7 at 128
-   slots (not on the path) at the decode's op shape. Large images and icons:
+   one-thread chase through a 128-entry table); K8 segmod, sum and fill
+   and K7 at 128 slots (not on the path) at the decode's op shape. Large
+   images and icons:
    K4 at the three strides, K1 in segment mode in its three modes, and K1,
    K2 and K3 at the first launch of every distinct shape that encode_large,
    decode_large, the two shard forms (K3's carries, rows as shards) and
    BatchDecoder give them, checked on the arguments of that launch in one
    uncounted pass over those calls, and K2, K3 and K4 at every distinct
    launch of BatchEncoder on the batch-encode lists; K1 on a stream whose
-   pixel counts pass 2**31. K1, K3, K5, K7 and K8 (single-pass look-back
+   pixel counts pass 2**31. K1, K3, K5, K7, K8 and K11 (look-back
    kernels, whose faults are races) also at edge shapes (EDGE_SHAPES: K3 in
    colch 1 and 3 with and without shard carries, pixels that change often,
-   rarely and never, n_valid varied by row; every K8 combine, K5 with all-0,
-   all-1, 35% and last-only masks, K7 with 64 and 128 slots, four n_live,
+   rarely and never, n_valid varied by row; every K8 combine, K11 on
+   random ops, K5 with all-0, all-1, 35% and last-only masks, K7 with 64
+   and 128 slots, four n_live,
    three kinds of hashes, dense and sparse queries; K1 in its three modes on
    rows around its 4096-byte tile, tokens across tile edges, padding far
    past the stream, an n_max that cuts the last op, 37 short rows; K1's
@@ -45,8 +49,8 @@
    an entry on a tile's first slot, a tile with no entry, tiles of 4096
    entries, totals of 0, rows of different totals, n_out not a multiple of
    the tile, RGB words across a tile edge, on fresh storage and 4 bytes past
-   a 16-byte boundary), and every recorded .qoi launch of K2, K5, K6, K7 and
-   K8, every SQOA launch of K2, K3 and K6, every SQOA, large-image, icon and
+   a 16-byte boundary), and every recorded .qoi launch of K2, K5-K8 and
+   K11, every SQOA launch of K2, K3 and K6, every SQOA, large-image, icon and
    batch-encode launch of K1 (both modes), K2 and K3 and every K9 mono
    launch re-launched REPEATS times, each output bitwise equal to the first;
    their times also with the L2 flushed before each launch, K1's, K2's,
@@ -163,7 +167,7 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM peak memory rate (NVIDIA data sheet)
 OUT_DIR = "chiprun_out"
 REPS = 10  # timed launches per kernel and shape
-REPEATS = 50  # re-launches of K1-K3 and K5-K8 held bitwise to the first
+REPEATS = 50  # re-launches of K1-K3, K5-K8 and K11 held bitwise to the first
 BENCH_RUNS = 3  # `bench --cuda` tables outside the census, for their spread
 DISPATCH_RUNS = 5  # warm BatchDecoder calls a .qoi policy and list
 
@@ -196,16 +200,20 @@ KERNELS = {
     # no Pallas kernel: the lax.scan of the JAX REF decoder
     "K10": ("ref_decode", "seqoia_tpu_torch/csrc/ref.cu",
             "seqoia_tpu/codec/decode_jax.py:186"),
+    # no Pallas kernel: the XLA ops of a fixpoint pass around two tile_scans
+    "K11": ("op_values", "seqoia_tpu_torch/csrc/fixpoint.cu",
+            "seqoia_tpu/codec/decode_compat.py:80"),
 }
 SQOA_KERNELS = ("K1", "K2", "K3", "K6")
-QOI_KERNELS = ("K2", "K5", "K6", "K7", "K8", "K9")
+QOI_KERNELS = ("K2", "K5", "K6", "K7", "K8", "K9", "K11")
 LARGE_KERNELS = ("K1", "K2", "K3", "K4")
 ICON_KERNELS = ("K1seg", "K2")
 ENCODE_KERNELS = ("K2", "K3", "K4", "K5", "K7", "K8")
 MONO_KERNELS = ("K5", "K6", "K8", "K9mono")
 REF_KERNELS = ("K1", "K2", "K10")
-TOOL_KERNELS = ("K1", "K2", "K3", "K5", "K6", "K7", "K8", "K10")
-MESH_KERNELS = ("K1", "K1seg", "K2", "K3", "K4", "K5", "K6", "K7", "K8")
+TOOL_KERNELS = ("K1", "K2", "K3", "K5", "K6", "K7", "K8", "K10", "K11")
+MESH_KERNELS = ("K1", "K1seg", "K2", "K3", "K4", "K5", "K6", "K7", "K8",
+                "K11")
 END_KERNELS = ("K1", "K1seg", "K2", "K6", "K10")
 
 
@@ -675,10 +683,13 @@ def _value_chain(links: int):
 
 
 def _capture(run):
-    """Run ``run()`` with the K2, K5, K6, K7, K8 and K9 wrappers recording
-    the arguments of their first launch (K8: per combine). Returns ({kernel:
-    (args, kwargs)}, run's result)."""
-    from seqoia_tpu_torch.ops import compact, engine, scan, sequential, slots
+    """Run ``run()`` with the K2, K5, K6, K7, K8, K9 and K11 wrappers
+    recording the arguments of their first launch (K8: per combine; K11: its
+    first pass and its last, which may be the restart's rows, the final
+    values and its first check). Returns ({kernel: (args, kwargs)}, run's
+    result)."""
+    from seqoia_tpu_torch.ops import (compact, engine, fixpoint, scan,
+                                      sequential, slots)
 
     seen = {}
     saved = []
@@ -688,11 +699,17 @@ def _capture(run):
             (engine, "place_fill", lambda a, k: "K6"),
             (slots, "slot_last_writer", lambda a, k: "K7"),
             (scan, "tile_scan", lambda a, k: "K8 " + a[1]),
-            (sequential, "sequential_decode", lambda a, k: "K9")):
+            (sequential, "sequential_decode", lambda a, k: "K9"),
+            (fixpoint, "op_values", lambda a, k: (
+                "K11 pass" if k.get("hashes", True) else "K11 values")),
+            (fixpoint, "settled", lambda a, k: "K11 settled")):
         fn = getattr(mod, name)
 
         def rec(*a, _fn=fn, _key=key, **k):
-            seen.setdefault(_key(a, k), (a, k))
+            name = _key(a, k)
+            seen.setdefault(name, (a, k))
+            if name == "K11 pass":
+                seen["K11 last pass"] = (a, k)
             return _fn(*a, **k)
 
         saved.append((mod, name, fn))
@@ -710,7 +727,8 @@ def _check_qoi_call(key, args, kw, where):
     record)."""
     import torch
 
-    from seqoia_tpu_torch.ops import compact, engine, scan, sequential, slots
+    from seqoia_tpu_torch.ops import (compact, engine, fixpoint, scan,
+                                      sequential, slots)
 
     kid = key.split()[0]
     library = None
@@ -765,6 +783,30 @@ def _check_qoi_call(key, args, kw, where):
         n_q = int(((q >= 0) & (q < n_slots) & live).sum())
         nbytes = 12 * h.numel() + 4 * n_q
         shape = f"{where} {tuple(h.shape)} slots={n_slots} queries={n_q}"
+    elif kid == "K11" and key.endswith("settled"):
+        got_, iv = args
+        run = lambda: fixpoint.settled(got_, iv)  # noqa: E731
+        out = run()
+        want, p_ms = _plain_ms(lambda: fixpoint.settled_plain(got_, iv))
+        err = _max_err(out, want)
+        repeats = _repeats_differ(run, lambda o: [o], out)
+        nbytes = 8 * got_.numel() + got_.shape[0]
+        shape = f"{where} settled {tuple(got_.shape)}"
+    elif kid == "K11":
+        lo, hi, iv, tot = args
+        with_h = kw.get("hashes", True)
+        run = lambda: fixpoint.op_values(lo, hi, iv, tot,  # noqa: E731
+                                         hashes=with_h)
+        out = run()
+        want, p_ms = _plain_ms(lambda: fixpoint.op_values_plain(
+            lo, hi, iv, tot, with_h))
+        view = (lambda o: list(o)) if with_h else (lambda o: [o[0]])
+        err = max(_max_err(g, w) for g, w in zip(view(out), view(want)))
+        repeats = _repeats_differ(run, view, out)
+        # lo, hi and iv read once, px (and the hashes) written once
+        nbytes = (20 if with_h else 16) * lo.numel() + 4 * len(tot)
+        shape = (f"{where} {' '.join(key.split()[1:])} {tuple(lo.shape)} "
+                 f"ops={int(tot.sum())}")
     elif kid == "K9":
         lo, hi, tot = args
         run = lambda: sequential.sequential_decode(lo, hi, tot)  # noqa: E731
@@ -817,11 +859,11 @@ def _check_qoi_call(key, args, kw, where):
              bytes=nbytes, library_ms=library, main=True)
     if kid == "K2" and args[-1].kind == engine.EPI_ENCQ:
         r["replaced_ms"] = replaced_ms
-    if kid in ("K2", "K5", "K6", "K7", "K8"):
+    if kid in ("K2", "K5", "K6", "K7", "K8", "K11"):
         # a race (look-back, shared-memory staging) can hide in one launch:
         # the repeats must agree
         r.update(repeats_differ=repeats, cold_ms=_timed_cold(run))
-    if kid in ("K2", "K6", "K7"):
+    if kid in ("K2", "K6", "K7", "K11"):
         r["device_ms"] = _device_ms(run)
     if kid == "K9":
         r.update(repeats_differ=repeats, longest=int(tot.max()))
@@ -829,16 +871,18 @@ def _check_qoi_call(key, args, kw, where):
 
 
 def check_qoi_kernels(qstages, dev):
-    """K5, K6, K7 and K8 against their plain versions at the shapes the .qoi
-    path gives them (recorded from one batched decode and one batched
+    """K5, K6, K7, K8 and K11 against their plain versions at the shapes the
+    .qoi path gives them (recorded from one batched decode and one batched
     encode per photo workload), K9 at the value chain's, and, off the path,
-    K9 on the value chain's ops at totals on its chunk edges, K8 sum and
-    fill and K7 at 128 slots at the decode's op shape. Records
-    each photo workload's fixpoint stats."""
+    K9 on the value chain's ops at totals on its chunk edges, K8 segmod
+    (which K11 took over from the decode), sum and fill and K7 at 128 slots
+    at the decode's op shape. Records each photo workload's fixpoint
+    stats."""
     import torch
 
     from seqoia_tpu_torch.codec import (decode_stream_compat_batched,
                                         encode_stream_batched)
+    from seqoia_tpu_torch.ops import fixpoint
 
     rec = {k: [] for k in QOI_KERNELS}
     for s in qstages:
@@ -865,13 +909,23 @@ def check_qoi_kernels(qstages, dev):
         for key, (a, k) in seen.items():
             kid, r = _check_qoi_call(key, a, k, f"{s.name} decode")
             rec[kid].append(r)
-        # K8's other two combines, on the op stream of the first segmod,
-        # and K7 at 128 slots (the mono index), on the first resolution's
-        # slots spread over 128 by the value's low bit
-        ((seg,), _), _ = seen["K8 segmod"]
+        # K8's segmod on the two pack_pair words the library pass scanned
+        # (r, g; b, a) in the first resolution, its sum and fill on the
+        # first, and K7 at 128 slots (the mono index), on the first
+        # resolution's slots spread over 128 by the value's low bit
+        (lo, hi, iv, tot), _ = seen["K11 pass"]
+        w, f = fixpoint.elements_plain(lo, hi, iv, tot)
+        rgb, a_f = f & 1, (f >> 1) & 1
+        seg, seg_ba = ((w0 & 255) | (f0 << 8) | ((w1 & 255) << 16) | (f1 << 24)
+                       for w0, f0, w1, f1 in ((w, rgb, w >> 8, rgb),
+                                              (w >> 16, rgb, w >> 24, a_f)))
+        seg, seg_ba = seg.to(torch.int32), seg_ba.to(torch.int32)
+        del w, f, rgb, a_f
         (h, v, q), kw = seen["K7"]
         wide = [torch.where(x >= 0, x + 64 * (v & 1), -1) for x in (h, q)]
         for key, args, k in (
+                ("K8", ((seg,), "segmod"), {}),
+                ("K8", ((seg_ba,), "segmod"), {}),
                 ("K8", ((seg & 255,), "sum"), {}),
                 ("K8", ((seg, (seg >> 8) & 1), "fill"), {}),
                 ("K7", (wide[0], v, wide[1]), dict(kw, n_slots=128))):
@@ -928,20 +982,24 @@ def _offset(x):
 
 
 def check_edge_kernels(dev):
-    """K8 (every combine, fill with its two arrays) and K5 (all-0, all-1,
-    about 35% and last-entry-only masks, two payloads) against their plain
-    versions at EDGE_SHAPES, bit-exact, on inputs made on the card from a
-    seed; K8 and K5 also on inputs whose storage starts 4 bytes past a
-    16-byte boundary. Returns {kernel: [records]}."""
+    """K8 (every combine, fill with its two arrays), K5 (all-0, all-1,
+    about 35% and last-entry-only masks, two payloads) and K11 (random op
+    words of every kind, op totals from 0 to the row's length, with and
+    without hashes, and its check) against their plain versions at
+    EDGE_SHAPES, bit-exact, on inputs made on the card from a seed; all
+    three also on inputs whose storage starts 4 bytes past a 16-byte
+    boundary, and K11 on rows inside wider rows. Returns {kernel:
+    [records]}."""
     import torch
 
-    from seqoia_tpu_torch.ops import compact, scan
+    from seqoia_tpu_torch.ops import compact, fixpoint, scan
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(4)
-    rec = {"K5": [], "K8": []}
+    rec = {"K5": [], "K8": [], "K11": []}
     for shape in EDGE_SHAPES:
         bsz, m = shape
+        rec["K11"] += _edge_fixpoint(gen, shape, dev)
         for combine in scan.COMBINES:
             arrays = _edge_inputs(gen, shape, combine, dev)
             for where, xs in (("", arrays),
@@ -975,6 +1033,47 @@ def check_edge_kernels(dev):
                                       err=err, main=False))
         torch.cuda.empty_cache()
     return rec
+
+
+def _edge_fixpoint(gen, shape, dev):
+    """K11's records at one edge shape (see check_edge_kernels)."""
+    import torch
+    import torch.nn.functional as F
+
+    from seqoia_tpu_torch.ops import fixpoint
+
+    bsz, m = shape
+    lo, hi, iv = (_edge_inputs(gen, shape, "max", dev)[0] for _ in range(3))
+    hi = hi & 255
+    tot = torch.randint(0, m + 1, (bsz,), generator=gen, device=dev,
+                        dtype=torch.int64).to(torch.int32)
+    tot[0] = m
+    small = bsz * m <= 1 << 20
+    cases = [("", (lo, hi, iv))]
+    if small:
+        cases += [(" offset", tuple(_offset(x) for x in (lo, hi, iv))),
+                  (" in wider rows", tuple(F.pad(x, (0, 5))[:, :m]
+                                           for x in (lo, hi, iv)))]
+    out = []
+    for where, (a, b, c) in cases:
+        for with_h in (True, False):
+            got = fixpoint.op_values(a, b, c, tot, hashes=with_h)
+            want = fixpoint.op_values_plain(a, b, c, tot, with_h)
+            err = _max_err(got[0], want[0])
+            if with_h:
+                err = max(err, _max_err(got[1], want[1]))
+            out.append(dict(shape=f"edge values{'' if with_h else ' only'} "
+                                  f"{shape}{where}", err=err, main=False))
+    # the check: rows equal, and rows that differ in one entry
+    other = iv.clone()
+    flip = torch.randint(0, m, (bsz,), generator=gen, device=dev)
+    rows = torch.arange(bsz, device=dev)
+    other[rows[::2], flip[::2]] ^= 1
+    for where, x in (("", other), (" equal", iv)):
+        out.append(dict(shape=f"edge settled {shape}{where}", main=False,
+                        err=_max_err(fixpoint.settled(x, iv),
+                                     fixpoint.settled_plain(x, iv))))
+    return out
 
 
 def check_edge_slots(dev):
@@ -3028,6 +3127,16 @@ _CENSUS = {
         lambda a, o: (f"m={a['data'].numel()} n_pixels={a['n_pixels']} "
                       f"colch={a['colch']} out_ch={a['out_ch']}"),
         lambda a, o: (a["chunks_len"] + a["n_pixels"] * a["out_ch"], [])),
+    "op_values": (
+        lambda a: "K11",
+        lambda a, o: (f"values{'' if a['hashes'] else ' without hashes'} "
+                      f"{tuple(a['lo'].shape)}"),
+        lambda a, o: ((20 if a["hashes"] else 16) * a["lo"].numel()
+                      + 4 * len(a["totals"]), [])),
+    "settled": (
+        lambda a: "K11",
+        lambda a, o: f"settled {tuple(a['got'].shape)}",
+        lambda a, o: (8 * a["got"].numel() + len(o), [])),
 }
 
 
@@ -3114,13 +3223,13 @@ def _census(run, keep=None):
     import torch
 
     from seqoia_tpu_torch.ops import (_build, compact, encode_front, engine,
-                                      frontend, pack, ref, scan, sequential,
-                                      slots)
+                                      fixpoint, frontend, pack, ref, scan,
+                                      sequential, slots)
 
     log, pending, saved = [], [], []
     libs = {name: _build.load(name) for name in _build.KERNELS}
     for mod in (frontend, engine, encode_front, pack, compact, slots, scan,
-                sequential, ref):
+                sequential, ref, fixpoint):
         for name, spec in _CENSUS.items():
             fn = getattr(mod, name, None)
             if fn is not None and getattr(fn, "__module__", "") == \
@@ -3335,7 +3444,7 @@ def main() -> int:
                              f"between launches: {bad}")
 
     counters = {k: "kernels.launches." + k for k in (
-        "K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "K10")}
+        "K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "K10", "K11")}
     counters["K1seg"] = "kernels.launches.K1.seg"
     counters["K9mono"] = "kernels.launches.K9.mono"
     torch.cuda.reset_peak_memory_stats()

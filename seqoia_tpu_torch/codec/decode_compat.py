@@ -26,12 +26,15 @@ of values derived from the read before) goes to K9, the sequential decoder
 a row, so no row costs more than a bounded number of passes and one
 sequential walk.
 
-Per pass: K8 (two segmented mod-256 sums) rebuilds the values, K7 resolves
-the INDEX reads. Before the loop K8 (the tokenizer's map composition) finds
-the op starts and K5 compacts the op bytes; the restart's alpha is a K8
-fill; after the loop K6 places the pixels. The per-op values and hashes
-between the kernels are torch ops on the card, as they are XLA ops in the
-JAX package.
+Per pass on the card: K11 rebuilds every op's value and hash from the op
+bytes and the assumed INDEX values in one look-back launch, K7 resolves the
+INDEX reads, and K11's check says which rows changed
+(``codec.fixpoint.fused`` counts the passes); the JAX package computes the
+values as XLA ops around two segmented sums, which the CPU path keeps
+(``_resolve``, ``_op_values``). Before the loop K8 (the tokenizer's map
+composition) finds the op starts and K5 compacts the op bytes; the
+restart's alpha is a K8 fill; after the loop K11 gives the values and K6
+places the pixels.
 
 Mono ``.qoi`` (a header with 1 or 2 channels and a 128-slot index, a
 decoder-only quirk the encoder cannot produce) takes the JAX package's
@@ -47,7 +50,8 @@ import os
 import torch
 
 from .. import spec
-from ..ops import compact, engine, scan, scan_ops, sequential, slots
+from ..ops import (compact, engine, fixpoint, scan, scan_ops, sequential,
+                   slots)
 from ..utils import trace
 from .decode_v2 import _INIT_PACKED, _emit_pixels, _tokenize
 
@@ -80,20 +84,20 @@ def _unsettled(stable, kind: str) -> int:
     return stable.shape[0] - int(stable.sum())
 
 
-def _settle(ops, valid, qslot, totals, iv, rows):
-    """Resolve ``rows``, which the fixpoint left unsettled, restarted from
-    ``iv`` with the alpha of every INDEX guess speculated (the alpha of the
-    latest RGBA op, 255 before any), until they are stable or
-    ``_SETTLE_ITERS`` passes ran. Returns (iv, passes, the rows of ``rows``
-    still unsettled)."""
-    b0, b4 = ops[0], ops[4]
-    alpha = scan.fill_forward(b4, (b0 == spec.OP_RGBA) & valid, 255)
-    iv = torch.where((b0 < spec.QOI_INDEX_SIZE) & valid,
+def _settle(r, iv, rows):
+    """Resolve ``rows``, which the fixpoint left unsettled (``r``: their
+    _Rows), restarted from ``iv`` with the alpha of every INDEX guess
+    speculated (the alpha of the latest RGBA op, 255 before any), until they
+    are stable or ``_SETTLE_ITERS`` passes ran. Returns (iv, passes, the rows
+    of ``rows`` still unsettled)."""
+    b0, b4 = r.lo & 255, r.hi & 255
+    alpha = scan.fill_forward(b4, (b0 == spec.OP_RGBA) & r.valid, 255)
+    iv = torch.where((b0 < spec.QOI_INDEX_SIZE) & r.valid,
                      (iv & 0xFFFFFF) | (alpha << 24), 0)
     passes = 0
     while True:
         with trace.span("codec.settle.pass", rows=len(rows)) as sp:
-            iv, stable = _resolve(ops, valid, qslot, totals, iv)
+            iv, stable = r.resolve(iv)
             passes += 1
             last = passes == _SETTLE_ITERS
             if not last:
@@ -105,6 +109,44 @@ def _settle(ops, valid, qslot, totals, iv, rows):
     trace.host_sync("late_rows")  # the boolean index reads its count
     sp.set(unsettled=len(late))
     return iv, passes, late
+
+
+class _Rows:
+    """The compacted ops of a batch of color rows (``_ops``' lo, hi and
+    totals) and the fixpoint's passes over them: K11 and K7 on a card,
+    ``_resolve`` and ``_op_values`` on the CPU."""
+
+    def __init__(self, lo, hi, totals):
+        self.lo, self.hi, self.totals = lo, hi, totals
+        b0 = lo & 255
+        self.valid = torch.arange(lo.shape[1], device=lo.device)[None, :] \
+            < totals[:, None]
+        self.qslot = torch.where((b0 < spec.QOI_INDEX_SIZE) & self.valid, b0,
+                                 -1).to(torch.int32)
+        self.ops = None if lo.is_cuda else (
+            b0, (lo >> 8) & 255, (lo >> 16) & 255, (lo >> 24) & 255, hi & 255)
+
+    def take(self, rows):
+        return _Rows(self.lo[rows], self.hi[rows], self.totals[rows])
+
+    def resolve(self, iv):
+        """One fixpoint pass: (new iv, (B,) stable: no read changed). K7
+        answers 0 wherever no INDEX op reads, so its answers are the new
+        iv."""
+        if self.ops is not None:
+            return _resolve(self.ops, self.valid, self.qslot, self.totals, iv)
+        trace.count("codec.fixpoint.fused")
+        px, hashes = fixpoint.op_values(self.lo, self.hi, iv, self.totals)
+        got = slots.slot_last_writer(hashes, px, self.qslot, init=0,
+                                     n_live=self.totals)
+        return got, fixpoint.settled(got, iv)
+
+    def values(self, iv):
+        """Packed RGBA after each op, given the INDEX values ``iv``."""
+        if self.ops is not None:
+            return _op_values(self.ops, iv, self.valid)[0]
+        return fixpoint.op_values(self.lo, self.hi, iv, self.totals,
+                                  hashes=False)[0]
 
 
 def _op_values(ops, iv, valid):
@@ -206,19 +248,17 @@ def decode_stream_compat_batched(data, chunks_len, n_pixels, *, colch: int,
     dev = data.device
     bsz = data.shape[0]
     lo_c, hi_c, totals = _ops(data, chunks_len, colch)
-    valid = torch.arange(lo_c.shape[1], device=dev)[None, :] < totals[:, None]
     if colch == 1:
         with trace.span("codec.sequential", rows=bsz):
             px = sequential.sequential_decode(lo_c, None, totals, colch=1)
         if stats is not None:
             stats.update(passes=0, settled_rows=0, settle_passes=0,
                          sequential_rows=bsz)
+        valid = torch.arange(lo_c.shape[1], device=dev)[None, :] \
+            < totals[:, None]
         return (_expand(lo_c & 255, px, valid, n_pixels, 1, out_ch, n_max),
                 torch.ones(bsz, dtype=torch.bool, device=dev))
-    ops = (lo_c & 255, (lo_c >> 8) & 255, (lo_c >> 16) & 255,
-           (lo_c >> 24) & 255, hi_c & 255)
-    qslot = torch.where(ops[0] < spec.QOI_INDEX_SIZE, ops[0], -1)
-    qslot = torch.where(valid, qslot, -1).to(torch.int32)
+    r = _Rows(lo_c, hi_c, totals)
 
     # one resolution, then more until every row is stable or _MAX_ITERS
     # resolutions ran (the JAX package's body + while_loop)
@@ -226,7 +266,7 @@ def decode_stream_compat_batched(data, chunks_len, n_pixels, *, colch: int,
     passes = 0
     while True:
         with trace.span("codec.fixpoint.pass", rows=bsz) as sp:
-            iv, stable = _resolve(ops, valid, qslot, totals, iv)
+            iv, stable = r.resolve(iv)
             passes += 1
             last = passes >= _MAX_ITERS
             if not last:
@@ -239,10 +279,8 @@ def decode_stream_compat_batched(data, chunks_len, n_pixels, *, colch: int,
     sp.set(unsettled=len(rows))
     more, late = 0, rows[:0]
     if len(rows):
-        iv[rows], more, late = _settle(
-            tuple(o[rows] for o in ops), valid[rows], qslot[rows],
-            totals[rows], iv[rows], rows)
-    px, _ = _op_values(ops, iv, valid)
+        iv[rows], more, late = _settle(r.take(rows), iv[rows], rows)
+    px = r.values(iv)
     if len(late):
         with trace.span("codec.sequential", rows=len(late)):
             px[late] = sequential.sequential_decode(lo_c[late], hi_c[late],
@@ -250,4 +288,5 @@ def decode_stream_compat_batched(data, chunks_len, n_pixels, *, colch: int,
     if stats is not None:
         stats.update(passes=passes, settled_rows=len(rows),
                      settle_passes=more, sequential_rows=len(late))
-    return _expand(ops[0], px, valid, n_pixels, colch, out_ch, n_max), stable
+    return (_expand(lo_c & 255, px, r.valid, n_pixels, colch, out_ch, n_max),
+            stable)

@@ -42,6 +42,7 @@ _SIGNATURES = {
                    "k9_smem_chase": "ippp"},
     "ref": {"k10_ref_decode": "piiqiipppp", "k10_ldg_chase": "piiiippp",
             "k10_shared_bytes": ""},
+    "fixpoint": {"k11_values": "pqpqpqpiipppp", "k11_stable": "ppiipp"},
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "q": ctypes.c_longlong}
 KERNELS = tuple(_SIGNATURES)

@@ -6,7 +6,7 @@
 Needs two or more NVIDIA GPUs. For each card i, with card 0 the current
 device throughout, the public entry points with ``device="cuda:i"``: SQOA
 encode and decode of a 1024x1024 RGBA photo (K3, K2, K1), the same as
-``.qoi`` (K8, K7, K5, K6, K2), a 2000-link value chain (K9), a mono
+``.qoi`` (K8, K11, K7, K5, K6, K2), a 2000-link value chain (K9), a mono
 ``.qoi`` stream (K9's mono step), a REF stream with ``SEQOIA_REF_CUDA=1``
 (K10), ``encode_large`` of a 2048x2048 RGB image (K4) and ``BatchDecoder``
 on 64 icons (K1's segment mode): every output equal to the native codec's,
@@ -156,7 +156,7 @@ def main() -> int:
         report["parent"] = lines
     _build.build_all()
     kernels = ("K1", "K1.seg", "K2", "K3", "K4", "K5", "K6", "K7", "K8",
-               "K9", "K9.mono", "K10")
+               "K9", "K9.mono", "K10", "K11")
     report["per_card"] = {}
     for i in range(n):
         dev = torch.device("cuda", i)
