@@ -1,0 +1,16 @@
+"""The program's codec.emit.rows counter (the rows whose pixels
+decode_v2._emit_pixels makes from K6's filled words: a decode that K2
+cannot emit, such as a gray source asked for RGB), its delta over each
+BatchDecoder call, mean per call; from the program's tracer over the traced
+window. None where no call of the window counted it: a program without the
+counter, as before it was added, leaves the metric out."""
+from benchmark.harness.program_spans import counter_per_call, window_calls
+
+COUNTER = "codec.emit.rows"
+
+
+def read(rec):
+    calls = window_calls(rec, "api.batch_decode")
+    if calls is None or not any(COUNTER in c["counters"] for c in calls):
+        return None
+    return counter_per_call(rec, "api.batch_decode", COUNTER)

@@ -29,9 +29,13 @@
    and K7 at 128 slots (not on the path) at the decode's op shape. Large
    images and icons:
    K4 at the three strides, K1 in segment mode in its three modes, and K1,
-   K2 and K3 at the first launch of every distinct shape that encode_large,
-   decode_large, the two shard forms (K3's carries, rows as shards) and
-   BatchDecoder give them, checked on the arguments of that launch in one
+   K2, K3 and K6 at the first launch of every distinct shape that
+   encode_large, decode_large, the two shard forms (K3's carries, rows as
+   shards) and BatchDecoder give them (the icon classes, the mixed list and
+   a page loader's call: 128 gray pages at the benchmark's rvlcdip shapes
+   at channels=3, K1 in mono mode, then K6 and the emit, each page held to
+   its gray replicated and the call's launches and route counters
+   counted), checked on the arguments of that launch in one
    uncounted pass over those calls, and K2, K3 and K4 at every distinct
    launch of BatchEncoder on the batch-encode lists; K1 on a stream whose
    pixel counts pass 2**31. K1, K3, K5, K7, K8 and K11 (look-back
@@ -50,9 +54,10 @@
    entries, totals of 0, rows of different totals, n_out not a multiple of
    the tile, RGB words across a tile edge, on fresh storage and 4 bytes past
    a 16-byte boundary), and every recorded .qoi launch of K2, K5-K8 and
-   K11, every SQOA launch of K2, K3 and K6, every SQOA, large-image, icon and
-   batch-encode launch of K1 (both modes), K2 and K3 and every K9 mono
-   launch re-launched REPEATS times, each output bitwise equal to the first;
+   K11, every SQOA launch of K2, K3 and K6, every SQOA, large-image, icon,
+   page and batch-encode launch of K1 (both modes), K2, K3 and K6 and
+   every K9 mono launch re-launched REPEATS times, each output bitwise
+   equal to the first;
    their times also with the L2 flushed before each launch, K1's, K2's,
    K3's, K6's and K7's also as device time from a torch.profiler trace
    (without the host's launch overhead), and K8 sum's beside torch.cumsum at
@@ -295,6 +300,25 @@ def _icon_streams(images, qstages, seed: int = 2):
              + [native.encode(p, 1024, 1024, 3, 0, 0) for p in photos]
              + list(qoi) + [bytes(ref), b"Sqoa" + bytes(40)])
     return classes, mixed, bytes(ref), pixels
+
+
+# the benchmark's rvlcdip configuration (benchmark/configs/rvlcdip.json):
+# (width, height, pages) of its letter, A4 and landscape pages
+PAGES = ((773, 1000, 96), (707, 1000, 24), (1000, 773, 8))
+
+
+def _page_streams(seed: int = 9):
+    """A page loader's call (PAGES: 128 gray document pages, one class of
+    n_max 1,048,576): the pages' flat gray pixels and their native SQOA
+    streams."""
+    from seqoia_tpu_torch import native
+    from seqoia_tpu_torch.utils import corpus
+
+    rng = np.random.default_rng(seed)
+    pages = [(corpus._mono_doc(rng, w, h).reshape(-1), w, h)
+             for w, h, n in PAGES for _ in range(n)]
+    return ([p for p, _, _ in pages],
+            [native.encode(p, w, h, 1, 0, 0) for p, w, h in pages])
 
 
 def _pow2(x: int) -> int:
@@ -1701,14 +1725,14 @@ def _live(rows, totals):
 
 
 def _checked(run, where, rec):
-    """Run ``run()`` with the K1, K2, K3 and K4 wrappers replaced by ones that,
-    at the first launch of each distinct shape and mode, hold the kernel's
-    result against its plain version on the very arguments of that launch
-    and append a record to rec[kernel]. A 134 Mpx row does not fit the
-    plain versions in one piece: K1's walks the row in blocks (its own
-    carry), K2's is evaluated slot range by slot range (a slot depends on
-    no other); K3's takes the row whole. Launches made here count under the
-    replacement, not under the wrappers' own counters."""
+    """Run ``run()`` with the K1, K2, K3, K4 and K6 wrappers replaced by ones
+    that, at the first launch of each distinct shape and mode, hold the
+    kernel's result against its plain version on the very arguments of that
+    launch and append a record to rec[kernel]. A 134 Mpx row does not fit
+    the plain versions in one piece: K1's walks the row in blocks (its own
+    carry), K2's and K6's are evaluated slot range by slot range (a slot
+    depends on no other); K3's takes the row whole. Launches made here
+    count under the replacement, not under the wrappers' own counters."""
     import torch
 
     from seqoia_tpu_torch.ops import encode_front, engine, frontend, pack
@@ -1766,6 +1790,34 @@ def _checked(run, where, rec):
             + out.numel() * out.element_size(), **_held(run, out, reps=reps)))
         return out
 
+    def k6(fn, keys, payloads, totals, n_out, inits, fill_keys=False):
+        out = fn(keys, payloads, totals, n_out, inits, fill_keys)
+        if not fresh("K6", tuple(keys.shape), n_out, len(payloads),
+                     fill_keys):
+            return out
+        pays = list(payloads)
+        streams = pays + ([keys] if fill_keys else [])
+        step = max((1 << 25) // keys.shape[0], 4096) // 4096 * 4096
+        err, p_ms = 0, 0.0
+        for lo in range(0, n_out, step):
+            hi = min(lo + step, n_out)
+            want, ms = _plain_ms(lambda: engine._fill_plain(
+                keys, streams, totals, hi - lo, inits, lo))
+            p_ms += ms
+            err = max([err] + [_max_err(o[:, lo:hi], w)
+                               for o, w in zip(out, want)])
+            del want
+        run = lambda: fn(keys, pays, totals, n_out, inits,  # noqa: E731
+                         fill_keys)
+        rec["K6"].append(dict(
+            shape=f"{where} fill streams={len(streams)} rows={keys.shape[0]} "
+                  f"n_out={n_out}",
+            err=err, plain_ms=p_ms, main=False, ms=_timed(run, reps),
+            bytes=4 * (1 + len(pays)) * int(totals.sum())
+            + 4 * sum(o.numel() for o in out),
+            **_held(run, out, list, reps=reps)))
+        return out
+
     def k3(fn, packed, n_valid, colch=3, init_prev=None, lc0=None):
         out = fn(packed, n_valid, colch, init_prev, lc0)
         carried = init_prev is not None or lc0 is not None
@@ -1807,6 +1859,7 @@ def _checked(run, where, rec):
 
     for mod, name, check in ((frontend, "decode_front_compact", k1),
                              (engine, "place_emit", k2),
+                             (engine, "place_fill", k6),
                              (encode_front, "encode_front_compact", k3),
                              (pack, "pack_words", k4)):
         fn = getattr(mod, name)
@@ -1820,17 +1873,21 @@ def _checked(run, where, rec):
             setattr(mod, name, fn)
 
 
-def check_path_kernels(large, classes, mixed, enc_sets, dev):
-    """K1 (both modes of use), K2, K3 and K4 against their plain versions on
-    the arguments the large-image, icon and batch-encode paths give them:
-    every image of ``large`` through encode_large and decode_large, the RGB
-    one through both shard forms as well (K3's carries, four rows), every
-    icon class and the mixed list through BatchDecoder, every list of
-    ``enc_sets`` through BatchEncoder. Returns {kernel: [records]}."""
+def check_path_kernels(large, classes, mixed, pages, enc_sets, dev):
+    """K1 (both modes of use), K2, K3, K4 and K6 against their plain versions
+    on the arguments the large-image, icon, page and batch-encode paths give
+    them: every image of ``large`` through encode_large and decode_large,
+    the RGB one through both shard forms as well (K3's carries, four rows),
+    every icon class and the mixed list through BatchDecoder, the page
+    loader's call (``pages``: K1 in mono mode, then K6 and the gray-to-RGB
+    emit, as BatchDecoder decodes gray at channels=3) with each page's gray
+    replicated to RGB and the call's launches and counters held, every list
+    of ``enc_sets`` through BatchEncoder. Returns {kernel: [records]}."""
     import seqoia_tpu_torch as st
     from seqoia_tpu_torch import native
+    from seqoia_tpu_torch.utils import trace
 
-    rec = {k: [] for k in ("K1", "K1seg", "K2", "K3", "K4")}
+    rec = {k: [] for k in ("K1", "K1seg", "K2", "K3", "K4", "K6")}
     for name, pixels, w, h, ch in large:
         desc = st.SqoaDesc(w, h, ch)
         stream = _checked(lambda: st.encode_large(pixels, desc, device=dev),
@@ -1849,6 +1906,27 @@ def check_path_kernels(large, classes, mixed, enc_sets, dev):
     dec = st.BatchDecoder(device=dev)
     for name, streams in list(classes.items()) + [("mixed", mixed)]:
         _checked(lambda: dec(streams), f"{name} BatchDecoder", rec)
+    gray, streams = pages
+    want = [np.repeat(p, 3).tobytes() for p in gray]
+    out = _checked(lambda: dec(streams, 3), "pages BatchDecoder channels=3",
+                   rec)
+    before = trace.counters()
+    for results in (out, dec(streams, 3)):
+        if [(r.error, r.desc and r.desc.channels,
+             r.pixels is not None and r.pixels.tobytes())
+                for r in results] != [(None, 1, w) for w in want]:
+            raise AssertionError("pages: BatchDecoder at channels=3 is not "
+                                 "each page's gray replicated")
+    moved = {k: trace.counters().get(k, 0) - before.get(k, 0) for k in (
+        "kernels.launches.K1", "kernels.launches.K1.mono",
+        "kernels.launches.K2", "kernels.launches.K6",
+        "parallel.mono.images", "codec.emit.rows")}
+    n = len(streams)
+    if moved != {"kernels.launches.K1": 1, "kernels.launches.K1.mono": 1,
+                 "kernels.launches.K2": 0, "kernels.launches.K6": 1,
+                 "parallel.mono.images": n, "codec.emit.rows": n}:
+        raise AssertionError(f"pages: one call moved {moved}")
+    del out, want
     enc = st.BatchEncoder(device=dev)
     for name, px, descs, want in enc_sets:
         if _checked(lambda: enc(px, descs), f"{name} BatchEncoder",
@@ -3190,12 +3268,14 @@ class _Timed:
 
     @staticmethod
     def _n():
-        """Every kernel launch so far (K1's segment mode counted once)."""
+        """Every kernel launch so far (K1's segment and mono modes counted
+        once)."""
         from seqoia_tpu_torch.utils import trace
 
         return sum(v for k, v in trace.counters().items()
                    if k.startswith("kernels.launches.")
-                   and k != "kernels.launches.K1.seg")
+                   and k not in ("kernels.launches.K1.seg",
+                                 "kernels.launches.K1.mono"))
 
     def __call__(self, *a, **k):
         n0, p0 = self._n(), len(self.pending)
@@ -3354,6 +3434,7 @@ def main() -> int:
     mono_big, mono_mixed = _mono_inputs(qstages)
     ref_small, ref_big = _ref_inputs(stages)
     qoi_icons = _qoi_icons(icon_px)
+    pages = _page_streams()
     mesh, mesh_what = _mesh_of(dev)
     print(f"made and encoded (native) the inputs in "
           f"{time.perf_counter() - t0:.1f} s")
@@ -3375,7 +3456,7 @@ def main() -> int:
                          classes, dev)
     rec["K1"].append(timed("check_saturation", check_saturation, dev))
     for k, rows in timed("check_path_kernels", check_path_kernels, large,
-                         classes, mixed, enc_sets, dev).items():
+                         classes, mixed, pages, enc_sets, dev).items():
         rec[k] += rows
     rec["K9mono"] = timed("check_mono_k9", check_mono_k9, mono_big,
                           mono_mixed, dev)

@@ -21,6 +21,7 @@ import torch
 from .. import spec
 from ..ops import engine, frontend, scan_ops
 from ..ops._plain import to_i32
+from ..utils import trace
 
 _INIT_PACKED = -16777216  # (0, 0, 0, 255): the decoder's initial pixel
 
@@ -90,19 +91,25 @@ def _dec_epilogue_mono(out_ch: int) -> engine.Epilogue:
 def _emit_pixels(filled, n_pixels, colch: int, out_ch: int, n_max: int):
     """Filled packed pixels (B, n_max) int32 -> flat interleaved uint8
     (B, n_max * out_ch), zero past n_pixels. Mono payloads carry gray in
-    byte 0 (K1's mono layout), replicated for out_ch 3/4."""
-    f = filled.long()
-    r, g, b, a = (f & 255), (f >> 8) & 255, (f >> 16) & 255, (f >> 24) & 255
-    if colch == 3:
-        cols = [r, g, b] if out_ch >= 3 else [g]
-    else:
-        cols = [r, r, r] if out_ch >= 3 else [r]
-    if out_ch in (2, 4):
-        cols.append(a)
-    out = torch.stack(cols[:out_ch], dim=2)
-    t = torch.arange(n_max, device=f.device)[None, :, None]
-    out = torch.where(t < n_pixels.long()[:, None, None], out, 0)
-    return out.to(torch.uint8).reshape(f.shape[0], n_max * out_ch)
+    byte 0 (K1's mono layout), replicated for out_ch 3/4. Counts its rows
+    under ``codec.emit.rows`` and runs in the span ``codec.emit_pixels``."""
+    rows = filled.shape[0]
+    trace.count("codec.emit.rows", rows)
+    with trace.span("codec.emit_pixels", rows=rows, colch=colch,
+                    out_ch=out_ch, n_max=n_max):
+        f = filled.long()
+        r, g, b, a = ((f & 255), (f >> 8) & 255, (f >> 16) & 255,
+                      (f >> 24) & 255)
+        if colch == 3:
+            cols = [r, g, b] if out_ch >= 3 else [g]
+        else:
+            cols = [r, r, r] if out_ch >= 3 else [r]
+        if out_ch in (2, 4):
+            cols.append(a)
+        out = torch.stack(cols[:out_ch], dim=2)
+        t = torch.arange(n_max, device=f.device)[None, :, None]
+        out = torch.where(t < n_pixels.long()[:, None, None], out, 0)
+        return out.to(torch.uint8).reshape(rows, n_max * out_ch)
 
 
 def _maybe_words(u8_flat, emit: str):

@@ -292,6 +292,8 @@ def decode_front_compact(data, chunks_len, n_max: int, mode: str = "alpha",
     trace.count("kernels.launches.K1")
     if seg is not None:
         trace.count("kernels.launches.K1.seg")
+    if mode == "mono":
+        trace.count("kernels.launches.K1.mono")
     _build.launch(
         "frontend", "k1_decode_front", dev,
         P(data), P(clen), bsz, m, int(n_max), MODES[mode], k,

@@ -104,8 +104,10 @@ of the call before last: its array is free. Otherwise the class gets a new
 array. Counted always: ``parallel.unpack.reuse`` and
 ``parallel.unpack.fresh``, one a class, and for each icon class on the
 packed route its images under ``parallel.packed.images`` and its packed
-rows under ``parallel.packed.rows``. The decoder holds at most the output
-of its last two calls, one of which such a caller holds anyway.
+rows under ``parallel.packed.rows``, and for each class with a gray source
+(SQOA or ``.qoi``, on either route) its images under
+``parallel.mono.images``. The decoder holds at most the output of its last
+two calls, one of which such a caller holds anyway.
 """
 
 from __future__ import annotations
@@ -408,6 +410,8 @@ class BatchDecoder(_Pipeline):
         fallback flags), input bytes, images per packed row or None)."""
         colch, compat, out_ch, m_pad, n_max, src_alpha = key
         pin = dev.type == "cuda"
+        if colch == 1:
+            trace.count("parallel.mono.images", len(items))
 
         def up(t):
             return t.to(dev, non_blocking=True)

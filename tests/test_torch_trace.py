@@ -1,9 +1,9 @@
 """The port's tracer (``seqoia_tpu_torch.utils.trace``) on the CPU: off by
 default (no span recorded, no profiler range emitted); on under
 ``trace.enable()`` and under a ``torch.profiler`` session, off again after
-either; the span trees of ``BatchDecoder`` (SQOA and ``.qoi``),
-``BatchEncoder`` and ``encode_large`` with their parents, call ids,
-attributes and self times; the fixpoint's pass spans against
+either; the span trees of ``BatchDecoder`` (SQOA, gray SQOA to RGB and
+``.qoi``), ``BatchEncoder`` and ``encode_large`` with their parents, call
+ids, attributes and self times; the fixpoint's pass spans against
 ``decode_compat``'s own counts; the record's ring; and the launch counters
 (one a kernel launch, none for a plain version on the CPU)."""
 
@@ -97,6 +97,17 @@ def _batch_decode(kind, compat):
     return dec.last_timings
 
 
+def _gray_to_rgb_decode():
+    """Two gray streams decoded to RGB: K1 in mono mode, K6 and
+    ``_emit_pixels``."""
+    streams = [st.encode(_pixels("smooth", w, h)[: w * h],
+                         st.SqoaDesc(w, h, 1, 0, 0), backend="native")
+               for w, h in ((48, 40), (40, 48))]
+    dec = st.BatchDecoder(device="cpu")
+    assert all(r.error is None for r in dec(streams, channels=3))
+    return dec.last_timings
+
+
 def _batch_encode():
     desc = st.SqoaDesc(48, 40, 3, 0, 0)
     out = st.BatchEncoder(device="cpu")([_pixels("smooth")] * 2, [desc] * 2)
@@ -117,7 +128,11 @@ TREES = {
                     _PARALLEL | {"parallel.classify"}),
     "qoi_decode": (lambda: _batch_decode("chain", 1), "api.batch_decode",
                    _PARALLEL | {"parallel.classify", "codec.fixpoint.pass",
-                                "codec.settle.pass", "codec.sequential"}),
+                                "codec.settle.pass", "codec.sequential",
+                                "codec.emit_pixels"}),
+    "gray_rgb_decode": (_gray_to_rgb_decode, "api.batch_decode",
+                        _PARALLEL | {"parallel.classify",
+                                     "codec.emit_pixels"}),
     "batch_encode": (_batch_encode, "api.batch_encode", _PARALLEL),
     "encode_large": (_encode_large, "api.encode_large",
                      {"parallel.stage.fill", "parallel.stage.dispatch",
@@ -129,7 +144,8 @@ PARENTS = {"parallel.stage.fill": ("parallel.class", "api.encode_large"),
            "parallel.stage.dispatch": ("parallel.class", "api.encode_large"),
            "codec.fixpoint.pass": ("parallel.stage.dispatch",),
            "codec.settle.pass": ("parallel.stage.dispatch",),
-           "codec.sequential": ("parallel.stage.dispatch",)}
+           "codec.sequential": ("parallel.stage.dispatch",),
+           "codec.emit_pixels": ("parallel.stage.dispatch",)}
 
 
 @pytest.mark.parametrize("case", sorted(TREES))
@@ -167,6 +183,9 @@ def test_span_tree(case):
                                          "total")
         if s["name"] in ("codec.fixpoint.pass", "codec.settle.pass"):
             assert 0 <= s["attrs"]["unsettled"] <= s["attrs"]["rows"]
+        if s["name"] == "codec.emit_pixels":
+            assert set(s["attrs"]) == {"rows", "colch", "out_ch", "n_max"}
+            assert s["attrs"]["rows"] == 2
     if root.startswith("api.batch"):
         assert spans[0]["attrs"] == {"images": 2, "classes": 1}
     if timings is not None:
@@ -255,6 +274,9 @@ LAUNCHES = {
     "K1.seg": (lambda w: frontend.decode_front_compact(
         w(torch.zeros((1, 256), dtype=torch.uint8)), _i32(1, 2), 16,
         seg=128, seg_px=8), {"K1": 1, "K1.seg": 1}),
+    "K1.mono": (lambda w: frontend.decode_front_compact(
+        w(torch.zeros((1, 256), dtype=torch.uint8)), _i32(1), 16,
+        mode="mono"), {"K1": 1, "K1.mono": 1}),
     "K4": (lambda w: pack.pack_words(w(_i32(1, 12)), 3), {"K4": 1}),
     "K5": (lambda w: compact.compact(w(torch.ones((1, 8), dtype=torch.bool)),
                                      w(_i32(1, 8)), [w(_i32(1, 8))]),
