@@ -8,11 +8,13 @@
 2. Holds each kernel against its plain PyTorch version on the card, on the
    inputs the main paths give it: integer data, so the comparison is
    bit-exact (tolerance 0). SQOA: K1 decode front, K2 placement with its
-   decode and encode epilogues, K3 encode front, K6 placement fill. QOI
-   (.qoi): the arguments of the first launch of K5 (compaction), K6, K7
-   (slot last writer), each K8 (scan) combine and K11 (the fused fixpoint
-   pass: its first and last pass, the final values and its check),
-   recorded during one
+   decode (the gray source at 4 channels through the gray-to-RGBA
+   conversion too) and encode epilogues, K3 encode front, K6 placement
+   fill (which no decode calls any more). QOI (.qoi): the arguments of the
+   first launch of K5 (compaction), K2 (the decode's placement and
+   emission), K7 (slot last writer), each K8 (scan) combine and K11 (the
+   fused fixpoint pass: its first and last pass, the final values and its
+   check), recorded during one
    decode_stream_compat_batched / encode_stream_batched(compat=True) call
    per photo workload (K2's EPI_ENCQ launch also beside the K6 spread and
    torch byte emission it replaced), and of K9 (the sequential decoder) in
@@ -29,17 +31,21 @@
    and K7 at 128 slots (not on the path) at the decode's op shape. Large
    images and icons:
    K4 at the three strides, K1 in segment mode in its three modes, and K1,
-   K2, K3 and K6 at the first launch of every distinct shape that
+   K2 and K3 at the first launch of every distinct shape that
    encode_large, decode_large, the two shard forms (K3's carries, rows as
    shards) and BatchDecoder give them (the icon classes, the mixed list and
    a page loader's call: 128 gray pages at the benchmark's rvlcdip shapes
-   at channels=3, K1 in mono mode, then K6 and the emit, each page held to
-   its gray replicated and the call's launches and route counters
-   counted), checked on the arguments of that launch in one
+   at channels=3, K1 in mono mode, then K2's gray-to-RGB conversion, each
+   page held to its gray replicated and the call's launches and route
+   counters counted), checked on the arguments of that launch in one
    uncounted pass over those calls, and K2, K3 and K4 at every distinct
    launch of BatchEncoder on the batch-encode lists; K1 on a stream whose
-   pixel counts pass 2**31. K1, K3, K5, K7, K8 and K11 (look-back
-   kernels, whose faults are races) also at edge shapes (EDGE_SHAPES: K3 in
+   pixel counts pass 2**31. K2's four conversion epilogues (gray to 4 and
+   3 channels, colour to 1 and 2) at the page call's shape and at a
+   Kodak-sized .qoi shape, each also against the route they replaced (K6,
+   then the channels as int64 torch ops), timed beside it. K1, K3, K5, K7,
+   K8 and K11 (look-back kernels, whose faults are races) also at edge
+   shapes (EDGE_SHAPES: K3 in
    colch 1 and 3 with and without shard carries, pixels that change often,
    rarely and never, n_valid varied by row; every K8 combine, K11 on
    random ops, K5 with all-0, all-1, 35% and last-only masks, K7 with 64
@@ -55,9 +61,9 @@
    the tile, RGB words across a tile edge, on fresh storage and 4 bytes past
    a 16-byte boundary), and every recorded .qoi launch of K2, K5-K8 and
    K11, every SQOA launch of K2, K3 and K6, every SQOA, large-image, icon,
-   page and batch-encode launch of K1 (both modes), K2, K3 and K6 and
-   every K9 mono launch re-launched REPEATS times, each output bitwise
-   equal to the first;
+   page and batch-encode launch of K1 (both modes), K2 and K3, every
+   conversion epilogue launch and every K9 mono launch re-launched REPEATS
+   times, each output bitwise equal to the first;
    their times also with the L2 flushed before each launch, K1's, K2's,
    K3's, K6's and K7's also as device time from a torch.profiler trace
    (without the host's launch overhead), and K8 sum's beside torch.cumsum at
@@ -209,17 +215,16 @@ KERNELS = {
     "K11": ("op_values", "seqoia_tpu_torch/csrc/fixpoint.cu",
             "seqoia_tpu/codec/decode_compat.py:80"),
 }
-SQOA_KERNELS = ("K1", "K2", "K3", "K6")
-QOI_KERNELS = ("K2", "K5", "K6", "K7", "K8", "K9", "K11")
+SQOA_KERNELS = ("K1", "K2", "K3")
+QOI_KERNELS = ("K2", "K5", "K7", "K8", "K9", "K11")
 LARGE_KERNELS = ("K1", "K2", "K3", "K4")
 ICON_KERNELS = ("K1seg", "K2")
 ENCODE_KERNELS = ("K2", "K3", "K4", "K5", "K7", "K8")
-MONO_KERNELS = ("K5", "K6", "K8", "K9mono")
+MONO_KERNELS = ("K2", "K5", "K8", "K9mono")
 REF_KERNELS = ("K1", "K2", "K10")
-TOOL_KERNELS = ("K1", "K2", "K3", "K5", "K6", "K7", "K8", "K10", "K11")
-MESH_KERNELS = ("K1", "K1seg", "K2", "K3", "K4", "K5", "K6", "K7", "K8",
-                "K11")
-END_KERNELS = ("K1", "K1seg", "K2", "K6", "K10")
+TOOL_KERNELS = ("K1", "K2", "K3", "K5", "K7", "K8", "K10", "K11")
+MESH_KERNELS = ("K1", "K1seg", "K2", "K3", "K4", "K5", "K7", "K8", "K11")
+END_KERNELS = ("K1", "K1seg", "K2", "K10")
 
 
 def _images(seed: int = 0):
@@ -305,6 +310,8 @@ def _icon_streams(images, qstages, seed: int = 2):
 # the benchmark's rvlcdip configuration (benchmark/configs/rvlcdip.json):
 # (width, height, pages) of its letter, A4 and landscape pages
 PAGES = ((773, 1000, 96), (707, 1000, 24), (1000, 773, 8))
+# its kodak24 configuration's loader step: (width, height, photos)
+KODAK = (768, 512, 24)
 
 
 def _page_streams(seed: int = 9):
@@ -533,26 +540,24 @@ def check_kernels(stages, dev):
                                            (keys, pays, tot, ref)),
             cold_ms=_timed_cold(k1), device_ms=_device_ms(k1)))
         del pk, pp
-        # --- K2 decode epilogue, K6 ----------------------------------------
+        # --- K2 decode epilogue (a gray source also at 4 channels), K6 -----
         npx = s.npx[:, None]
-        if s.colch == 3:
-            epi = decode_v2._dec_epilogue(s.out_ch)
-        else:
-            epi = decode_v2._dec_epilogue_mono(s.out_ch)
+        for out_ch in (s.out_ch, 4) if s.colch == 1 else (s.out_ch,):
+            epi = decode_v2._epilogue(s.colch, out_ch)
 
-        def k2():
-            return engine.place_emit(keys, [pays], tot, npx, s.n_max, init,
-                                     epi)
-        out = k2()
-        ref_out, p_ms = _plain_ms(lambda: epi.plain(
-            engine._fill_plain(keys, [pays], tot, s.n_max, init),
-            torch.arange(s.n_max, device=dev)[None, :], npx.long()))
-        rec["K2"].append(dict(
-            shape=f"{s.name} decode out_ch={s.out_ch} n_out={s.n_max}",
-            err=_max_err(out, ref_out), ms=_timed(k2), plain_ms=p_ms,
-            bytes=8 * n_ops + out.numel() * out.element_size(),
-            **_held(k2, out)))
-        del out, ref_out
+            def k2():
+                return engine.place_emit(keys, [pays], tot, npx, s.n_max,
+                                         init, epi)
+            out = k2()
+            ref_out, p_ms = _plain_ms(lambda: epi.plain(
+                engine._fill_plain(keys, [pays], tot, s.n_max, init),
+                torch.arange(s.n_max, device=dev)[None, :], npx.long()))
+            rec["K2"].append(dict(
+                shape=f"{s.name} decode out_ch={out_ch} n_out={s.n_max}",
+                err=_max_err(out, ref_out), ms=_timed(k2), plain_ms=p_ms,
+                bytes=8 * n_ops + out.numel() * out.element_size(),
+                main=out_ch == s.out_ch, **_held(k2, out)))
+            del out, ref_out
         if s.colch == 1:
             def k6():
                 return engine.place_fill(keys, [pays], tot, s.n_max, init)
@@ -707,7 +712,7 @@ def _value_chain(links: int):
 
 
 def _capture(run):
-    """Run ``run()`` with the K2, K5, K6, K7, K8, K9 and K11 wrappers
+    """Run ``run()`` with the K2, K5, K7, K8, K9 and K11 wrappers
     recording the arguments of their first launch (K8: per combine; K11: its
     first pass and its last, which may be the restart's rows, the final
     values and its first check). Returns ({kernel: (args, kwargs)}, run's
@@ -720,7 +725,6 @@ def _capture(run):
     for mod, name, key in (
             (engine, "place_emit", lambda a, k: "K2"),
             (compact, "compact", lambda a, k: "K5"),
-            (engine, "place_fill", lambda a, k: "K6"),
             (slots, "slot_last_writer", lambda a, k: "K7"),
             (scan, "tile_scan", lambda a, k: "K8 " + a[1]),
             (sequential, "sequential_decode", lambda a, k: "K9"),
@@ -842,7 +846,7 @@ def _check_qoi_call(key, args, kw, where):
         n_ops = int(tot.sum())
         nbytes = 12 * n_ops + 4 * len(tot)
         shape = f"{where} {tuple(lo.shape)} ops={n_ops}"
-    elif kid == "K2":
+    else:  # K2
         keys, pays, tot, scal, n_out, inits, epi = args
         run = lambda: engine.place_emit(keys, pays, tot, scal,  # noqa: E731
                                         n_out, inits, epi)
@@ -864,30 +868,15 @@ def _check_qoi_call(key, args, kw, where):
                 engine.place_fill(keys, pays, tot, n_out, inits,
                                   fill_keys=True), t, scal))
             del t
-    else:  # K6
-        keys, pays, tot, n_out, inits = args
-        fill_keys = kw.get("fill_keys", False)
-        run = lambda: engine.place_fill(keys, pays, tot, n_out,  # noqa
-                                        inits, fill_keys=fill_keys)
-        got = run()
-        streams = list(pays) + ([keys] if fill_keys else [])
-        want, p_ms = _plain_ms(lambda: engine._fill_plain(
-            keys, streams, tot, n_out, inits))
-        err = max(_max_err(g, w) for g, w in zip(got, want))
-        repeats = _repeats_differ(run, list, got)
-        n_ent = int(tot.sum())
-        nbytes = 4 * (1 + len(pays)) * n_ent + 4 * len(streams) * got[0].numel()
-        shape = (f"{where} streams={len(streams)} n_out={n_out} "
-                 f"entries={n_ent}")
     r = dict(shape=shape, err=err, ms=_timed(run), plain_ms=p_ms,
              bytes=nbytes, library_ms=library, main=True)
     if kid == "K2" and args[-1].kind == engine.EPI_ENCQ:
         r["replaced_ms"] = replaced_ms
-    if kid in ("K2", "K5", "K6", "K7", "K8", "K11"):
+    if kid in ("K2", "K5", "K7", "K8", "K11"):
         # a race (look-back, shared-memory staging) can hide in one launch:
         # the repeats must agree
         r.update(repeats_differ=repeats, cold_ms=_timed_cold(run))
-    if kid in ("K2", "K6", "K7", "K11"):
+    if kid in ("K2", "K7", "K11"):
         r["device_ms"] = _device_ms(run)
     if kid == "K9":
         r.update(repeats_differ=repeats, longest=int(tot.max()))
@@ -895,7 +884,7 @@ def _check_qoi_call(key, args, kw, where):
 
 
 def check_qoi_kernels(qstages, dev):
-    """K5, K6, K7, K8 and K11 against their plain versions at the shapes the
+    """K2, K5, K7, K8 and K11 against their plain versions at the shapes the
     .qoi path gives them (recorded from one batched decode and one batched
     encode per photo workload), K9 at the value chain's, and, off the path,
     K9 on the value chain's ops at totals on its chunk edges, K8 segmod
@@ -1372,9 +1361,9 @@ def check_edge_engine(dev):
     from seqoia_tpu_torch.ops import engine
 
     rng = np.random.default_rng(7)
-    epilogues = [decode_v2._dec_epilogue(4), decode_v2._dec_epilogue(3),
-                 decode_v2._dec_epilogue_mono(1),
-                 decode_v2._dec_epilogue_mono(2), encode_v2._emit_epilogue(3),
+    epilogues = [decode_v2._epilogue(3, 4), decode_v2._epilogue(3, 3),
+                 decode_v2._epilogue(1, 1),
+                 decode_v2._epilogue(1, 2), encode_v2._emit_epilogue(3),
                  encode_v2._emit_epilogue(1), encode_v2._compat_epilogue()]
     rec = {"K2": [], "K6": []}
     for name, ks, n_out in _engine_edge_cases():
@@ -1689,7 +1678,9 @@ def check_edge_segments(dev):
 
 # K2's epilogue selectors (seqoia_tpu_torch/ops/engine.py), by name
 _EPILOGUES = ("fill", "decode 4ch", "decode 3ch", "decode mono 1ch",
-              "decode mono 2ch", "encode color", "encode mono", "encode qoi")
+              "decode mono 2ch", "encode color", "encode mono", "encode qoi",
+              "decode gray to 4ch", "decode gray to 3ch",
+              "decode colour to 1ch", "decode colour to 2ch")
 
 
 def _plain_emit(out, keys, pays, tot, scal, n_out, inits, epi):
@@ -1725,12 +1716,12 @@ def _live(rows, totals):
 
 
 def _checked(run, where, rec):
-    """Run ``run()`` with the K1, K2, K3, K4 and K6 wrappers replaced by ones
+    """Run ``run()`` with the K1, K2, K3 and K4 wrappers replaced by ones
     that, at the first launch of each distinct shape and mode, hold the
     kernel's result against its plain version on the very arguments of that
     launch and append a record to rec[kernel]. A 134 Mpx row does not fit
     the plain versions in one piece: K1's walks the row in blocks (its own
-    carry), K2's and K6's are evaluated slot range by slot range (a slot
+    carry), K2's is evaluated slot range by slot range (a slot
     depends on no other); K3's takes the row whole. Launches made here
     count under the replacement, not under the wrappers' own counters."""
     import torch
@@ -1790,34 +1781,6 @@ def _checked(run, where, rec):
             + out.numel() * out.element_size(), **_held(run, out, reps=reps)))
         return out
 
-    def k6(fn, keys, payloads, totals, n_out, inits, fill_keys=False):
-        out = fn(keys, payloads, totals, n_out, inits, fill_keys)
-        if not fresh("K6", tuple(keys.shape), n_out, len(payloads),
-                     fill_keys):
-            return out
-        pays = list(payloads)
-        streams = pays + ([keys] if fill_keys else [])
-        step = max((1 << 25) // keys.shape[0], 4096) // 4096 * 4096
-        err, p_ms = 0, 0.0
-        for lo in range(0, n_out, step):
-            hi = min(lo + step, n_out)
-            want, ms = _plain_ms(lambda: engine._fill_plain(
-                keys, streams, totals, hi - lo, inits, lo))
-            p_ms += ms
-            err = max([err] + [_max_err(o[:, lo:hi], w)
-                               for o, w in zip(out, want)])
-            del want
-        run = lambda: fn(keys, pays, totals, n_out, inits,  # noqa: E731
-                         fill_keys)
-        rec["K6"].append(dict(
-            shape=f"{where} fill streams={len(streams)} rows={keys.shape[0]} "
-                  f"n_out={n_out}",
-            err=err, plain_ms=p_ms, main=False, ms=_timed(run, reps),
-            bytes=4 * (1 + len(pays)) * int(totals.sum())
-            + 4 * sum(o.numel() for o in out),
-            **_held(run, out, list, reps=reps)))
-        return out
-
     def k3(fn, packed, n_valid, colch=3, init_prev=None, lc0=None):
         out = fn(packed, n_valid, colch, init_prev, lc0)
         carried = init_prev is not None or lc0 is not None
@@ -1859,7 +1822,6 @@ def _checked(run, where, rec):
 
     for mod, name, check in ((frontend, "decode_front_compact", k1),
                              (engine, "place_emit", k2),
-                             (engine, "place_fill", k6),
                              (encode_front, "encode_front_compact", k3),
                              (pack, "pack_words", k4)):
         fn = getattr(mod, name)
@@ -1874,20 +1836,20 @@ def _checked(run, where, rec):
 
 
 def check_path_kernels(large, classes, mixed, pages, enc_sets, dev):
-    """K1 (both modes of use), K2, K3, K4 and K6 against their plain versions
+    """K1 (both modes of use), K2, K3 and K4 against their plain versions
     on the arguments the large-image, icon, page and batch-encode paths give
     them: every image of ``large`` through encode_large and decode_large,
     the RGB one through both shard forms as well (K3's carries, four rows),
     every icon class and the mixed list through BatchDecoder, the page
-    loader's call (``pages``: K1 in mono mode, then K6 and the gray-to-RGB
-    emit, as BatchDecoder decodes gray at channels=3) with each page's gray
+    loader's call (``pages``: K1 in mono mode, then K2's gray-to-RGB
+    epilogue, as BatchDecoder decodes gray at channels=3) with each page's gray
     replicated to RGB and the call's launches and counters held, every list
     of ``enc_sets`` through BatchEncoder. Returns {kernel: [records]}."""
     import seqoia_tpu_torch as st
     from seqoia_tpu_torch import native
     from seqoia_tpu_torch.utils import trace
 
-    rec = {k: [] for k in ("K1", "K1seg", "K2", "K3", "K4", "K6")}
+    rec = {k: [] for k in ("K1", "K1seg", "K2", "K3", "K4")}
     for name, pixels, w, h, ch in large:
         desc = st.SqoaDesc(w, h, ch)
         stream = _checked(lambda: st.encode_large(pixels, desc, device=dev),
@@ -1919,12 +1881,13 @@ def check_path_kernels(large, classes, mixed, pages, enc_sets, dev):
                                  "each page's gray replicated")
     moved = {k: trace.counters().get(k, 0) - before.get(k, 0) for k in (
         "kernels.launches.K1", "kernels.launches.K1.mono",
-        "kernels.launches.K2", "kernels.launches.K6",
-        "parallel.mono.images", "codec.emit.rows")}
+        "kernels.launches.K2", "kernels.launches.K2.conv",
+        "kernels.launches.K6", "parallel.mono.images", "codec.emit.rows")}
     n = len(streams)
     if moved != {"kernels.launches.K1": 1, "kernels.launches.K1.mono": 1,
-                 "kernels.launches.K2": 0, "kernels.launches.K6": 1,
-                 "parallel.mono.images": n, "codec.emit.rows": n}:
+                 "kernels.launches.K2": 1, "kernels.launches.K2.conv": 1,
+                 "kernels.launches.K6": 0, "parallel.mono.images": n,
+                 "codec.emit.rows": n}:
         raise AssertionError(f"pages: one call moved {moved}")
     del out, want
     enc = st.BatchEncoder(device=dev)
@@ -1933,6 +1896,100 @@ def check_path_kernels(large, classes, mixed, pages, enc_sets, dev):
                     rec) != want:
             raise AssertionError(f"{name}: the checked BatchEncoder differs")
     return rec
+
+
+def _replaced_emit(filled, n_pixels, colch: int, out_ch: int, n_max: int):
+    """The emission K2's conversion epilogues replaced, after K6's fill: the
+    filled words widened to int64, four channel planes, their stack and a
+    select, then the uint8 cast; flat (B, n_max * out_ch)."""
+    import torch
+
+    f = filled.long()
+    r, g, b, a = f & 255, (f >> 8) & 255, (f >> 16) & 255, (f >> 24) & 255
+    if colch == 3:
+        cols = [r, g, b] if out_ch >= 3 else [g]
+    else:
+        cols = [r, r, r] if out_ch >= 3 else [r]
+    if out_ch in (2, 4):
+        cols.append(a)
+    out = torch.stack(cols[:out_ch], dim=2)
+    t = torch.arange(n_max, device=f.device)[None, :, None]
+    out = torch.where(t < n_pixels.long()[:, None, None], out, 0)
+    return out.to(torch.uint8).reshape(f.shape[0], n_max * out_ch)
+
+
+def check_conversions(pages, dev):
+    """K2's four conversion epilogues (gray to 4 and 3 channels, colour to 1
+    and 2) against their plain forms and against the route they replaced
+    (K6, then _replaced_emit), bit-exactly, each re-launched REPEATS times:
+    at the page call's shape (K1 mono over ``pages``, the 128 pages of
+    PAGES: (128, 262144) bytes, n_out 1,048,576) and at a Kodak-sized .qoi
+    shape (the op values that decode_compat places for KODAK's 24 768x512
+    photo-class .qoi streams, n_out 393,216). Each is timed beside its byte
+    bound and the replaced route. Returns [K2 records]."""
+    import torch
+
+    from seqoia_tpu_torch import native, spec
+    from seqoia_tpu_torch.codec import decode_compat, decode_v2
+    from seqoia_tpu_torch.ops import engine, frontend
+    from seqoia_tpu_torch.utils import corpus
+
+    def staged(streams):
+        buf = np.zeros((len(streams), _pow2(max(len(x) for x in streams))),
+                       np.uint8)
+        for i, x in enumerate(streams):
+            buf[i, : len(x)] = np.frombuffer(x, np.uint8)
+        clen = torch.tensor([len(x) - spec.PADDING_SIZE for x in streams],
+                            dtype=torch.int32, device=dev)
+        return torch.from_numpy(buf).to(dev), clen
+
+    gray, streams = pages
+    data, clen = staged(streams)
+    npx = torch.tensor([g.size for g in gray], dtype=torch.int32,
+                       device=dev)[:, None]
+    n_max = _pow2(int(npx.max()))
+    keys, pays, tot, _ = frontend.decode_front_compact(data, clen, n_max,
+                                                       "mono")
+    cases = [(f"pages {tuple(data.shape)}", keys, pays, tot, npx, n_max)]
+    w, h, k = KODAK
+    rng = np.random.default_rng(27)
+    data, clen = staged([native.encode(corpus._photo(rng, w, h).reshape(-1),
+                                       w, h, 3, 0, 1) for _ in range(k)])
+    n = w * h
+    seen, _ = _capture(lambda: decode_compat.decode_stream_compat_batched(
+        data, clen, torch.full((k,), n, dtype=torch.int32, device=dev),
+        colch=3, out_ch=3, n_max=n))
+    (keys, (pays,), tot, npx, _, _, _), _ = seen["K2"]
+    cases.append((f"Kodak-sized .qoi {tuple(data.shape)}", keys, pays, tot,
+                  npx, n))
+    del data, seen
+    init = (decode_v2._INIT_PACKED,)
+    rows = []
+    for where, keys, pays, tot, npx, n_out in cases:
+        for colch, out_ch in ((1, 4), (1, 3), (3, 1), (3, 2)):
+            epi = decode_v2._epilogue(colch, out_ch)
+            run = lambda: engine.place_emit(  # noqa: E731
+                keys, [pays], tot, npx, n_out, init, epi)
+            old = lambda: _replaced_emit(  # noqa: E731
+                engine.place_fill(keys, [pays], tot, n_out, init)[0],
+                npx[:, 0], colch, out_ch, n_out)
+            got = run()
+            err, p_ms = _plain_emit(got, keys, [pays], tot, npx, n_out,
+                                    init, epi)
+            was = old()
+            if not torch.equal(got.view(torch.uint8), was):
+                err = max(err, _max_err(got.view(torch.uint8), was), 1)
+            del was
+            rows.append(dict(
+                shape=f"{where} epilogue {_EPILOGUES[epi.kind]} "
+                      f"rows={keys.shape[0]} n_out={n_out}",
+                err=err, plain_ms=p_ms, main=False, ms=_timed(run),
+                replaced_ms=_timed(old),
+                bytes=8 * int(tot.sum()) + got.numel() * got.element_size(),
+                **_held(run, got)))
+            del got
+            torch.cuda.empty_cache()
+    return rows
 
 
 def check_saturation(dev):
@@ -3458,6 +3515,7 @@ def main() -> int:
     for k, rows in timed("check_path_kernels", check_path_kernels, large,
                          classes, mixed, pages, enc_sets, dev).items():
         rec[k] += rows
+    rec["K2"] += timed("check_conversions", check_conversions, pages, dev)
     rec["K9mono"] = timed("check_mono_k9", check_mono_k9, mono_big,
                           mono_mixed, dev)
     rec["K10"] = timed("check_ref_k10", check_ref_k10, ref_small, ref_big,
@@ -3496,7 +3554,7 @@ def main() -> int:
                          if r["device_ms"] is None
                          else f", device {r['device_ms']:.4f} ms")
             if "replaced_ms" in r:
-                cold += (f"; the K6 spread + torch bytes it replaced "
+                cold += (f"; the route it replaced (K6, then torch ops) "
                          f"{r['replaced_ms']:.4f} ms")
             plain = ("plain not run (one op a step)" if r["plain_ms"] is None
                      else f"plain {r['plain_ms']:.3f} ms")

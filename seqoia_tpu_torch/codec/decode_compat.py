@@ -33,14 +33,16 @@ INDEX reads, and K11's check says which rows changed
 values as XLA ops around two segmented sums, which the CPU path keeps
 (``_resolve``, ``_op_values``). Before the loop K8 (the tokenizer's map
 composition) finds the op starts and K5 compacts the op bytes; the
-restart's alpha is a K8 fill; after the loop K11 gives the values and K6
-places the pixels.
+restart's alpha is a K8 fill; after the loop K11 gives the values and K2
+places the pixels and emits them in one launch, through the decode
+epilogue of the row's and the output's channels (the JAX package fills them
+with K6 and emits them in XLA).
 
 Mono ``.qoi`` (a header with 1 or 2 channels and a 128-slot index, a
 decoder-only quirk the encoder cannot produce) takes the JAX package's
 route for it, which has no fixpoint (``fixpoint_ok`` is false for mono):
 the mono tokenizer (K8), K5 compaction, K9's mono step over every row, and
-K6 with ``_emit_pixels``.
+K2 with the mono or gray-to-RGB(A) epilogue.
 """
 
 from __future__ import annotations
@@ -50,10 +52,9 @@ import os
 import torch
 
 from .. import spec
-from ..ops import (compact, engine, fixpoint, scan, scan_ops, sequential,
-                   slots)
+from ..ops import compact, fixpoint, scan, scan_ops, sequential, slots
 from ..utils import trace
-from .decode_v2 import _INIT_PACKED, _emit_pixels, _tokenize
+from .decode_v2 import _emit, _tokenize
 
 # resolutions before a row is flagged unconverged: INDEX-light content
 # settles in <= 3, palette-heavy chains advance about one link per pass.
@@ -212,17 +213,16 @@ def _ops(data, chunks_len, colch: int = 3):
 
 
 def _expand(b0, px, valid, n_pixels, colch, out_ch, n_max):
-    """Place each op's value over its pixels (K6) and emit out_ch bytes per
-    pixel."""
+    """Place each op's value over its pixels and emit out_ch bytes per pixel
+    (K2): flat uint8 (B, n_max * out_ch)."""
     npix = torch.where(b0 >= spec.OP_RUN, (b0 & 0x3F) + 1, 1)
     npix = torch.where((b0 == spec.OP_RGB) | (b0 == spec.OP_RGBA), 1, npix)
     npix = torch.where(valid, npix, 0)
     pixoff = scan_ops.blocked_cumsum(npix) - npix
     n_ops = (valid & (pixoff < n_max)).sum(dim=-1).to(torch.int32)
-    (filled,) = engine.place_fill(pixoff, [px], n_ops, n_max,
-                                  (_INIT_PACKED,))
-    npx = n_pixels.to(device=px.device, dtype=torch.int32)
-    return _emit_pixels(filled, npx, colch, out_ch, n_max)
+    npx = n_pixels.to(device=px.device, dtype=torch.int32)[:, None]
+    return _emit(pixoff, px, n_ops, npx, n_max, colch, out_ch,
+                 every_row=True).view(torch.uint8)
 
 
 def decode_stream_compat_batched(data, chunks_len, n_pixels, *, colch: int,

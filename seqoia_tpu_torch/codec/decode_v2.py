@@ -2,12 +2,12 @@
 
 Port of the fused branch of ``seqoia_tpu/codec/decode_v2.py``
 (``decode_stream_batched``, ``decode_stream``): K1 turns the bytes into the
-compacted op stream, K2 places it and emits the pixels through one of the
-decode epilogues below. The shapes K2 cannot emit directly (a color
-source decoded to 1/2 channels, a mono source to 3/4) go K1 -> K6 ->
-``_emit_pixels``; the JAX package sends mono sources with forced 3/4
-channels through its unfused front instead, which gives the same pixels
-(K1 is a drop-in for that front's compacted output).
+compacted op stream, K2 places it and emits the pixels through the decode
+epilogue of the source's and the output's channels (``_epilogue``). A color
+source decoded to 1/2 channels or a mono source to 3/4 takes one of K2's
+conversion epilogues, where the JAX package fills the pixels and emits them
+in XLA (``_emit_pixels``; for mono sources at 3/4 channels after its
+unfused front, whose compacted output K1 gives too).
 
 The compat (``.qoi``) decode tokenizes with ``_tokenize`` below, the JAX
 package's unfused tokenizer in its compat color and mono forms (K8
@@ -70,53 +70,83 @@ def _mono2(filled, t, scal):
     return torch.where(t < scal[:, :1], v, 0).to(torch.int32).to(torch.uint16)
 
 
-def _dec_epilogue(out_ch: int) -> engine.Epilogue:
-    """Color emission in K2: out_ch=4 writes the packed words (their
-    little-endian bytes are the RGBA stream), out_ch=3 the int32 words of
-    the interleaved RGB stream (the alpha byte dropped). Both zero the
-    pixels past n_pixels (the scalar)."""
-    if out_ch == 4:
-        return engine.Epilogue(engine.EPI_DEC4, torch.int32, _dec4)
-    return engine.Epilogue(engine.EPI_DEC3, torch.int32, _dec3, (3, 4))
+def _gray_word(f):
+    """A gray source's packed pixel (gray in byte 0, alpha in byte 3) as the
+    RGBA word of its gray: R = G = B = the gray, the alpha kept."""
+    f = f.long()
+    return (f & 255) * 0x010101 | (f & 0xFF000000)
 
 
-def _dec_epilogue_mono(out_ch: int) -> engine.Epilogue:
-    """Mono emission in K2 (gray in packed byte 0, alpha in byte 3):
-    out_ch=1 uint8 gray, out_ch=2 uint16 gray | alpha << 8."""
-    if out_ch == 1:
-        return engine.Epilogue(engine.EPI_MONO1, torch.uint8, _mono1)
-    return engine.Epilogue(engine.EPI_MONO2, torch.uint16, _mono2)
+def _green_word(f):
+    """A colour pixel as a gray source's word: its green in byte 0, its
+    alpha kept."""
+    f = f.long()
+    return ((f >> 8) & 255) | (f & 0xFF000000)
 
 
-def _emit_pixels(filled, n_pixels, colch: int, out_ch: int, n_max: int):
-    """Filled packed pixels (B, n_max) int32 -> flat interleaved uint8
-    (B, n_max * out_ch), zero past n_pixels. Mono payloads carry gray in
-    byte 0 (K1's mono layout), replicated for out_ch 3/4. Counts its rows
-    under ``codec.emit.rows`` and runs in the span ``codec.emit_pixels``."""
-    rows = filled.shape[0]
+def _converted(plain, word):
+    """The plain form of a conversion epilogue: ``plain``, an existing decode
+    epilogue's, over the converted words."""
+    return lambda filled, t, scal: plain([word(filled[0])], t, scal)
+
+
+# (colch, out_ch) -> K2's decode epilogue: the color and mono ones, then the
+# conversions (a mono source replicated to R, G and B; a color source's green
+# as the gray); each zeroes the pixels past n_pixels (the scalar). Words: 4
+# channels the packed RGBA words, 3 the int32 words of the interleaved RGB
+# stream, 1 the gray bytes, 2 uint16 gray | alpha << 8.
+_EPILOGUES = {
+    (3, 4): (engine.EPI_DEC4, torch.int32, _dec4, (1, 1)),
+    (3, 3): (engine.EPI_DEC3, torch.int32, _dec3, (3, 4)),
+    (1, 1): (engine.EPI_MONO1, torch.uint8, _mono1, (1, 1)),
+    (1, 2): (engine.EPI_MONO2, torch.uint16, _mono2, (1, 1)),
+    (1, 4): (engine.EPI_GRAY4, torch.int32, _converted(_dec4, _gray_word),
+             (1, 1)),
+    (1, 3): (engine.EPI_GRAY3, torch.int32, _converted(_dec3, _gray_word),
+             (3, 4)),
+    (3, 1): (engine.EPI_GREEN1, torch.uint8, _converted(_mono1, _green_word),
+             (1, 1)),
+    (3, 2): (engine.EPI_GREEN2, torch.uint16,
+             _converted(_mono2, _green_word), (1, 1)),
+}
+
+
+def _epilogue(colch: int, out_ch: int) -> engine.Epilogue:
+    """K2's decode epilogue for a source of ``colch`` color channels (3, or
+    1 for mono: gray in packed byte 0, alpha in byte 3) decoded to
+    ``out_ch`` channels."""
+    kind, dtype, plain, units = _EPILOGUES[(colch, out_ch)]
+    return engine.Epilogue(kind, dtype, plain, units)
+
+
+def _emit(keys, pays, totals, n_pixels, n_out: int, colch: int, out_ch: int,
+          every_row: bool = False):
+    """K2 over one op stream (keys (B, Mc) int32 pixel offsets, pays the
+    packed pixel of each, totals (B,), n_pixels (B, 1) int32) with the
+    epilogue of (colch, out_ch): the epilogue's words (B, n_out * out_ch)
+    bytes long. A conversion, or any pair with ``every_row``, counts its rows
+    under ``codec.emit.rows`` and launches in the span ``codec.emit_pixels``
+    (``rows``, ``colch``, ``out_ch``, ``n_max``)."""
+    epi = _epilogue(colch, out_ch)
+    args = (keys, [pays], totals, n_pixels, n_out, (_INIT_PACKED,), epi)
+    if not (every_row or epi.kind in engine.CONVERSIONS):
+        return engine.place_emit(*args)
+    rows = keys.shape[0]
     trace.count("codec.emit.rows", rows)
     with trace.span("codec.emit_pixels", rows=rows, colch=colch,
-                    out_ch=out_ch, n_max=n_max):
-        f = filled.long()
-        r, g, b, a = ((f & 255), (f >> 8) & 255, (f >> 16) & 255,
-                      (f >> 24) & 255)
-        if colch == 3:
-            cols = [r, g, b] if out_ch >= 3 else [g]
-        else:
-            cols = [r, r, r] if out_ch >= 3 else [r]
-        if out_ch in (2, 4):
-            cols.append(a)
-        out = torch.stack(cols[:out_ch], dim=2)
-        t = torch.arange(n_max, device=f.device)[None, :, None]
-        out = torch.where(t < n_pixels.long()[:, None, None], out, 0)
-        return out.to(torch.uint8).reshape(rows, n_max * out_ch)
+                    out_ch=out_ch, n_max=n_out):
+        return engine.place_emit(*args)
 
 
-def _maybe_words(u8_flat, emit: str):
-    """Flat uint8 pixels -> int32 words when emit="words"."""
-    if emit != "words":
-        return u8_flat
-    return u8_flat.view(torch.int32)
+def _as_emitted(words, colch: int, out_ch: int, emit: str):
+    """K2's words as ``emit`` asks: "u8" their flat interleaved bytes;
+    "words" an array whose little-endian bytes are that stream (the words
+    themselves for a mono source at 1/2 channels, else their int32 view)."""
+    if emit == "u8":
+        return words.view(torch.uint8)
+    if colch == 1 and out_ch <= 2:
+        return words
+    return words.view(torch.int32)
 
 
 def decode_stream_batched(data, chunks_len, n_pixels, *, colch: int,
@@ -135,27 +165,12 @@ def decode_stream_batched(data, chunks_len, n_pixels, *, colch: int,
         raise ValueError(f"emit {emit!r}")
     if colch not in (1, 3) or out_ch not in (1, 2, 3, 4):
         raise ValueError("colch must be 1 or 3 and out_ch 1 to 4")
-    bsz = data.shape[0]
     mode = "mono" if colch == 1 else ("alpha" if src_alpha else "noalpha")
     keys, pays, totals, ref = frontend.decode_front_compact(
         data, chunks_len, n_max, mode=mode)
     npx = n_pixels.to(device=data.device, dtype=torch.int32)[:, None]
-    init = (_INIT_PACKED,)
-    if colch == 1 and out_ch in (1, 2):
-        out = engine.place_emit(keys, [pays], totals, npx, n_max, init,
-                                _dec_epilogue_mono(out_ch))
-        if emit == "words" or out_ch == 1:
-            return out, ref != 0
-        return out.view(torch.uint8).reshape(bsz, n_max * 2), ref != 0
-    if colch == 3 and out_ch in (3, 4):
-        words = engine.place_emit(keys, [pays], totals, npx, n_max, init,
-                                  _dec_epilogue(out_ch))
-        if emit == "words":
-            return words, ref != 0
-        return words.view(torch.uint8).reshape(bsz, n_max * out_ch), ref != 0
-    filled = engine.place_fill(keys, [pays], totals, n_max, init)[0]
-    out = _emit_pixels(filled, npx[:, 0], colch, out_ch, n_max)
-    return _maybe_words(out, emit), ref != 0
+    words = _emit(keys, pays, totals, npx, n_max, colch, out_ch)
+    return _as_emitted(words, colch, out_ch, emit), ref != 0
 
 
 def decode_stream(data, chunks_len: int, n_pixels: int, *, colch: int,
@@ -204,14 +219,5 @@ def decode_stream_packed(data, seg_lens, *, colch: int, out_ch: int,
     keys, pays, totals, ref = frontend.decode_front_compact(
         data, seg_lens, n_out, mode=mode, seg=seg, seg_px=seg_px)
     npx = torch.full((bsz, 1), n_out, dtype=torch.int32, device=data.device)
-    init = (_INIT_PACKED,)
-    if colch == 1 and out_ch in (1, 2):
-        epi = _dec_epilogue_mono(out_ch)
-    elif colch == 3 and out_ch in (3, 4):
-        epi = _dec_epilogue(out_ch)
-    else:
-        filled = engine.place_fill(keys, [pays], totals, n_out, init)[0]
-        out = _emit_pixels(filled, npx[:, 0], colch, out_ch, n_out)
-        return out.view(torch.int32), ref != 0
-    return (engine.place_emit(keys, [pays], totals, npx, n_out, init, epi),
-            ref != 0)
+    words = _emit(keys, pays, totals, npx, n_out, colch, out_ch)
+    return _as_emitted(words, colch, out_ch, "words"), ref != 0

@@ -18,9 +18,23 @@
 //   EPI_ENCQ   QOI-compat encode: the same for the .qoi op set (one-byte
 //              run flush, INDEX, DIFF, LUMA, RGB, RGBA, the trailing run and
 //              the end marker)
+//   EPI_GRAY4  gray source, out_ch 4: EPI_DEC4 over the gray word
+//   EPI_GRAY3  gray source, out_ch 3: EPI_DEC3 over the gray word
+//   EPI_GREEN1 colour source, out_ch 1: EPI_MONO1 over the green word
+//   EPI_GREEN2 colour source, out_ch 2: EPI_MONO2 over the green word
 //
 // Bound on the H100: bytes. The output is written once and the entries are
 // read once.
+//
+// The four conversion epilogues (gray to RGB(A), colour to gray(+alpha))
+// replace K6's filled int32 plane and codec/decode_v2._emit_pixels' int64
+// channel planes, stack and select, where the JAX package sends these pairs
+// through its unfused mono front and XLA's emission. Each is an existing
+// store path with a word transform (Xf) applied to every payload it picks,
+// the fill init included: gray (byte 0) to R = G = B with byte 3's alpha
+// kept, or the green byte moved to byte 0 with the alpha kept. The
+// transform is a template parameter, so the other epilogues compile to the
+// code they had without it.
 //
 // Design: the TPU version DMAs one window of entries per output tile, moves
 // them into place with a butterfly network and forward-fills with a carry
@@ -66,7 +80,37 @@ enum {
   EPI_ENC3 = 5,
   EPI_ENC1 = 6,
   EPI_ENCQ = 7,
+  EPI_GRAY4 = 8,
+  EPI_GRAY3 = 9,
+  EPI_GREEN1 = 10,
+  EPI_GREEN2 = 11,
 };
+
+// the decode epilogues: zero from slot n_pixels (the row's scalar) on
+__host__ __device__ constexpr bool decodes(int epi) {
+  return epi == EPI_DEC4 || epi == EPI_DEC3 || epi == EPI_MONO1 ||
+         epi == EPI_MONO2 || epi >= EPI_GRAY4;
+}
+// the epilogues that store the RGB stream's words (n_out * 3 / 4 a row)
+__host__ __device__ constexpr bool rgb_words(int epi) {
+  return epi == EPI_DEC3 || epi == EPI_GRAY3;
+}
+
+// The conversion epilogues' word transforms (a packed pixel: R in byte 0,
+// alpha in byte 3; a gray source's K1 payload: gray in byte 0).
+enum { XF_NONE = 0, XF_GRAY = 1, XF_GREEN = 2 };
+__host__ __device__ constexpr int xf_of(int epi) {
+  return epi == EPI_GRAY4 || epi == EPI_GRAY3     ? XF_GRAY
+         : epi == EPI_GREEN1 || epi == EPI_GREEN2 ? XF_GREEN
+                                                  : XF_NONE;
+}
+template <int XF>
+__device__ __forceinline__ int xf(int v) {
+  const unsigned u = (unsigned)v;
+  if (XF == XF_GRAY) return (int)((u & 255u) * 0x010101u | (u & 0xFF000000u));
+  if (XF == XF_GREEN) return (int)(((u >> 8) & 255u) | (u & 0xFF000000u));
+  return v;
+}
 
 constexpr int TILE = lb::TILE;  // slots a block
 constexpr int SPT = lb::IPT;    // consecutive slots a thread scans
@@ -132,24 +176,29 @@ struct Map {
   }
 };
 
-// int32 outputs (EPI_FILL, EPI_DEC4): slot s of the tile is element s;
-// slots at and past lim are zero (EPI_DEC4's n_pixels; EPI_FILL: TILE).
+// int32 outputs (EPI_FILL, EPI_DEC4, EPI_GRAY4): slot s of the tile is
+// element s; slots at and past lim are zero (the decodes' n_pixels;
+// EPI_FILL: TILE).
+template <int XF = XF_NONE>
 struct GetWords {
   Map m;
   const int* p;
   int ini, lim;
-  __device__ int one(int s) const { return s < lim ? pick(p, m[s], ini) : 0; }
+  __device__ int one(int s) const {
+    return s < lim ? xf<XF>(pick(p, m[s], ini)) : 0;
+  }
   __device__ uint4 vec(int s) const {
     unsigned w[4];
 #pragma unroll
     for (int c = 0; c < 4; ++c)
-      w[c] = s + c < lim ? (unsigned)pick(p, m[s + c], ini) : 0u;
+      w[c] = s + c < lim ? (unsigned)xf<XF>(pick(p, m[s + c], ini)) : 0u;
     return make_uint4(w[0], w[1], w[2], w[3]);
   }
 };
 
-// EPI_DEC3: element e is word e of the tile's RGB stream (bytes 4e..4e+3;
-// byte q is channel q % 3 of pixel q / 3).
+// EPI_DEC3, EPI_GRAY3: element e is word e of the tile's RGB stream (bytes
+// 4e..4e+3; byte q is channel q % 3 of pixel q / 3).
+template <int XF = XF_NONE>
 struct GetRgb {
   Map m;
   const int* p;
@@ -168,7 +217,8 @@ struct GetRgb {
   __device__ void pixels(int q, unsigned* px) const {
 #pragma unroll
     for (int k = 0; k < 6; ++k)
-      px[k] = k < N && q + k < lim ? (unsigned)pick(p, m[q + k], ini) : 0u;
+      px[k] = k < N && q + k < lim ? (unsigned)xf<XF>(pick(p, m[q + k], ini))
+                                   : 0u;
   }
   __device__ uint4 vec(int e) const {
     const int q = (4 * e) / 3, sh = 8 * (4 * e - 3 * q);
@@ -250,7 +300,8 @@ __device__ __forceinline__ int encq_chunk_byte(int k, int cur, int meta) {
   return cls == CL_NONE ? 0xFD : (k < flush ? 0xC0 | (pend - 1) : op);
 }
 
-// byte outputs (EPI_MONO1, EPI_ENC3/1/Q): byte s of the tile, s its slot;
+// byte outputs (EPI_MONO1, EPI_GREEN1, EPI_ENC3/1/Q): byte s of the tile,
+// s its slot;
 // t0 the tile's first slot. Slots at and past lim are zero (n_pixels, or
 // the stream's total); an encode's slots from chunk_total on hold the
 // trailing BIGRUN and the end marker (seqoia.h:640-646). The block computes
@@ -269,7 +320,8 @@ struct Bytes {
   __device__ int byte_at(int s) const {
     if (s >= lim) return 0;
     const int i = m[s];
-    if (EPI == EPI_MONO1) return pick(P.p0 + ro, i, P.ini0) & 255;
+    if (EPI == EPI_MONO1 || EPI == EPI_GREEN1)
+      return xf<xf_of(EPI)>(pick(P.p0 + ro, i, P.ini0)) & 255;
     const int t = t0 + s;
     const int tail_pos = t - scal[0];
     if (tail_pos >= 0) {  // only where the row ends its image (lim)
@@ -300,12 +352,14 @@ struct StagedBytes {
   }
 };
 
-// EPI_MONO2: uint16 gray | alpha << 8, zero at and past lim.
+// EPI_MONO2, EPI_GREEN2: uint16 gray | alpha << 8, zero at and past lim.
+template <int XF = XF_NONE>
 struct GetGrayAlpha {
   Map m;
   const int* p;
   int ini, lim;
   __device__ static unsigned ga(int v) {
+    v = xf<XF>(v);
     return (unsigned)((v & 255) | (((v >> 24) & 255) << 8));
   }
   __device__ uint16_t one(int s) const {
@@ -370,8 +424,7 @@ __global__ void __launch_bounds__(NT)
   const int* scal = P.scal + row * P.n_scal;
   // the epilogue's output is zero from slot `end` on: lim live slots here
   long long end = LLONG_MAX;
-  if (EPI == EPI_DEC4 || EPI == EPI_DEC3 || EPI == EPI_MONO1 ||
-      EPI == EPI_MONO2)
+  if (decodes(EPI))
     end = scal[0];
   else if (EPI == EPI_ENC3 || EPI == EPI_ENC1)
     end = (long long)scal[0] + (scal[2] ? 8 + scal[1] : 0);
@@ -379,16 +432,16 @@ __global__ void __launch_bounds__(NT)
     end = (long long)scal[0] + 8 + scal[1];
   const int lim = (int)max(0LL, min((long long)TILE, end - t0));
   const long long u0 =
-      EPI == EPI_DEC3 ? (long long)t0 / 4 * 3 : (long long)t0;
-  const int per_tile = EPI == EPI_DEC3 ? TILE / 4 * 3 : TILE;
+      rgb_words(EPI) ? (long long)t0 / 4 * 3 : (long long)t0;
+  const int per_tile = rgb_words(EPI) ? TILE / 4 * 3 : TILE;
   const int len = (int)min((long long)per_tile, units - u0);
   const long long base = row * units + u0;
   constexpr int W4 = TILE * 4 / 16 / NT;  // int32 vectors a thread
   if (lim == 0) {  // a tile past the live output (encode caps): no search
-    if constexpr (EPI == EPI_MONO2)
+    if constexpr (EPI == EPI_MONO2 || EPI == EPI_GREEN2)
       store_all<W4 / 2>((uint16_t*)out0 + base, len, GetZero{});
-    else if constexpr (EPI == EPI_MONO1 || EPI == EPI_ENC3 ||
-                       EPI == EPI_ENC1 || EPI == EPI_ENCQ)
+    else if constexpr (EPI == EPI_MONO1 || EPI == EPI_GREEN1 ||
+                       EPI == EPI_ENC3 || EPI == EPI_ENC1 || EPI == EPI_ENCQ)
       store_all<W4 / 4>((uint8_t*)out0 + base, len, GetZero{});
     else
       store_all<W4>((int*)out0 + base, len, GetZero{});
@@ -443,22 +496,26 @@ __global__ void __launch_bounds__(NT)
 
   // 4. the epilogue, coalesced
   const Map m{ent};
+  constexpr int XF = xf_of(EPI);
   if constexpr (EPI == EPI_FILL) {
-    store_all<W4>((int*)out0 + base, len, GetWords{m, P.p0 + ro, P.ini0, lim});
+    store_all<W4>((int*)out0 + base, len,
+                  GetWords<>{m, P.p0 + ro, P.ini0, lim});
     if (out1)
-      store_all<W4>(out1 + base, len, GetWords{m, P.p1 + ro, P.ini1, lim});
+      store_all<W4>(out1 + base, len, GetWords<>{m, P.p1 + ro, P.ini1, lim});
     if (out2)
-      store_all<W4>(out2 + base, len, GetWords{m, P.p2 + ro, P.ini2, lim});
+      store_all<W4>(out2 + base, len, GetWords<>{m, P.p2 + ro, P.ini2, lim});
     if (out_keys)
-      store_all<W4>(out_keys + base, len, GetWords{m, keys, P.ini_key, lim});
-  } else if constexpr (EPI == EPI_DEC4) {
-    store_all<W4>((int*)out0 + base, len, GetWords{m, P.p0 + ro, P.ini0, lim});
-  } else if constexpr (EPI == EPI_DEC3) {
+      store_all<W4>(out_keys + base, len,
+                    GetWords<>{m, keys, P.ini_key, lim});
+  } else if constexpr (EPI == EPI_DEC4 || EPI == EPI_GRAY4) {
+    store_all<W4>((int*)out0 + base, len,
+                  GetWords<XF>{m, P.p0 + ro, P.ini0, lim});
+  } else if constexpr (rgb_words(EPI)) {
     store_all<W4 * 3 / 4>((int*)out0 + base, len,
-                          GetRgb{m, P.p0 + ro, P.ini0, lim});
-  } else if constexpr (EPI == EPI_MONO2) {
+                          GetRgb<XF>{m, P.p0 + ro, P.ini0, lim});
+  } else if constexpr (EPI == EPI_MONO2 || EPI == EPI_GREEN2) {
     store_all<W4 / 2>((uint16_t*)out0 + base, len,
-                      GetGrayAlpha{m, P.p0 + ro, P.ini0, lim});
+                      GetGrayAlpha<XF>{m, P.p0 + ro, P.ini0, lim});
   } else {
     __shared__ __align__(16) uint8_t staged[TILE];
     const Bytes<EPI> g{m, P, keys, scal, ro, t0, lim};
@@ -484,7 +541,8 @@ void launch(const Place& P, int B, int n_out, long long units, void* out0,
 
 // keys, p0..p2: (B, mc) i32 (p1/p2 may be null); totals (B,) i32;
 // scal (B, n_scal) i32. out0 is (B, units) of the epilogue's dtype, where
-// units = n_out, or n_out * 3 / 4 for EPI_DEC3; out1, out2 and out_keys
+// units = n_out, or n_out * 3 / 4 for EPI_DEC3 and EPI_GRAY3; out1, out2
+// and out_keys
 // (EPI_FILL only) are (B, n_out) i32 or null. Returns cudaGetLastError.
 extern "C" int k2_place(int epi, const int* keys, const int* p0,
                         const int* p1, const int* p2, const int* totals,
@@ -496,7 +554,7 @@ extern "C" int k2_place(int epi, const int* keys, const int* p0,
   Place P{keys, p0, p1, p2, totals, mc, scal, n_scal,
           ini0, ini1, ini2, ini_key};
   const long long units =
-      epi == EPI_DEC3 ? (long long)n_out * 3 / 4 : (long long)n_out;
+      rgb_words(epi) ? (long long)n_out * 3 / 4 : (long long)n_out;
   switch (epi) {
     case EPI_FILL:
       launch<EPI_FILL>(P, B, n_out, units, out0, out1, out2, out_keys, st);
@@ -521,6 +579,18 @@ extern "C" int k2_place(int epi, const int* keys, const int* p0,
       break;
     case EPI_ENCQ:
       launch<EPI_ENCQ>(P, B, n_out, units, out0, out1, out2, out_keys, st);
+      break;
+    case EPI_GRAY4:
+      launch<EPI_GRAY4>(P, B, n_out, units, out0, out1, out2, out_keys, st);
+      break;
+    case EPI_GRAY3:
+      launch<EPI_GRAY3>(P, B, n_out, units, out0, out1, out2, out_keys, st);
+      break;
+    case EPI_GREEN1:
+      launch<EPI_GREEN1>(P, B, n_out, units, out0, out1, out2, out_keys, st);
+      break;
+    case EPI_GREEN2:
+      launch<EPI_GREEN2>(P, B, n_out, units, out0, out1, out2, out_keys, st);
       break;
     default:
       return (int)cudaErrorInvalidValue;

@@ -11,6 +11,13 @@ them instead (the codec modules define theirs). Both are one kernel,
 16-byte vectors. The plain versions below find each slot's entry with
 ``torch.searchsorted``.
 
+Four epilogues convert channels on the way out (``CONVERSIONS``): a gray
+source to RGB or RGBA words (R = G = B = the gray, the alpha kept) and a
+colour source to gray or gray | alpha bytes (its green), each an existing
+decode epilogue's store over the transformed word; ``place_emit`` counts
+their launches under ``kernels.launches.K2.conv`` as well as under
+``kernels.launches.K2``.
+
 The TPU kernels bound their fill to ``max_gap`` slots past an entry (the
 codec's gaps are bounded wherever the output is live); the port fills
 without a bound, which is the same output wherever that holds, so it has
@@ -30,7 +37,10 @@ from ._plain import to_i32
 
 # epilogue selectors of csrc/engine.cu
 (EPI_FILL, EPI_DEC4, EPI_DEC3, EPI_MONO1, EPI_MONO2, EPI_ENC3, EPI_ENC1,
- EPI_ENCQ) = range(8)
+ EPI_ENCQ, EPI_GRAY4, EPI_GRAY3, EPI_GREEN1, EPI_GREEN2) = range(12)
+# the decode epilogues that convert channels: a gray source to 4 or 3
+# channels, a colour source to 1 or 2
+CONVERSIONS = (EPI_GRAY4, EPI_GRAY3, EPI_GREEN1, EPI_GREEN2)
 # the encode epilogues read the filled keys (each entry's byte offset)
 _KEYED = (EPI_ENC3, EPI_ENC1, EPI_ENCQ)
 
@@ -148,6 +158,8 @@ def place_emit(keys, payloads, totals, scalars, n_out: int, inits,
     out = torch.empty((keys.shape[0], n_out * num // den),
                       dtype=epilogue.dtype, device=keys.device)
     trace.count("kernels.launches.K2")
+    if epilogue.kind in CONVERSIONS:
+        trace.count("kernels.launches.K2.conv")
     _launch(epilogue.kind, keys, payloads,
             totals.to(torch.int32).contiguous(), n_out,
             scalars.to(torch.int32).contiguous(), inits, fill_keys, out)

@@ -25,11 +25,13 @@ call, not a root of its own. Spans nest per thread.
 always: one dict add under a lock, no timing. A root call recorded while
 spans are on keeps the deltas of the counters over it. The program counts
 ``kernels.launches.<id>`` (one a kernel launch; ``K1`` every K1 launch,
-``K1.seg`` those in segment mode and ``K1.mono`` those in mono mode, ``K9``
-the color step and ``K9.mono`` the mono step), ``codec.host_syncs`` (one a
-host read of a device value by the codec, with a count per kind under
-``codec.host_syncs.<kind>``), ``codec.emit.rows`` (one a row whose pixels
-``decode_v2._emit_pixels`` makes from K6's filled words, in the span
+``K1.seg`` those in segment mode and ``K1.mono`` those in mono mode, ``K2``
+every K2 launch and ``K2.conv`` those with a channel-converting epilogue,
+``K9`` the color step and ``K9.mono`` the mono step), ``codec.host_syncs``
+(one a host read of a device value by the codec, with a count per kind
+under ``codec.host_syncs.<kind>``), ``codec.emit.rows`` (one a row whose
+pixels K2 emits with a channel conversion, a gray source at 3/4 channels or
+a colour one at 1/2, and every ``.qoi`` row; the launch runs in the span
 ``codec.emit_pixels`` with ``rows``, ``colch``, ``out_ch`` and ``n_max``)
 and ``parallel.mono.images`` (one an image of a ``BatchDecoder`` class with
 a gray source dispatched to the device).

@@ -150,8 +150,8 @@ def _front(pallas_out, name):
 def test_place_emit_decode_matches_pallas(name, out_ch, pallas_out):
     keys, pays, totals = _front(pallas_out, name)
     npx = convert.tensor(INPUTS[name + "/npx"])[:, None]
-    epi = (decode_v2._dec_epilogue(out_ch) if name == "color"
-           else decode_v2._dec_epilogue_mono(out_ch))
+    epi = (decode_v2._epilogue(3, out_ch) if name == "color"
+           else decode_v2._epilogue(1, out_ch))
     got = engine.place_emit(keys, [pays], totals, npx, 2048, (_INIT,), epi)
     want = pallas_out[f"{name}/emit{out_ch}"]
     assert got.dtype == epi.dtype
@@ -375,14 +375,24 @@ _MODEL_CASES = ["entry on a tile's first slot", "a tile with no entry",
                 "EPI_DEC3 words across a tile edge"]
 _MODEL_EPILOGUES = {
     "fill": None,
-    "decode 4ch": decode_v2._dec_epilogue(4),
-    "decode 3ch": decode_v2._dec_epilogue(3),
-    "decode mono 1ch": decode_v2._dec_epilogue_mono(1),
-    "decode mono 2ch": decode_v2._dec_epilogue_mono(2),
+    "decode 4ch": decode_v2._epilogue(3, 4),
+    "decode 3ch": decode_v2._epilogue(3, 3),
+    "decode mono 1ch": decode_v2._epilogue(1, 1),
+    "decode mono 2ch": decode_v2._epilogue(1, 2),
     "encode color": encode_v2._emit_epilogue(3),
     "encode mono": encode_v2._emit_epilogue(1),
     "encode qoi": encode_v2._compat_epilogue(),
+    "decode gray to 4ch": decode_v2._epilogue(1, 4),
+    "decode gray to 3ch": decode_v2._epilogue(1, 3),
+    "decode colour to 1ch": decode_v2._epilogue(3, 1),
+    "decode colour to 2ch": decode_v2._epilogue(3, 2),
 }
+
+
+def _gray_xf(f):
+    """The kernel's gray word transform (xf<XF_GRAY>): byte 0 to R, G and B,
+    byte 3 kept."""
+    return (f & 255) * 0x010101 | (f & 0xFF000000)
 
 
 @pytest.mark.parametrize("epi_name", list(_MODEL_EPILOGUES))
@@ -391,7 +401,8 @@ def test_tiled_engine_model_matches_plain(case, epi_name):
     """csrc/engine.cu's tiling modelled in PyTorch (search, entry map,
     max-scan fill, store_tile's vectors) against the plain versions: the
     filled streams against _fill_plain, each epilogue's output against
-    place_emit on the CPU. Integer outputs: exact."""
+    place_emit on the CPU (the RGB words, of colour or of gray, as the
+    kernel builds them). Integer outputs: exact."""
     keys, pays, totals, n_out, npx = _model_case(case)
     epi = _MODEL_EPILOGUES[epi_name]
     if epi is None:
@@ -417,6 +428,8 @@ def test_tiled_engine_model_matches_plain(case, epi_name):
     filled = tiled_fill(keys, streams, totals, n_out, inits)
     if epi.kind == engine.EPI_DEC3:
         got = tiled_dec3(filled[0], npx, n_out)
+    elif epi.kind == engine.EPI_GRAY3:
+        got = tiled_dec3(_gray_xf(filled[0]), npx, n_out)
     else:
         got = epi.plain(filled, torch.arange(n_out)[None, :], scal.long())
     assert got.dtype == want.dtype

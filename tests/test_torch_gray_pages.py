@@ -8,9 +8,9 @@ configuration's three aspects. The pages are the benchmark reference's
 Held: every result byte for byte to the reference's decode at channels
 0-4, and its desc's channels 1; the always-on counters of the gray route:
 ``parallel.mono.images`` moved by the page count, on the regular and on the
-packed route, and ``codec.emit.rows`` by the rows ``_emit_pixels`` makes
-(at 3 and 4 channels, which K2 cannot emit; none at 0, 1 and 2), also for a
-``.qoi`` batch; neither for a colour batch. Every K1 call of the gray
+packed route, and ``codec.emit.rows`` by the rows K2 emits with a
+channel conversion (at 3 and 4 channels; none at 0, 1 and 2) and by every
+row of a ``.qoi`` batch; neither for a colour batch. Every K1 call of the gray
 pages asks for K1's mono mode, and none of a colour batch does. (The plain
 K1 on the CPU launches nothing and counts no launch:
 ``test_torch_trace.test_launch_counter`` holds ``kernels.launches.K1.mono``

@@ -245,7 +245,7 @@ def _check_packed(images, ch, seg, out_ch, jax_too=True):
     (3, 3, 8192, 4),    # forced to 4 channels
     (1, 10, 4096, 1),   # gray
     (2, 6, 4096, 2),    # gray + alpha
-    (4, 3, 4096, 1),    # color forced to gray (K6 and the torch emission)
+    (4, 3, 4096, 1),    # color forced to gray (K2's colour-to-gray epilogue)
     (1, 3, 4096, 4),    # gray forced to RGBA
 ])
 def test_decode_stream_packed(ch, n_img, seg, out_ch):

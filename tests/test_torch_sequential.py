@@ -5,7 +5,7 @@ the index fixpoint.
 ``decode_jax.decode_stream_compat`` walks each stream's ops in a
 ``lax.scan`` (no Pallas kernel: its XLA form runs here on the CPU), vmapped
 over a batch; the port takes the same buffers through the tokenizer and K5
-(``decode_compat._ops``), K9 and K6 (``decode_compat._expand``), the path
+(``decode_compat._ops``), K9 and K2 (``decode_compat._expand``), the path
 an unsettled row takes, and every mono row. Mono streams come from
 ``utils.corpus.mono_qoi`` (seeded random ops, decoder-only: no encoder
 writes mono .qoi) and from color .qoi encodes whose header says 1 or 2
@@ -135,7 +135,8 @@ def _mono_streams(rng, ch):
 
 def _mono_k9(streams, out_ch):
     """The port's mono route on _batch(streams): the mono tokenizer and K5,
-    K9's mono step, K6 and _emit_pixels. Returns (pixels, K9's values)."""
+    K9's mono step, and K2's placement and emission (_expand). Returns
+    (pixels, K9's values)."""
     data, clen = _batch(streams)
     npx = np.array([int.from_bytes(s[4:8], "big")
                     * int.from_bytes(s[8:12], "big") for s in streams],
@@ -409,8 +410,8 @@ def _walk_stream(ops, colch):
 def test_walk_model_matches_plain_and_jax(colch, chunk):
     """The model of the kernel's tiled walk, with ``chunk`` ops a chunk, on
     rows of 0, 1, T-1, T, T+1 and 3T+2 ops (T the chunk) and two of a few
-    hundred: against sequential_decode_plain, and its pixels (K6 and
-    _emit_pixels) against the JAX scan at out_ch 1-4."""
+    hundred: against sequential_decode_plain, and its pixels (K2, through
+    _expand) against the JAX scan at out_ch 1-4."""
     rng = np.random.default_rng(1000 + 10 * colch + chunk)
     counts = [0, 1, chunk - 1, chunk, chunk + 1, 3 * chunk + 2, 300, 517]
     streams = [_walk_stream(_walk_ops(rng, n, colch), colch)[0]

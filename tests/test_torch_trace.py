@@ -15,9 +15,9 @@ import torch
 
 import seqoia_tpu_torch as st
 from seqoia_tpu_torch import spec
-from seqoia_tpu_torch.codec import decode_compat
-from seqoia_tpu_torch.ops import (_build, compact, frontend, pack, scan,
-                                  sequential, slots)
+from seqoia_tpu_torch.codec import decode_compat, decode_v2
+from seqoia_tpu_torch.ops import (_build, compact, engine, frontend, pack,
+                                  scan, sequential, slots)
 from seqoia_tpu_torch.utils import corpus, trace
 
 torch.set_num_threads(1)
@@ -98,8 +98,8 @@ def _batch_decode(kind, compat):
 
 
 def _gray_to_rgb_decode():
-    """Two gray streams decoded to RGB: K1 in mono mode, K6 and
-    ``_emit_pixels``."""
+    """Two gray streams decoded to RGB: K1 in mono mode, then K2's
+    gray-to-RGB epilogue in the span ``codec.emit_pixels``."""
     streams = [st.encode(_pixels("smooth", w, h)[: w * h],
                          st.SqoaDesc(w, h, 1, 0, 0), backend="native")
                for w, h in ((48, 40), (40, 48))]
@@ -277,6 +277,12 @@ LAUNCHES = {
     "K1.mono": (lambda w: frontend.decode_front_compact(
         w(torch.zeros((1, 256), dtype=torch.uint8)), _i32(1), 16,
         mode="mono"), {"K1": 1, "K1.mono": 1}),
+    "K2": (lambda w: engine.place_emit(
+        w(_i32(1, 4)), [w(_i32(1, 4))], _i32(1), _i32(1, 1), 16, (0,),
+        decode_v2._epilogue(3, 4)), {"K2": 1}),
+    "K2.conv": (lambda w: engine.place_emit(
+        w(_i32(1, 4)), [w(_i32(1, 4))], _i32(1), _i32(1, 1), 16, (0,),
+        decode_v2._epilogue(1, 3)), {"K2": 1, "K2.conv": 1}),
     "K4": (lambda w: pack.pack_words(w(_i32(1, 12)), 3), {"K4": 1}),
     "K5": (lambda w: compact.compact(w(torch.ones((1, 8), dtype=torch.bool)),
                                      w(_i32(1, 8)), [w(_i32(1, 8))]),

@@ -6,10 +6,12 @@
 Needs two or more NVIDIA GPUs. For each card i, with card 0 the current
 device throughout, the public entry points with ``device="cuda:i"``: SQOA
 encode and decode of a 1024x1024 RGBA photo (K3, K2, K1), the same as
-``.qoi`` (K8, K11, K7, K5, K6, K2), a 2000-link value chain (K9), a mono
+``.qoi`` (K8, K11, K7, K5, K2), a 2000-link value chain (K9), a mono
 ``.qoi`` stream (K9's mono step), a REF stream with ``SEQOIA_REF_CUDA=1``
-(K10), ``encode_large`` of a 2048x2048 RGB image (K4) and ``BatchDecoder``
-on 64 icons (K1's segment mode): every output equal to the native codec's,
+(K10), ``encode_large`` of a 2048x2048 RGB image (K4), ``BatchDecoder``
+on 64 icons (K1's segment mode) and K6's fill of one short row, which no
+entry point launches: every output equal to the native codec's (K6's to
+its plain version),
 and every kernel launched while that card ran (the launch counters set to 0
 before each card). Then ``chip_smoke.py``'s mesh path at full size over
 ``default_mesh()``: the 134 Mpx image through the four large-image
@@ -71,6 +73,7 @@ def _battery(dev):
     import chip_smoke as cs
     import seqoia_tpu_torch as st
     from seqoia_tpu_torch import native
+    from seqoia_tpu_torch.ops import engine
     from seqoia_tpu_torch.utils import corpus
 
     rng = np.random.default_rng(11)
@@ -120,6 +123,13 @@ def _battery(dev):
     run("BatchDecoder icons", lambda: st.BatchDecoder(device=dev)(icons),
         lambda got: all(np.array_equal(r.pixels, native.decode(s, 0)[0])
                         for r, s in zip(got, icons)))
+    keys = torch.tensor([[0, 3, 40, 41, 4000]], dtype=torch.int32)
+    pays = torch.tensor([[7, -8, 9, 10, 11]], dtype=torch.int32)
+    tot = torch.tensor([4], dtype=torch.int32)
+    want = engine._fill_plain(keys, [pays], tot, 4096, (-1,))[0]
+    run("place_fill", lambda: engine.place_fill(
+        keys.to(dev), [pays.to(dev)], tot.to(dev), 4096, (-1,))[0].cpu(),
+        lambda got: torch.equal(got.long(), want))
     return out
 
 
